@@ -1,0 +1,488 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port on one NVIDIA GPU (written for an H100).
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero, and no result line is printed):
+
+1. device: the card's name and power limit (nvidia-smi), torch and CUDA
+   versions;
+2. build: compiles ``src/repro_torch/csrc/tdm_compress.cu`` with nvcc
+   (``sm_90a``) and prints the build time and ptxas' per-kernel report;
+3. kernels: each CUDA kernel against its plain PyTorch version on the card,
+   on a small ragged case and at the slice's shape (one stacked ``(8, P)``
+   float32 buffer of the full-width model): int8 codes, scales and top-k
+   ``dense``/``vals``/``idxs`` bit for bit, the two accumulates within one
+   rounding of the product and of the sum (fused vs unfused multiply-add).
+   Each kernel is timed with CUDA events at the slice's shape (the buffers
+   are ~100x the 50 MB L2, so every launch finds them cold) beside its byte
+   bound at 3.35 TB/s, its plain version and, where one PyTorch call
+   computes the same function, that call;
+4. slice: the port's main path through its user entry points
+   (``repro_torch.launch.train_fl_constellation``): constellation-driven
+   TDM-FLA rounds of mamba2-780m at its published widths, depth cut to 8
+   layers, 8 satellites with satellite 3 lost after round 1, 3 rounds each
+   of compression none / int8 / topk. Launch counters are zeroed just
+   before each mode and read just after. One exchange is also run with the
+   plain versions (``quant_impl="ref"``) on the same input as the kernels.
+
+Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+as the last line. Exits non-zero when no CUDA device is present or the
+repository's ``src/`` is missing.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, at the 700 W limit
+SOURCE = "src/repro_torch/csrc/tdm_compress.cu"
+REPLACES = {
+    "quantize": "src/repro/kernels/tdm_compress/tdm_compress.py:121",
+    "dequant_accumulate": "src/repro/kernels/tdm_compress/tdm_compress.py:172",
+    "topk_sparsify": "src/repro/kernels/tdm_compress/tdm_compress.py:245",
+    "scatter_accumulate": "src/repro/kernels/tdm_compress/tdm_compress.py:292",
+}
+SLICE_NODES = 8
+SLICE_LAYERS = 8            # mamba2-780m has 48; cut for memory (8 stacked nodes)
+SLICE_ROUNDS = 3
+SLICE_SEQ = 256             # tokens per row; 4 rows per node and local step
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+def time_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_device() -> dict:
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
+    log(f"[device] {card}")
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} devices {torch.cuda.device_count()}")
+    return {"card": card, "kind": torch.cuda.get_device_name(0)}
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import build as build_lib
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+
+    t0 = time.perf_counter()
+    kern.library()
+    rec = build_lib.build_record(kern.LIB_NAME)
+    log(f"[build] tdm_compress.cu: nvcc {rec['seconds']:.1f} s "
+        f"(built={rec['built']}), load {time.perf_counter() - t0:.1f} s")
+    for line in rec["ptxas"].splitlines():
+        if "Used" in line or "spill" in line or "Compiling entry" in line:
+            log(f"[build]   {line.strip()}")
+
+
+def _assert_bits(got, want, what: str) -> None:
+    import torch
+
+    same = (got == want)
+    if got.dtype.is_floating_point:
+        same |= torch.isnan(got) & torch.isnan(want)
+    bad = int((~same).sum())
+    check(got.shape == want.shape and bad == 0,
+          f"{what}: {bad} of {want.numel()} entries differ (shapes "
+          f"{tuple(got.shape)} vs {tuple(want.shape)})")
+
+
+def _assert_fma(got, want, prod, what: str) -> float:
+    import torch
+
+    from repro_torch.kernels.tdm_compress.ref import fma_gap_ok
+
+    ok = fma_gap_ok(got, want, prod)
+    bad = int((~ok).sum())
+    check(bad == 0, f"{what}: {bad} entries outside the fused/unfused bound")
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    return float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def _edge_payload(gen, rows: int, n: int, device):
+    """normal payload with ~5% NaN, ~5% +inf, ~5% -inf, and exact ties"""
+    import torch
+
+    x = torch.randn(rows, n, generator=gen, device=device) * 3.0
+    u = torch.rand(rows, n, generator=gen, device=device)
+    x[u < 0.05] = float("nan")
+    x[(u >= 0.05) & (u < 0.10)] = float("inf")
+    x[(u >= 0.10) & (u < 0.15)] = float("-inf")
+    x[(u >= 0.15) & (u < 0.25)] = 1.0
+    x[(u >= 0.25) & (u < 0.30)] = -0.0
+    return x
+
+
+def phase_kernels_small(device) -> None:
+    """Ragged, edge and tie cases at small shapes, every k regime."""
+    import torch
+
+    from repro_torch.kernels.tdm_compress import ref
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    cases = 0
+    for rows, n, block in [(1, 1, 64), (3, 5000, 1024), (2, 777, 64),
+                           (4, 4096, 256), (1, 3000, 128), (2, 1025, 4096)]:
+        for kind in ("normal", "edge"):
+            if kind == "edge":
+                x = _edge_payload(gen, rows, n, device)
+            else:
+                x = torch.randn(rows, n, generator=gen, device=device) * 2.5
+            q, s = kern.quantize_fwd(x, block=block)
+            q_r, s_r = ref.quantize_ref(x, block=block)
+            _assert_bits(q, q_r, f"quantize q {rows}x{n}/{block} {kind}")
+            _assert_bits(s, s_r, f"quantize s {rows}x{n}/{block} {kind}")
+            acc = torch.randn(rows, n, generator=gen, device=device)
+            w = torch.rand(rows, generator=gen, device=device) * 2 - 1
+            prod = w[:, None] * ref.dequantize_ref(q_r, s_r, block)
+            _assert_fma(kern.dequant_accumulate_fwd(q, s, acc, w, block=block),
+                        ref.dequant_acc_ref(q_r, s_r, acc, w, block), prod,
+                        f"dequant_accumulate {rows}x{n}/{block} {kind}")
+            q16 = torch.randint(-127 * 6, 127 * 6 + 1, (rows, n), generator=gen,
+                                device=device).to(torch.int16)
+            prod16 = w[:, None] * ref.dequantize_ref(q16, s_r, block)
+            _assert_fma(kern.dequant_accumulate_fwd(q16, s_r, acc, w, block=block),
+                        ref.dequant_acc_ref(q16, s_r, acc, w, block), prod16,
+                        f"dequant_accumulate int16 {rows}x{n}/{block}")
+            for k in sorted({0, 1, 7, min(64, block), block}):
+                d, v, i = kern.topk_sparsify_fwd(x, k, block=block)
+                d_r, v_r, i_r = ref.topk_sparsify_ref(x, k, block)
+                _assert_bits(d, d_r, f"topk dense {rows}x{n}/{block} k={k} {kind}")
+                _assert_bits(v, v_r, f"topk vals {rows}x{n}/{block} k={k} {kind}")
+                _assert_bits(i, i_r, f"topk idxs {rows}x{n}/{block} k={k} {kind}")
+                if kind == "edge":
+                    continue  # inf * w sums make NaN, compared above as bits
+                got = kern.scatter_accumulate_fwd(v, i, acc, w, block=block)
+                want = ref.scatter_acc_ref(v_r, i_r, acc, w, block)
+                dense_w = ref.scatter_acc_ref(v_r, i_r, torch.zeros_like(acc), 1.0, block)
+                _assert_fma(got, want, w[:, None] * dense_w,
+                            f"scatter_accumulate {rows}x{n}/{block} k={k}")
+                cases += 1
+    torch.cuda.synchronize()
+    log(f"[kernels] small/ragged/edge cases: all equal to the plain versions "
+        f"({cases} scatter cases, blocks 64..4096)")
+
+
+def topk_total(n_leaves: int, padded: int) -> int:
+    """The fused CHOCO budget of the slice (core/fused.py fused_buffer_mix)."""
+    from repro_torch.launch import fl_train
+
+    return min(fl_train.FLConfig().topk_k * n_leaves, padded)
+
+
+def topk_block_budget(n_leaves: int, padded: int, block: int) -> int:
+    """Per-block k of the fused CHOCO round (core/fused.py choco_fused_round)."""
+    return max(1, min(block, -(-topk_total(n_leaves, padded) // (padded // block))))
+
+
+def phase_kernels_slice(device, x, k_b: int, power_note: str) -> list:
+    """Each kernel vs its plain version on the slice's stacked (8, P) params
+    buffer (the trained params of the last mode), timed."""
+    import torch
+
+    from repro_torch.kernels.tdm_compress import ref
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+
+    block = 1024
+    rows, n = x.shape
+    nb = n // block
+    gen = torch.Generator(device=device).manual_seed(11)
+    acc = torch.randn(rows, n, generator=gen, device=device) * 0.02
+    w = torch.rand(rows, generator=gen, device=device) * 0.5
+    elems = rows * n
+    log(f"[kernels] slice shape: ({rows}, {n}) float32 = "
+        f"{elems * 4 / 1e9:.2f} GB per buffer, block {block}, top-k k_b={k_b}")
+    results = []
+
+    def record(name, err, ms, plain_ms, nbytes, library_ms):
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        results.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+        })
+        lib = "null" if library_ms is None else f"{library_ms:.3f}"
+        log(f"[kernels] {name:<19} {ms:8.3f} ms  bound {bound_ms:7.3f} ms "
+            f"({bound_ms / ms:5.1%})  plain {plain_ms:8.3f} ms  library {lib} ms"
+            f"  max_abs_err {err:.3g}  [{power_note}]")
+
+    # 1. quantize
+    q, s = kern.quantize_fwd(x, block=block)
+    q_r, s_r = ref.quantize_ref(x, block=block)
+    _assert_bits(q, q_r, "quantize q at slice shape")
+    _assert_bits(s, s_r, "quantize scales at slice shape")
+    del q_r, s_r
+    ms = time_ms(lambda: kern.quantize_fwd(x, block=block), reps=10)
+    plain = time_ms(lambda: ref.quantize_ref(x, block=block), reps=3)
+    record("quantize", 0.0, ms, plain, elems * 5 + rows * nb * 4, None)
+
+    # 2. dequant_accumulate
+    got = kern.dequant_accumulate_fwd(q, s, acc, w, block=block)
+    want = ref.dequant_acc_ref(q, s, acc, w, block)
+    prod = w[:, None] * ref.dequantize_ref(q, s, block)
+    err = _assert_fma(got, want, prod, "dequant_accumulate at slice shape")
+    del got, want, prod
+    ms = time_ms(lambda: kern.dequant_accumulate_fwd(q, s, acc, w, block=block), reps=10)
+    plain = time_ms(lambda: ref.dequant_acc_ref(q, s, acc, w, block), reps=3)
+    record("dequant_accumulate", err, ms, plain,
+           elems * (1 + 4 + 4) + rows * nb * 4 + rows * 4, None)
+    del q, s
+
+    # 3. topk_sparsify
+    d, v, i = kern.topk_sparsify_fwd(x, k_b, block=block)
+    d_r, v_r, i_r = ref.topk_sparsify_ref(x, k_b, block)
+    _assert_bits(d, d_r, "topk dense at slice shape")
+    _assert_bits(v, v_r, "topk vals at slice shape")
+    _assert_bits(i, i_r, "topk idxs at slice shape")
+    del d, d_r, v_r, i_r
+    ms = time_ms(lambda: kern.topk_sparsify_fwd(x, k_b, block=block), reps=5)
+    plain = time_ms(lambda: ref.topk_sparsify_ref(x, k_b, block), reps=2)
+    xv = x.view(rows * nb, block)
+    lib = time_ms(lambda: torch.topk(xv.abs(), k_b, dim=1), reps=5)
+    record("topk_sparsify", 0.0, ms, plain,
+           elems * 8 + rows * nb * k_b * 8, lib)
+
+    # 4. scatter_accumulate
+    got = kern.scatter_accumulate_fwd(v, i, acc, w, block=block)
+    want = ref.scatter_acc_ref(v, i, acc, w, block)
+    prod = w[:, None] * ref.scatter_acc_ref(v, i, torch.zeros_like(acc), 1.0, block)
+    err = _assert_fma(got, want, prod, "scatter_accumulate at slice shape")
+    del got, want, prod
+    ms = time_ms(lambda: kern.scatter_accumulate_fwd(v, i, acc, w, block=block), reps=10)
+    plain = time_ms(lambda: ref.scatter_acc_ref(v, i, acc, w, block), reps=3)
+    accv = acc.view(rows * nb, block)
+    wv = (w[:, None, None] * v).reshape(rows * nb, k_b)
+    iv = i.reshape(rows * nb, k_b).to(torch.int64)
+    lib = time_ms(lambda: accv.scatter_add(1, iv, wv), reps=10)
+    record("scatter_accumulate", err, ms, plain,
+           elems * 8 + rows * nb * k_b * 8 + rows * 4, lib)
+    del acc, v, i, accv, wv, iv
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return results
+
+
+MODE_KERNELS = {
+    "none": (),
+    "int8": ("quantize", "dequant_accumulate"),
+    "topk": ("topk_sparsify", "scatter_accumulate"),
+}
+
+
+def _mix_bound_ok(got, want, x, n_matchings: int) -> bool:
+    """|got - want| <= 2 (M + 2) ulp(|x|max) per node: one fused-vs-unfused
+    rounding gap per accumulation (tests/test_torch_exchange.py)."""
+    import torch
+
+    rowmax = x.abs().amax(dim=1, keepdim=True)
+    ulp = torch.nextafter(rowmax, torch.full_like(rowmax, float("inf"))) - rowmax
+    return bool(((got - want).abs() <= 2 * (n_matchings + 2) * ulp).all())
+
+
+def _compare_exchange(buf, n_leaves: int, rel, mode: str, n_nodes: int) -> None:
+    """The mode's exchange on the trained params' flat buffer, through the
+    kernels and through the plain versions (``impl="ref"``), same input."""
+    from repro_torch.core import fused, tdm
+    from repro_torch.kernels.tdm_compress import ops
+
+    m = len(tdm.edge_coloring(rel))
+    if mode == "int8":
+        q, s = ops.quantize(buf, impl="cuda")
+        q_r, s_r = ops.quantize(buf, impl="ref")
+        _assert_bits(q, q_r, "slice int8 codes")
+        _assert_bits(s, s_r, "slice int8 scales")
+        del q, s, q_r, s_r
+        got = fused.int8_gossip(buf, rel, n_nodes, impl="cuda")
+        want = fused.int8_gossip(buf, rel, n_nodes, impl="ref")
+        check(_mix_bound_ok(got, want, buf, m), "slice int8 mix outside the bound")
+        err = float((got - want).abs().max())
+    else:
+        k_b = topk_block_budget(n_leaves, buf.shape[1], fused.DEFAULT_BLOCK)
+        for a, b, what in zip(ops.topk_sparsify(buf, k=k_b, impl="cuda"),
+                              ops.topk_sparsify(buf, k=k_b, impl="ref"),
+                              ("dense", "vals", "idxs")):
+            _assert_bits(a, b, f"slice top-k {what}")
+        k_total = topk_total(n_leaves, buf.shape[1])
+        zero = tdm.choco_init(buf)
+        got, st = fused.choco_fused_round(buf, zero, rel, n_nodes, k_total, impl="cuda")
+        got_s = st.s
+        del st
+        want, st = fused.choco_fused_round(buf, zero, rel, n_nodes, k_total, impl="ref")
+        check(_mix_bound_ok(got_s, st.s, buf, m), "slice CHOCO accumulator outside the bound")
+        check(_mix_bound_ok(got, want, buf, m), "slice CHOCO mix outside the bound")
+        err = float((got - want).abs().max())
+        del st, got_s, zero
+    del got, want
+    log(f"[slice]   {mode} exchange, kernels vs plain versions on the same "
+        f"input ({m} matchings): codes/selections equal, mix max |diff| {err:.3g}")
+
+
+def phase_slice(device) -> tuple:
+    """The port's main path, each compression mode driven through the
+    launcher's entry point with the launch counters zeroed just before and
+    read just after. Returns (launches per kernel, last mode's params
+    buffer, its top-k block budget)."""
+    import math
+
+    import torch
+
+    from repro_torch import telemetry
+    from repro_torch.core import fused
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+    from repro_torch.launch import train_fl_constellation as tfc
+
+    launches = {name: 0 for name in kern.LAUNCHES}
+    buf = None
+    for mode in ("none", "int8", "topk"):
+        buf = None                  # the previous mode's buffer, 6.2 GB
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        per_round = []
+
+        def on_round(log_):
+            per_round.append((log_, torch.cuda.max_memory_allocated(device)))
+            torch.cuda.reset_peak_memory_stats(device)
+
+        with telemetry.record_scope(tracing=True) as rec:
+            kern.reset_launch_counts()
+            t0 = time.perf_counter()
+            res, scn = tfc.main_tdm(
+                SLICE_ROUNDS, device=device, compression=mode, layers=SLICE_LAYERS,
+                seq=SLICE_SEQ, full_width=True, fail_round=1, on_round=on_round,
+            )
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            counts = kern.launch_counts()
+        def span_s(name):
+            return [sp.dur_us / 1e6 for sp in rec.spans if sp.name == name]
+
+        round_s = span_s("fl.round")
+        for (lg, mem), secs, local, mix in zip(
+                per_round, round_s, span_s("fl.local_steps"), span_s("fl.exchange")):
+            log(f"[slice] {mode:<4} round {lg.round}  loss {lg.loss:.4f}  consensus "
+                f"{lg.consensus:.3e}  links {lg.n_links}  alive {lg.alive}  "
+                f"round {secs:.3f} s (local steps {local:.3f} s, exchange "
+                f"{mix:.3f} s)  max mem {mem / 2**30:.1f} GiB")
+        log(f"[slice] {mode:<4} {len(res.logs)} rounds in {wall:.1f} s; launches "
+            f"{counts}; gathers {rec.get_counter('fl.exchange.gathers'):g} "
+            f"(oracle {rec.get_counter('fl.collectives.collective-permute'):g})")
+        check(len(res.logs) == SLICE_ROUNDS and len(round_s) == SLICE_ROUNDS,
+              f"{mode}: {len(res.logs)} rounds logged")
+        check(all(math.isfinite(lg.loss) and math.isfinite(lg.consensus)
+                  for lg in res.logs), f"{mode}: non-finite loss or consensus")
+        check([lg.alive for lg in res.logs] == [8, 8, 7],
+              f"{mode}: satellite 3 not dropped after round 1")
+        for name in kern.LAUNCHES:
+            if name in MODE_KERNELS[mode]:
+                check(counts[name] > 0, f"{mode}: kernel {name} never launched")
+            else:
+                check(counts[name] == 0, f"{mode}: kernel {name} launched unexpectedly")
+            launches[name] += counts[name]
+        params = res.state["params"]
+        del res
+        spec = fused.cached_spec(params)
+        (bucket,) = spec.buckets
+        buf = fused.flatten_pytree(spec, params)[bucket]
+        n_leaves = spec.n_leaves(bucket)
+        del params
+        torch.cuda.empty_cache()
+        if mode != "none":
+            plan_rels = scn.plan.relations()
+            rel = plan_rels[(SLICE_ROUNDS - 1) % len(plan_rels)].restrict(
+                set(range(SLICE_NODES)) - {tfc.LOST_SATELLITE})
+            _compare_exchange(buf, n_leaves, rel, mode, SLICE_NODES)
+            torch.cuda.empty_cache()
+    k_b = topk_block_budget(n_leaves, buf.shape[1], fused.DEFAULT_BLOCK)
+    return launches, buf, k_b
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: {SRC}/repro_torch not found; run from a checkout "
+              "of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    dev = phase_device()
+    device = torch.device("cuda", 0)
+    phase_build()
+    phase_kernels_small(device)
+    launches, buf, k_b = phase_slice(device)
+    kernels = phase_kernels_slice(device, buf, k_b, dev["card"])
+    for row in kernels:
+        row["launches"] = launches[row["name"]]
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(dev["card"])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": dev["kind"],
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        sys.exit(1)

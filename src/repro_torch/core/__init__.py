@@ -1,0 +1,7 @@
+"""TDM relations, schedules, gossip weights, the stacked TDM exchange and
+the fused flat-buffer engine."""
+
+from repro_torch.core.relation import Relation
+from repro_torch.core.schedule import TDMSchedule
+
+__all__ = ["Relation", "TDMSchedule"]

@@ -1,0 +1,140 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``cuda``; each test skips (from a fixture) when no CUDA device is
+present. Run on a machine with an H100:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+
+Standards as in ``chip_smoke.py``: int8 codes and scales and top-k
+dense/vals/idxs bit for bit; the accumulates within one rounding of the
+product and of the sum (the kernels fuse the multiply-add, the plain
+versions round twice); one int8 and one topk FL round on the small model
+through the kernels, held to the same round through the plain versions.
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _bits(a, b):
+    same = a == b
+    if a.dtype.is_floating_point:
+        same |= torch.isnan(a) & torch.isnan(b)
+    return a.shape == b.shape and bool(same.all())
+
+
+SHAPES = [(1, 1, 64), (3, 5000, 1024), (2, 777, 64), (8, 3 * 1024, 256), (2, 1025, 4096)]
+# the slice's stacked buffer: 8 nodes x the 8-layer mamba2-780m (194,384,896)
+SLICE = (8, 194_384_896, 1024)
+
+
+@pytest.mark.parametrize("rows,n,block", SHAPES + [SLICE])
+def test_quantize_and_dequant_accumulate(device, rows, n, block):
+    from repro_torch.kernels.tdm_compress import ref
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+
+    g = torch.Generator(device=device).manual_seed(n)
+    x = torch.randn(rows, n, generator=g, device=device) * 2
+    q, s = kern.quantize_fwd(x, block=block)
+    q_r, s_r = ref.quantize_ref(x, block)
+    assert _bits(q, q_r) and _bits(s, s_r)
+    acc = torch.randn(rows, n, generator=g, device=device)
+    w = torch.rand(rows, generator=g, device=device)
+    got = kern.dequant_accumulate_fwd(q, s, acc, w, block=block)
+    want = ref.dequant_acc_ref(q, s, acc, w, block)
+    prod = w[:, None] * ref.dequantize_ref(q, s, block)
+    assert bool(ref.fma_gap_ok(got, want, prod).all())
+
+
+@pytest.mark.parametrize("rows,n,block", SHAPES + [SLICE])
+def test_topk_and_scatter_accumulate(device, rows, n, block):
+    from repro_torch.kernels.tdm_compress import ref
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+
+    g = torch.Generator(device=device).manual_seed(n + 1)
+    x = torch.randn(rows, n, generator=g, device=device)
+    x[:, ::5] = 1.0                                    # exact ties
+    acc = torch.randn(rows, n, generator=g, device=device)
+    w = torch.rand(rows, generator=g, device=device)
+    for k in sorted({1, min(7, block), block} if n < 10**6 else {1}):
+        d, v, i = kern.topk_sparsify_fwd(x, k, block=block)
+        d_r, v_r, i_r = ref.topk_sparsify_ref(x, k, block)
+        assert _bits(d, d_r) and _bits(v, v_r) and _bits(i, i_r)
+        got = kern.scatter_accumulate_fwd(v, i, acc, w, block=block)
+        want = ref.scatter_acc_ref(v, i, acc, w, block)
+        dense = ref.scatter_acc_ref(v, i, torch.zeros_like(acc), 1.0, block)
+        assert bool(ref.fma_gap_ok(got, want, w[:, None] * dense).all())
+
+
+@pytest.mark.parametrize("compression", ["int8", "topk"])
+def test_fl_round_through_kernels(device, compression):
+    """One FL round of the smoke model: local AdamW steps, then the round's
+    exchange once through the kernels and once through the plain versions
+    on the same trained params. The kernels must launch, int8 codes and
+    top-k selections must agree exactly, and the mixes within
+    2 (M + 2) ulp(|x|max) per node (one fused-vs-unfused gap per
+    accumulation, see tests/test_torch_exchange.py)."""
+    from repro_torch.configs import archs
+    from repro_torch.constellation.scenario import ScenarioSpec, ShellSpec, build_scenario
+    from repro_torch.core import fl, fused, tdm
+    from repro_torch.kernels.tdm_compress import ops
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+    from repro_torch.launch import fl_train
+    from repro_torch.launch.train_fl_constellation import make_batch_fn
+    from repro_torch.models import registry
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+
+    cfg = archs.smoke_cfg(archs.get("mamba2-780m"))
+    opt = adamw.OptConfig(peak_lr=5e-3, warmup_steps=2, decay_steps=100)
+    scn = build_scenario(ScenarioSpec(shells=(ShellSpec(planes=2, per_plane=4),),
+                                      n_ground=0, steps=4, max_range_km=14_000.0))
+    batch = fl_train.batch_to_device(
+        make_batch_fn(cfg, ShapeConfig("fl", "train", 32, 4), 8)(0), device)
+    rel = scn.plan.relations()[0]
+    state = fl_train._stack_init(0, cfg, opt, 8, device=device)
+    losses = fl_train.local_train(registry.bundle(cfg), opt, state, batch, 2)
+    assert torch.isfinite(losses).all()
+    tdm_cfg = fl.TDMFLAConfig(compression=compression)
+    spec = fused.cached_spec(state["params"])
+    buf = fused.flatten_pytree(spec, state["params"])["float32"]
+    if compression == "int8":
+        q, s = ops.quantize(buf, impl="cuda")
+        q_r, s_r = ops.quantize(buf, impl="ref")
+        assert _bits(q, q_r) and _bits(s, s_r)
+    else:
+        nb = buf.shape[1] // fused.DEFAULT_BLOCK
+        k_total = min(tdm_cfg.topk_k * spec.n_leaves("float32"), buf.shape[1])
+        k_b = max(1, min(fused.DEFAULT_BLOCK, -(-k_total // nb)))  # as choco_fused_round
+        for a, b in zip(ops.topk_sparsify(buf, k=k_b, impl="cuda"),
+                        ops.topk_sparsify(buf, k=k_b, impl="ref")):
+            assert _bits(a, b)
+    mixed = {}
+    for impl in ("cuda", "ref"):
+        before = kern.launch_counts()
+        mixed[impl], _ = fl.tdm_fla_round(state["params"], rel, 8, tdm_cfg, quant_impl=impl)
+        after = kern.launch_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        if impl == "ref":
+            assert sum(launched.values()) == 0
+        elif compression == "int8":
+            assert launched["quantize"] == 1 and launched["dequant_accumulate"] > 0
+        else:
+            assert launched["topk_sparsify"] == 1 and launched["scatter_accumulate"] > 0
+    m = len(tdm.edge_coloring(rel))
+    got = fused.flatten_pytree(spec, mixed["cuda"])["float32"]
+    want = fused.flatten_pytree(spec, mixed["ref"])["float32"]
+    rowmax = buf.abs().amax(dim=1, keepdim=True)
+    ulp = torch.nextafter(rowmax, torch.full_like(rowmax, float("inf"))) - rowmax
+    assert bool(((got - want).abs() <= 2 * (m + 2) * ulp).all())

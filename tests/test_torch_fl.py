@@ -1,0 +1,178 @@
+"""The port's constellation FL slice against the JAX reference.
+
+A child process (this file run as a script, with 8 forced XLA host devices)
+runs the reference ``run_constellation_fl`` for 2 rounds each of int8 and
+top-k (CHOCO) exchange on the mamba2-780m smoke model, satellite 3 lost
+after round 0, and writes its start state, per-round logs and final params
+to an ``.npz``. The port starts from the same state (``state_from_jax``) on
+the same batches and must match.
+
+Tolerances: round 0's loss comes before any exchange, from the same params
+and tokens, so it agrees to float32 rounding (rtol 1e-5). After an exchange
+the two can part in the last bits: the port rounds each multiply-add twice
+where XLA fuses it, and its matmuls sum in another order. That is why this
+is a tolerance and not bit equality: an int8 code on a rounding boundary, or
+a top-1-per-block choice between near-equal magnitudes, could flip. On this
+data none does (largest param gap about 3e-5), so round 1's loss is held to
+rtol 1e-4, the consensus distance to rtol 1e-3 and the final params to an
+absolute 2e-4, well below one int8 code step of these blocks (absmax/127 of
+an O(1) embedding block, times its Metropolis weight).
+"""
+
+from __future__ import annotations
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+N_SATS = 8
+ROUNDS = 2
+SEQ, ROWS = 16, 2
+MODES = ("int8", "topk")
+
+
+def _cfgs(archs, adamw, ShapeConfig):
+    cfg = archs.smoke_cfg(archs.get("mamba2-780m")).replace(compute_dtype="float32")
+    opt_cfg = adamw.OptConfig(peak_lr=5e-3, warmup_steps=2, decay_steps=100)
+    return cfg, opt_cfg, ShapeConfig("fl", "train", SEQ, ROWS)
+
+
+def _reference(out_path: str) -> None:
+    """Child process: the JAX reference on 8 forced host devices."""
+    import jax
+
+    from repro.configs import archs
+    from repro.constellation.scenario import ScenarioSpec, ShellSpec, build_scenario
+    from repro.launch import fl_train
+    from repro.models.config import ShapeConfig
+    from repro.optim import adamw
+    from repro_torch.launch.train_fl_constellation import make_batch_fn
+
+    cfg, opt_cfg, shape = _cfgs(archs, adamw, ShapeConfig)
+    scn = build_scenario(ScenarioSpec(
+        shells=(ShellSpec(planes=2, per_plane=N_SATS // 2),), n_ground=0,
+        steps=4, max_range_km=14_000.0,
+    ))
+    mesh = jax.make_mesh((N_SATS,), ("data",))
+    start = jax.tree.map(
+        np.asarray, fl_train._stack_init(jax.random.PRNGKey(0), cfg, opt_cfg, N_SATS)
+    )
+    out = {}
+    flat, _ = jax.tree_util.tree_flatten_with_path(start)
+    for path, leaf in flat:
+        out["start/" + jax.tree_util.keystr(path)] = leaf
+    for mode in MODES:
+        alive = set(range(N_SATS))
+
+        def on_round(log):
+            if log.round == 0:
+                alive.discard(3)
+
+        state = jax.tree.map(lambda a: jax.numpy.array(a), start)  # donated
+        state, logs = fl_train.run_constellation_fl(
+            cfg, opt_cfg, mesh, N_SATS,
+            fl_train.FLConfig(mode="tdm", local_steps=2, compression=mode),
+            scn.plan, state, make_batch_fn(cfg, shape, N_SATS),
+            rounds=ROUNDS, alive=alive, on_round=on_round,
+        )
+        out[f"{mode}/loss"] = np.array([l.loss for l in logs])
+        out[f"{mode}/consensus"] = np.array([l.consensus for l in logs])
+        out[f"{mode}/links"] = np.array([l.n_links for l in logs])
+        flat, _ = jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, state["params"]))
+        for path, leaf in flat:
+            out[f"{mode}/params/" + jax.tree_util.keystr(path)] = leaf
+    np.savez(out_path, **out)
+
+
+def _unkeystr(d: dict, prefix: str) -> dict:
+    """{prefix + "['a']['b']": leaf} -> nested dict."""
+    tree: dict = {}
+    for key, leaf in d.items():
+        if not key.startswith(prefix):
+            continue
+        parts = [p.strip("'") for p in key[len(prefix):].strip("[]").split("][")]
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+    return tree
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    out = tmp_path_factory.mktemp("torch_fl") / "ref.npz"
+    env = dict(os.environ)
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8 " + env.get("XLA_FLAGS", "")
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = f"{ROOT / 'src'}:{ROOT / 'tests'}:" + env.get("PYTHONPATH", "")
+    proc = subprocess.run(
+        [sys.executable, __file__, str(out)], capture_output=True, text=True,
+        env=env, timeout=900, cwd=ROOT,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return dict(np.load(out))
+
+
+def _port_run(ref: dict, mode: str):
+    from repro_torch.configs import archs
+    from repro_torch.constellation.scenario import ScenarioSpec, ShellSpec, build_scenario
+    from repro_torch.launch import fl_train
+    from repro_torch.launch.train_fl_constellation import make_batch_fn
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.weights import state_from_jax
+
+    cfg, opt_cfg, shape = _cfgs(archs, adamw, ShapeConfig)
+    scn = build_scenario(ScenarioSpec(
+        shells=(ShellSpec(planes=2, per_plane=N_SATS // 2),), n_ground=0,
+        steps=4, max_range_km=14_000.0,
+    ))
+    state = state_from_jax(_unkeystr(ref, "start/"), device="cpu")
+    alive = set(range(N_SATS))
+
+    def on_round(log):
+        if log.round == 0:
+            alive.discard(3)
+
+    return fl_train.run_constellation_fl(
+        cfg, opt_cfg, N_SATS,
+        fl_train.FLConfig(mode="tdm", local_steps=2, compression=mode),
+        scn.plan, state, make_batch_fn(cfg, shape, N_SATS),
+        rounds=ROUNDS, alive=alive, on_round=on_round,
+    )
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("mode", MODES)
+def test_constellation_slice_matches_reference(reference, mode):
+    from repro_torch.weights import to_numpy
+
+    state, logs = _port_run(reference, mode)
+    loss = np.array([l.loss for l in logs])
+    cons = np.array([l.consensus for l in logs])
+    assert [l.alive for l in logs] == [8, 7]
+    np.testing.assert_array_equal([l.n_links for l in logs], reference[f"{mode}/links"])
+    assert np.isfinite(loss).all() and np.isfinite(cons).all()
+    np.testing.assert_allclose(loss[0], reference[f"{mode}/loss"][0], rtol=1e-5)
+    np.testing.assert_allclose(loss[1:], reference[f"{mode}/loss"][1:], rtol=1e-4)
+    np.testing.assert_allclose(cons, reference[f"{mode}/consensus"], rtol=1e-3)
+    want = _unkeystr(reference, f"{mode}/params/")
+    got = to_numpy(state["params"])
+
+    def compare(g, w, path=""):
+        if isinstance(w, dict):
+            for k in w:
+                compare(g[k], w[k], f"{path}/{k}")
+            return
+        np.testing.assert_allclose(g, w, rtol=0, atol=2e-4, err_msg=path)
+
+    compare(got, want)
+
+
+if __name__ == "__main__":
+    _reference(sys.argv[1])
