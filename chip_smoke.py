@@ -10,21 +10,32 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. build: compiles ``src/repro_torch/csrc/tdm_compress.cu`` with nvcc
    (``sm_90a``) and prints the build time and ptxas' per-kernel report;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   on a small ragged case and at the slice's shape (one stacked ``(8, P)``
-   float32 buffer of the full-width model): int8 codes, scales and top-k
-   ``dense``/``vals``/``idxs`` bit for bit, the two accumulates within one
-   rounding of the product and of the sum (fused vs unfused multiply-add).
-   Each kernel is timed with CUDA events at the slice's shape (the buffers
-   are ~100x the 50 MB L2, so every launch finds them cold) beside its byte
-   bound at 3.35 TB/s, its plain version and, where one PyTorch call
-   computes the same function, that call;
-4. slice: the port's main path through its user entry points
+   on small ragged / NaN / inf cases and at the slice's shape (one stacked
+   ``(8, P)`` float32 buffer of the full-width model): int8 codes, scales,
+   codes with given scales (shared ``(nb,)`` and per-row), dequantized
+   values, top-k ``dense``/``vals``/``idxs`` and the unit-weight accumulate
+   bit for bit, the weighted accumulates within one rounding of the product
+   and of the sum (fused vs unfused multiply-add). Each kernel is timed with
+   CUDA events at the slice's shape (the buffers are ~100x the 50 MB L2, so
+   every launch finds them cold) beside its byte bound at 3.35 TB/s, its
+   plain version and, where one PyTorch call computes the same function,
+   that call;
+4. slice 1: the port's TDM path through its user entry points
    (``repro_torch.launch.train_fl_constellation``): constellation-driven
    TDM-FLA rounds of mamba2-780m at its published widths, depth cut to 8
    layers, 8 satellites with satellite 3 lost after round 1, 3 rounds each
    of compression none / int8 / topk. Launch counters are zeroed just
    before each mode and read just after. One exchange is also run with the
-   plain versions (``quant_impl="ref"``) on the same input as the kernels.
+   plain versions (``quant_impl="ref"``) on the same input as the kernels;
+5. slice 2: the ground-segment path through ``main_groundseg`` at the same
+   widths and depth: 6 satellites and 2 ground sinks, hierarchical FedAvg,
+   satellite 2 lost after round 1, 3 rounds each of (none, depth 1),
+   (int8, depth 1) and (int8, depth 2 with a staleness horizon of 1), the
+   counters zeroed before each config. Every round's loss and consensus are
+   finite, the live satellites, pooling, deliveries and coverage are the
+   routing programs', and the gathers and reductions equal the oracle's
+   (the FL loop checks every round). Then one int8 exchange on the trained
+   params, through the kernels and through the plain versions: bit for bit.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line. Exits non-zero when no CUDA device is present or the
@@ -49,11 +60,17 @@ REPLACES = {
     "dequant_accumulate": "src/repro/kernels/tdm_compress/tdm_compress.py:172",
     "topk_sparsify": "src/repro/kernels/tdm_compress/tdm_compress.py:245",
     "scatter_accumulate": "src/repro/kernels/tdm_compress/tdm_compress.py:292",
+    "quantize_scaled": "src/repro/kernels/tdm_compress/tdm_compress.py:211",
+    "dequantize": "src/repro/kernels/tdm_compress/tdm_compress.py:150",
 }
 SLICE_NODES = 8
 SLICE_LAYERS = 8            # mamba2-780m has 48; cut for memory (8 stacked nodes)
 SLICE_ROUNDS = 3
 SLICE_SEQ = 256             # tokens per row; 4 rows per node and local step
+# ground segment: (compression, pipeline depth, staleness horizon)
+GS_CONFIGS = (("none", 1, 0), ("int8", 1, 0), ("int8", 2, 1))
+GS_ROUNDS = 3
+GS_KERNELS = {"none": (), "int8": ("quantize_scaled", "quantize", "dequant_accumulate")}
 
 
 class SmokeFailure(RuntimeError):
@@ -192,6 +209,20 @@ def phase_kernels_small(device) -> None:
             _assert_fma(kern.dequant_accumulate_fwd(q16, s_r, acc, w, block=block),
                         ref.dequant_acc_ref(q16, s_r, acc, w, block), prod16,
                         f"dequant_accumulate int16 {rows}x{n}/{block}")
+            _assert_bits(kern.dequant_accumulate_fwd(q16, s_r, acc, None, block=block),
+                         ref.dequant_acc_ref(q16, s_r, acc, None, block),
+                         f"dequant_accumulate unit weight {rows}x{n}/{block} {kind}")
+            per_row = ref.blockwise_scales_ref(x, block)
+            shared = per_row.amax(dim=0)
+            per_row[0, 0] = float("nan")
+            per_row[-1, -1] = float("inf")
+            for scales, tag in ((shared, "shared"), (per_row, "per-row")):
+                qs = kern.quantize_scaled_fwd(x, scales, block=block)
+                _assert_bits(qs, ref.quantize_scaled_ref(x, scales, block),
+                             f"quantize_scaled {tag} {rows}x{n}/{block} {kind}")
+                _assert_bits(kern.dequantize_fwd(qs, scales, block=block),
+                             ref.dequantize_ref(qs, scales, block),
+                             f"dequantize {tag} {rows}x{n}/{block} {kind}")
             for k in sorted({0, 1, 7, min(64, block), block}):
                 d, v, i = kern.topk_sparsify_fwd(x, k, block=block)
                 d_r, v_r, i_r = ref.topk_sparsify_ref(x, k, block)
@@ -208,7 +239,9 @@ def phase_kernels_small(device) -> None:
                 cases += 1
     torch.cuda.synchronize()
     log(f"[kernels] small/ragged/edge cases: all equal to the plain versions "
-        f"({cases} scatter cases, blocks 64..4096)")
+        f"({cases} scatter cases, blocks 64..4096; quantize_scaled and "
+        f"dequantize with shared and per-row scales, NaN/inf payloads and "
+        f"scales, bit for bit)")
 
 
 def topk_total(n_leaves: int, padded: int) -> int:
@@ -306,6 +339,31 @@ def phase_kernels_slice(device, x, k_b: int, power_note: str) -> list:
     record("scatter_accumulate", err, ms, plain,
            elems * 8 + rows * nb * k_b * 8 + rows * 4, lib)
     del acc, v, i, accv, wv, iv
+    torch.cuda.empty_cache()
+
+    # 5. quantize_scaled, with the relay's shared (nb,) scales: the max over
+    # all rows of each row's blockwise scales
+    s = ref.blockwise_scales_ref(x, block).amax(dim=0)
+    q = kern.quantize_scaled_fwd(x, s, block=block)
+    _assert_bits(q, ref.quantize_scaled_ref(x, s, block), "quantize_scaled at slice shape")
+    ms = time_ms(lambda: kern.quantize_scaled_fwd(x, s, block=block), reps=10)
+    plain = time_ms(lambda: ref.quantize_scaled_ref(x, s, block), reps=3)
+    log("[kernels] quantize_scaled library: null (no single PyTorch call computes "
+        "it: torch.quantize_per_channel clips to [-128, 127], not +-127, and "
+        "returns a quantized tensor, not int8 codes)")
+    record("quantize_scaled", 0.0, ms, plain, elems * 5 + nb * 4, None)
+
+    # 6. dequantize of those codes with the same shared scales
+    got = kern.dequantize_fwd(q, s, block=block)
+    _assert_bits(got, ref.dequantize_ref(q, s, block), "dequantize at slice shape")
+    qv, sv = q.view(rows, nb, block), s.view(1, nb, 1)
+    _assert_bits(torch.mul(qv, sv).view(rows, n), got, "dequantize against torch.mul")
+    del got
+    ms = time_ms(lambda: kern.dequantize_fwd(q, s, block=block), reps=10)
+    plain = time_ms(lambda: ref.dequantize_ref(q, s, block), reps=3)
+    lib = time_ms(lambda: torch.mul(qv, sv), reps=10)
+    record("dequantize", 0.0, ms, plain, elems * 5 + nb * 4, lib)
+    del q, s, qv, sv
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return results
@@ -445,6 +503,145 @@ def phase_slice(device) -> tuple:
     return launches, buf, k_b
 
 
+def _gs_programs(scn, depth: int, stale: int):
+    """What the routing programs say the ground-segment run delivers and
+    covers per round: satellite 2 lost after round 1, replayed with the
+    launcher's schedule (2 antennas, 4 MiB payloads)."""
+    from repro_torch.groundseg import routing
+    from repro_torch.launch import train_fl_constellation as tfc
+
+    rels = list(scn.plan.schedule(antennas=2, payload_bytes=tfc.PAYLOAD_BYTES).tdm)
+    n, sinks = scn.n_nodes, scn.ground_ids
+    router = routing.MultiWindowRouter(n, sinks, max_staleness_windows=stale,
+                                       pipeline_depth=depth)
+    out = []
+    for rnd in range(GS_ROUNDS):
+        live = set(range(n)) - ({tfc.GS_LOST_SATELLITE} if rnd > 1 else set())
+        if depth == 1 and stale == 0:
+            restricted = [r.restrict(live) for r in rels]
+            sources = [v for v in range(n) if v in live and v not in sinks]
+            up = routing.build_relay_program(restricted, n, sinks, sources=sources)
+            down = routing.build_broadcast_program(restricted, n, sinks)
+        else:
+            wp = router.plan_window(rels, alive=live)
+            up, down = wp.uplink, wp.downlink
+        covered = len(down.covered - sinks) if down is not None else 0
+        out.append((up.delivered_count(), covered, up, down))
+    return out
+
+
+def _compare_groundseg_exchange(params, scn) -> None:
+    """One int8 ground-segment exchange on the trained params, through the
+    kernels and through the plain versions (``quant_impl``): bit for bit.
+    The round writes into the params it is given, so the kernels' pass runs
+    on a copy and the plain pass on the params themselves."""
+    import torch
+
+    from repro_torch.core import fused
+    from repro_torch.groundseg import aggregation
+    from repro_torch.pytree import tree_map
+
+    _, _, up, down = _gs_programs(scn, 1, 0)[-1]
+    spec = fused.cached_spec(params)
+    out = {}
+    for impl in ("cuda", "ref"):
+        start = tree_map(torch.clone, params) if impl == "cuda" else params
+        mixed = aggregation.groundseg_round(start, up, down, pool=True,
+                                            compression="int8", quant_impl=impl)
+        del start
+        out[impl] = fused.flatten_pytree(spec, mixed)["float32"]
+        del mixed
+    _assert_bits(out["cuda"], out["ref"], "groundseg int8 exchange, kernels vs plain")
+    log(f"[groundseg] int8 exchange on the trained params ({out['cuda'].shape[0]} x "
+        f"{out['cuda'].shape[1]}), kernels vs plain versions: bit for bit")
+
+
+def phase_groundseg(device) -> dict:
+    """The ground-segment path, each config driven through ``main_groundseg``
+    with the launch counters zeroed just before and read just after.
+    Returns the launches per kernel."""
+    import math
+
+    import torch
+
+    from repro_torch import telemetry
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+    from repro_torch.launch import train_fl_constellation as tfc
+
+    launches = {name: 0 for name in kern.LAUNCHES}
+    params = scn = None
+    for comp, depth, stale in GS_CONFIGS:
+        params = None               # the previous config's params, 6.2 GB
+        tag = f"{comp} depth {depth} staleness {stale}"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        per_round = []
+
+        def on_round(log_):
+            per_round.append((log_, torch.cuda.max_memory_allocated(device)))
+            torch.cuda.reset_peak_memory_stats(device)
+
+        with telemetry.record_scope(tracing=True) as rec:
+            kern.reset_launch_counts()
+            t0 = time.perf_counter()
+            res, scn = tfc.main_groundseg(
+                GS_ROUNDS, device=device, compression=comp, pipeline_depth=depth,
+                max_staleness=stale, layers=SLICE_LAYERS, seq=SLICE_SEQ,
+                full_width=True, on_round=on_round,
+            )
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            counts = kern.launch_counts()
+
+        def span_s(name):
+            return [sp.dur_us / 1e6 for sp in rec.spans if sp.name == name]
+
+        round_s = span_s("groundseg.round" if depth == 1 and stale == 0
+                         else "groundseg.window")
+        for (lg, mem), secs, local, mix in zip(
+                per_round, round_s, span_s("groundseg.local_steps"),
+                span_s("groundseg.exchange")):
+            log(f"[groundseg] {tag} round {lg.round}  loss {lg.loss:.4f}  consensus "
+                f"{lg.consensus:.3e}  delivered {lg.delivered}/{lg.alive}  covered "
+                f"{lg.covered}  {'pooled' if lg.pooled else 'regional'}  round "
+                f"{secs:.3f} s (local steps {local:.3f} s, exchange {mix:.3f} s)  "
+                f"max mem {mem / 2**30:.1f} GiB")
+        gathers = rec.get_counter("groundseg.exchange.gathers")
+        reductions = rec.get_counter("groundseg.exchange.reductions")
+        log(f"[groundseg] {tag}: {len(res.logs)} rounds in {wall:.1f} s; launches "
+            f"{counts}; gathers {gathers:g} (oracle "
+            f"{rec.get_counter('groundseg.collectives.collective-permute'):g}), "
+            f"reductions {reductions:g} (oracle "
+            f"{rec.get_counter('groundseg.collectives.all-reduce'):g})")
+        logs = res.logs
+        check(len(logs) == GS_ROUNDS and len(round_s) == GS_ROUNDS,
+              f"{tag}: {len(logs)} rounds logged")
+        check(all(math.isfinite(lg.loss) and math.isfinite(lg.consensus) for lg in logs),
+              f"{tag}: non-finite loss or consensus")
+        check([lg.alive for lg in logs] == [6, 6, 5],
+              f"{tag}: satellite 2 not dropped after round 1")
+        check([lg.pooled for lg in logs] == [True, False, True], f"{tag}: pooling")
+        want = _gs_programs(scn, depth, stale)
+        check([(lg.delivered, lg.covered) for lg in logs] == [w[:2] for w in want],
+              f"{tag}: delivered/covered differ from the routing programs")
+        check(gathers == rec.get_counter("groundseg.collectives.collective-permute")
+              and reductions == rec.get_counter("groundseg.collectives.all-reduce"),
+              f"{tag}: exchanges issued differ from the oracle")
+        for name in kern.LAUNCHES:
+            if name in GS_KERNELS[comp]:
+                check(counts[name] > 1, f"{tag}: kernel {name} launched {counts[name]} times")
+            else:
+                check(counts[name] == 0, f"{tag}: kernel {name} launched unexpectedly")
+            launches[name] += counts[name]
+        params = res.state["params"]
+        del res
+    torch.cuda.empty_cache()
+    _compare_groundseg_exchange(params, scn)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -468,9 +665,10 @@ def main() -> int:
     phase_build()
     phase_kernels_small(device)
     launches, buf, k_b = phase_slice(device)
+    gs_launches = phase_groundseg(device)
     kernels = phase_kernels_slice(device, buf, k_b, dev["card"])
     for row in kernels:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = launches[row["name"]] + gs_launches[row["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(dev["card"])

@@ -35,6 +35,7 @@ __all__ = [
     "edge_coloring",
     "exchange_matching",
     "gather_count",
+    "gather_rows",
     "get1_meas",
     "get_meas",
     "gossip_avg",
@@ -108,6 +109,18 @@ def exchange_matching(x: torch.Tensor, matching: Relation) -> torch.Tensor:
     out = x.index_select(0, torch.as_tensor(src, device=x.device))
     if idle.any():
         out[torch.as_tensor(np.nonzero(idle)[0], device=x.device)] = 0
+    _GATHERS[0] += 1
+    return out
+
+
+def gather_rows(x: torch.Tensor, pairs) -> torch.Tensor:
+    """One directed exchange of a batch of ``(src, dst)`` sends with unique
+    sources and destinations (the reference's ``ppermute`` of one batch),
+    as the rows that arrive: row k of the result is row ``src_k`` of ``x``,
+    bound for ``dst_k``. Non-destinations receive nothing; the caller puts
+    each row where it lands. Counted as one gather."""
+    src = torch.as_tensor([s for s, _ in pairs], dtype=torch.int64, device=x.device)
+    out = x.index_select(0, src)
     _GATHERS[0] += 1
     return out
 

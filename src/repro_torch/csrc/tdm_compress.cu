@@ -133,15 +133,18 @@ quantize_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
 // ---------------------------------------------------------------------------
 // 2. dequant_accumulate
 // Replaces: tdm_compress.py dequant_accumulate_fwd (_dequant_acc_kernel),
-//           the int8-gossip receive side, once per matching.
+//           the int8-gossip receive side, once per matching, and the
+//           ground-segment relay's fold of the int16 sums at the sinks.
 // Bound: bytes. Reads q (1 B; 2 B for int16) and acc (4 B), writes out
 //        (4 B): 9 B/elem for int8.
 // Design: elementwise, one thread block per payload block so the block's
-//         scale and the row's weight are loaded once; out = fma(w, q*s, acc)
-//         with the product rounded first, XLA's contraction of the
-//         reference expression.
+//         scale and the row's weight are loaded once. Weighted (w != null):
+//         out = fma(w, q*s, acc) with the product rounded first, XLA's
+//         contraction of the reference expression. Unit (w == null): the
+//         reference passes the constant 1.0, XLA drops the multiply by it
+//         and contracts what is left, so out = fma(q, s, acc), one rounding.
 // ---------------------------------------------------------------------------
-template <typename QT>
+template <typename QT, bool kUnit>
 __global__ void __launch_bounds__(kThreads)
 dequant_acc_kernel(const QT* __restrict__ q, const float* __restrict__ scales,
                    const float* __restrict__ acc, const float* __restrict__ w,
@@ -149,12 +152,15 @@ dequant_acc_kernel(const QT* __restrict__ q, const float* __restrict__ scales,
                    int block) {
   const BlockRef b = block_ref(row_len, nb_row, block);
   const float s = scales[b.bid];
-  const float wr = w[b.row];
+  const float wr = kUnit ? 1.0f : w[b.row];
   const QT* qb = q + b.offset;
   const float* ab = acc + b.offset;
   float* ob = out + b.offset;
-  for (int i = threadIdx.x; i < b.len; i += blockDim.x)
-    ob[i] = __fmaf_rn(wr, __fmul_rn(static_cast<float>(qb[i]), s), ab[i]);
+  for (int i = threadIdx.x; i < b.len; i += blockDim.x) {
+    const float v = static_cast<float>(qb[i]);
+    ob[i] = kUnit ? __fmaf_rn(v, s, ab[i])
+                  : __fmaf_rn(wr, __fmul_rn(v, s), ab[i]);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -267,7 +273,80 @@ scatter_acc_kernel(const float* __restrict__ vals,
     ob[i] = __fmaf_rn(wr, contrib[i], ab[i]);
 }
 
+// ---------------------------------------------------------------------------
+// 5. quantize_scaled
+// Replaces: tdm_compress.py quantize_scaled_fwd (_quant_scaled_kernel), the
+//           ground-segment relay's encode with scales shared by all nodes.
+// Bound: bytes. Reads x (4 B) and writes q (1 B) per element, plus 4 B per
+//        block of scales: 5 B/elem.
+// Design: one thread block per (row, block), float4 loads where aligned.
+//         The scale of block j of row r is scales[r * scale_row_stride + j]:
+//         stride 0 reads one (nb,) vector shared by every row, stride nb a
+//         per-row (rows, nb) one. The divisor is a runtime value in the
+//         reference, so this is a true division (__fdiv_rn), then rintf
+//         (half to even) and the clip; NaN codes become 0.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+quantize_scaled_kernel(const float* __restrict__ x,
+                       const float* __restrict__ scales,
+                       int8_t* __restrict__ q, int64_t row_len, int64_t nb_row,
+                       int block, int64_t scale_row_stride) {
+  const BlockRef b = block_ref(row_len, nb_row, block);
+  const int64_t j = b.bid - b.row * nb_row;
+  const float scale = scales[b.row * scale_row_stride + j];
+  const float* xb = x + b.offset;
+  int8_t* qb = q + b.offset;
+  const bool vec = (b.len % 4 == 0) &&
+                   (reinterpret_cast<uintptr_t>(xb) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(qb) % 4 == 0);
+  if (vec) {
+    const float4* x4 = reinterpret_cast<const float4*>(xb);
+    char4* q4 = reinterpret_cast<char4*>(qb);
+    for (int i = threadIdx.x; i < b.len / 4; i += blockDim.x) {
+      const float4 v = x4[i];
+      q4[i] = make_char4(quantize_one(v.x, scale), quantize_one(v.y, scale),
+                         quantize_one(v.z, scale), quantize_one(v.w, scale));
+    }
+  } else {
+    for (int i = threadIdx.x; i < b.len; i += blockDim.x)
+      qb[i] = quantize_one(xb[i], scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 6. dequantize
+// Replaces: tdm_compress.py dequantize_fwd (_dequant_kernel), q * scale.
+// Bound: bytes. Reads q (1 B) and writes x (4 B) per element, plus 4 B per
+//        block of scales: 5 B/elem.
+// Design: elementwise, one thread block per (row, block) so the block's
+//         scale is loaded once; scales addressed as in quantize_scaled. The
+//         product is rounded once (__fmul_rn), as the reference's multiply.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+dequantize_kernel(const int8_t* __restrict__ q,
+                  const float* __restrict__ scales, float* __restrict__ out,
+                  int64_t row_len, int64_t nb_row, int block,
+                  int64_t scale_row_stride) {
+  const BlockRef b = block_ref(row_len, nb_row, block);
+  const int64_t j = b.bid - b.row * nb_row;
+  const float s = scales[b.row * scale_row_stride + j];
+  const int8_t* qb = q + b.offset;
+  float* ob = out + b.offset;
+  for (int i = threadIdx.x; i < b.len; i += blockDim.x)
+    ob[i] = __fmul_rn(static_cast<float>(qb[i]), s);
+}
+
 inline int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
+
+template <typename QT, bool kUnit>
+void dequant_acc_grid(const void* q, const void* scales, const void* acc,
+                      const void* w, void* out, int64_t grid, int64_t row_len,
+                      int64_t nb_row, int64_t block, cudaStream_t st) {
+  dequant_acc_kernel<QT, kUnit><<<grid, kThreads, 0, st>>>(
+      static_cast<const QT*>(q), static_cast<const float*>(scales),
+      static_cast<const float*>(acc), static_cast<const float*>(w),
+      static_cast<float*>(out), row_len, nb_row, static_cast<int>(block));
+}
 
 }  // namespace
 
@@ -284,6 +363,7 @@ int tdm_quantize(const void* x, void* q, void* scales, int64_t rows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// w == nullptr selects the unit-weight form, fma(q, s, acc)
 static int dequant_acc_launch(int q_bits, const void* q, const void* scales,
                               const void* acc, const void* w, void* out,
                               int64_t rows, int64_t row_len, int64_t block,
@@ -291,16 +371,21 @@ static int dequant_acc_launch(int q_bits, const void* q, const void* scales,
   const int64_t nb_row = cdiv(row_len, block);
   if (rows * nb_row == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t grid = rows * nb_row;
   if (q_bits == 8) {
-    dequant_acc_kernel<int8_t><<<rows * nb_row, kThreads, 0, st>>>(
-        static_cast<const int8_t*>(q), static_cast<const float*>(scales),
-        static_cast<const float*>(acc), static_cast<const float*>(w),
-        static_cast<float*>(out), row_len, nb_row, static_cast<int>(block));
+    if (w == nullptr)
+      dequant_acc_grid<int8_t, true>(q, scales, acc, w, out, grid, row_len,
+                                     nb_row, block, st);
+    else
+      dequant_acc_grid<int8_t, false>(q, scales, acc, w, out, grid, row_len,
+                                      nb_row, block, st);
   } else {
-    dequant_acc_kernel<int16_t><<<rows * nb_row, kThreads, 0, st>>>(
-        static_cast<const int16_t*>(q), static_cast<const float*>(scales),
-        static_cast<const float*>(acc), static_cast<const float*>(w),
-        static_cast<float*>(out), row_len, nb_row, static_cast<int>(block));
+    if (w == nullptr)
+      dequant_acc_grid<int16_t, true>(q, scales, acc, w, out, grid, row_len,
+                                      nb_row, block, st);
+    else
+      dequant_acc_grid<int16_t, false>(q, scales, acc, w, out, grid, row_len,
+                                       nb_row, block, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -348,6 +433,34 @@ int tdm_scatter_acc(const void* vals, const void* idxs, const void* acc,
       static_cast<const float*>(acc), static_cast<const float*>(w),
       static_cast<float*>(out), row_len, nb_row, static_cast<int>(block),
       static_cast<int>(k));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scale_row_stride: 0 when one (nb,) vector of scales serves every row,
+// nb for per-row (rows, nb) scales.
+int tdm_quantize_scaled(const void* x, const void* scales, void* q,
+                        int64_t rows, int64_t row_len, int64_t block,
+                        int64_t scale_row_stride, void* stream) {
+  const int64_t nb_row = cdiv(row_len, block);
+  if (rows * nb_row == 0) return 0;
+  quantize_scaled_kernel<<<rows * nb_row, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(scales),
+      static_cast<int8_t*>(q), row_len, nb_row, static_cast<int>(block),
+      scale_row_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int tdm_dequantize(const void* q, const void* scales, void* out, int64_t rows,
+                   int64_t row_len, int64_t block, int64_t scale_row_stride,
+                   void* stream) {
+  const int64_t nb_row = cdiv(row_len, block);
+  if (rows * nb_row == 0) return 0;
+  dequantize_kernel<<<rows * nb_row, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const float*>(scales),
+      static_cast<float*>(out), row_len, nb_row, static_cast<int>(block),
+      scale_row_stride);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,6 +8,8 @@ on any device (the yardstick on the card); ``impl="cuda"`` forces the kernel.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels.tdm_compress import ref
@@ -28,6 +30,27 @@ def quantize(x, *, block: int = 1024, impl: str = "auto"):
     if use_ref(x, impl):
         return ref.quantize_ref(x, block=block)
     return kernel.quantize_fwd(x, block=block)
+
+
+def quantize_scaled(x, scales, *, block: int = 1024, impl: str = "auto"):
+    """int8 codes of x with caller-supplied blockwise scales: ``(nb,)``
+    shared by every row, or ``(rows, nb)``."""
+    if use_ref(x, impl):
+        return ref.quantize_scaled_ref(x, scales, block=block)
+    return kernel.quantize_scaled_fwd(x, scales, block=block)
+
+
+def dequantize(q, scales, *, block: int = 1024, impl: str = "auto"):
+    if use_ref(q, impl):
+        return ref.dequantize_ref(q, scales, block=block)
+    return kernel.dequantize_fwd(q, scales, block=block)
+
+
+def dequantize_payload(q, scales, shape, *, block: int = 1024, impl: str = "auto"):
+    """A flat int8 payload and its blockwise scales -> f32 tensor of
+    ``shape`` (the payload holds at least ``prod(shape)`` codes)."""
+    n = math.prod(shape)
+    return dequantize(q, scales, block=block, impl=impl)[:n].reshape(shape)
 
 
 def dequant_accumulate(q, scales, acc, w, *, block: int = 1024, impl: str = "auto"):

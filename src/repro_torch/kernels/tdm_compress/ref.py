@@ -14,7 +14,9 @@ Rounding: the reference runs under jit, where XLA computes the scale's
 match it bit for bit. XLA also contracts ``acc + w * v`` into a fused
 multiply-add; these eager versions round twice, so the accumulates differ
 from the reference (and from the kernels) by at most one rounding of
-``w * v`` plus one of the sum.
+``w * v`` plus one of the sum. The unit-weight accumulate (``w=None``) is
+the exception: it is computed exactly as the fused form, see
+:func:`dequant_acc_ref`.
 """
 
 from __future__ import annotations
@@ -106,22 +108,67 @@ def quantize_ref(x: torch.Tensor, block: int = 1024) -> Tuple[torch.Tensor, torc
     return q, _per_block(scale, x)
 
 
+def _block_scales(scales: torch.Tensor, rows: int, nb: int) -> torch.Tensor:
+    """(nb,) scales shared by every row, or (rows, nb) -> (rows, nb)."""
+    if scales.dim() == 1 and scales.shape[0] == nb:
+        return scales.reshape(1, nb).expand(rows, nb)
+    return scales.reshape(rows, nb)
+
+
 def quantize_scaled_ref(x: torch.Tensor, scales: torch.Tensor, block: int = 1024) -> torch.Tensor:
-    """Quantize with caller-supplied blockwise scales -> int8 like x."""
+    """Quantize with caller-supplied blockwise scales -> int8 like x. For a
+    stacked (rows, n) payload the scales are (rows, nb), or (nb,) shared by
+    every row (the ground-segment relay's all-node max)."""
     x2 = _rows(x.to(torch.float32))
     xb = _blocks(x2, block)
-    return _unblocks(_encode(xb, scales.reshape(xb.shape[:2])), x2.shape[1], x)
+    return _unblocks(_encode(xb, _block_scales(scales, *xb.shape[:2])), x2.shape[1], x)
 
 
 def dequantize_ref(q: torch.Tensor, scale: torch.Tensor, block: int = 1024) -> torch.Tensor:
+    """q * scale per block -> f32 like q; scales as in :func:`quantize_scaled_ref`."""
     q2 = _rows(q)
     qb = _blocks(q2, block).to(torch.float32)
-    return _unblocks(qb * scale.reshape(qb.shape[:2])[..., None], q2.shape[1], q)
+    return _unblocks(qb * _block_scales(scale, *qb.shape[:2])[..., None], q2.shape[1], q)
+
+
+def _fma_rows(q2: torch.Tensor, scale: torch.Tensor, acc2: torch.Tensor,
+              block: int) -> torch.Tensor:
+    """Correctly rounded float32 ``acc + q * scale`` (one rounding, as a
+    fused multiply-add), one row at a time. In float64 ``q * scale`` is
+    exact (at most 16 + 24 significant bits); the sum is rounded to odd
+    (TwoSum gives its exact error, and an inexact even result moves one
+    step toward the true value), and rounding that to float32 is the
+    correctly rounded sum, the double rounding notwithstanding."""
+    rows, n = acc2.shape
+    nb = -(-n // block)
+    sc = _block_scales(scale, rows, nb)
+    out = torch.empty_like(acc2)
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=acc2.device)
+    for r in range(rows):
+        a = _blocks(q2[r:r + 1], block).to(torch.float64) * sc[r].to(torch.float64)[None, :, None]
+        b = _blocks(acc2[r:r + 1], block).to(torch.float64)
+        d = a + b
+        a_v = d - b
+        b_v = d - a_v
+        err = (a - a_v) + (b - b_v)
+        even = (d.view(torch.int64) & 1) == 0
+        fix = torch.isfinite(d) & (err != 0) & even
+        d = torch.where(fix, torch.nextafter(d, torch.where(err > 0, inf, -inf)), d)
+        out[r] = d.to(torch.float32).reshape(-1)[:n]
+    return out
 
 
 def dequant_acc_ref(q: torch.Tensor, scale: torch.Tensor, acc: torch.Tensor, w,
                     block: int = 1024) -> torch.Tensor:
-    """acc + w * dequant(q, scale); q int8 (gossip) or int16 (relay sums)."""
+    """acc + w * dequant(q, scale); q int8 (gossip) or int16 (relay sums).
+
+    ``w=None`` is the unit weight the ground segment passes as the constant
+    1.0: under jit XLA drops the multiply by it and contracts the rest into
+    ``fma(q, scale, acc)``, one rounding, which this reproduces exactly
+    (and so does the kernel). Scales may be shared, ``(nb,)``, for a
+    stacked q in that form."""
+    if w is None:
+        return _fma_rows(_rows(q), scale, _rows(acc.to(torch.float32)), block).reshape(acc.shape)
     rows = _rows(q).shape[0]
     wr = row_weights(w, rows, acc.device).reshape((rows,) + (1,) * (q.dim() - 1))
     if q.dim() == 1:

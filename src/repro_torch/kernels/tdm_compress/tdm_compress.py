@@ -1,4 +1,4 @@
-"""ctypes wrappers of the four CUDA kernels in ``csrc/tdm_compress.cu``.
+"""ctypes wrappers of the six CUDA kernels in ``csrc/tdm_compress.cu``.
 
 Each wrapper checks what the kernel takes (a CUDA tensor, dtype, contiguity,
 shape, block size) and raises on anything else; it never falls back to the
@@ -10,6 +10,8 @@ first use (:mod:`repro_torch.kernels.build`), never at import.
 Shapes follow :mod:`.ref`: a flat ``(n,)`` payload or a stacked
 ``(rows, n)`` one; per-block tensors carry the same leading ``rows`` axis and
 ``w`` is one float32 weight per row, ``(rows,)`` (a scalar for flat input).
+``quantize_scaled_fwd`` and ``dequantize_fwd`` also take one ``(nb,)`` vector
+of scales shared by every row of a stacked payload.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ LAUNCHES: Dict[str, int] = {
     "dequant_accumulate": 0,
     "topk_sparsify": 0,
     "scatter_accumulate": 0,
+    "quantize_scaled": 0,
+    "dequantize": 0,
 }
 
 
@@ -51,6 +55,8 @@ _SIGNATURES = {
     "tdm_dequant_acc_i16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tdm_topk_sparsify": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tdm_scatter_acc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tdm_quantize_scaled": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "tdm_dequantize": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 _lib = None
 
@@ -120,16 +126,17 @@ def quantize_fwd(x: torch.Tensor, *, block: int = 1024):
 
 def dequant_accumulate_fwd(q: torch.Tensor, scales: torch.Tensor, acc: torch.Tensor,
                            w, *, block: int = 1024) -> torch.Tensor:
-    """acc + w * (q * scale) with one FMA per lane; q int8 or int16."""
+    """acc + w * (q * scale) with one FMA per lane; q int8 or int16.
+    ``w=None`` is the unit weight as XLA compiles it: fma(q, scale, acc)."""
     rows, n, nb = _geometry(q, block)
     _check(q, "q", (torch.int8, torch.int16))
     _check(scales, "scales", (torch.float32,), _block_shape(q, rows, nb))
     _check(acc, "acc", (torch.float32,), q.shape)
-    wt = _weights(w, rows, acc)
+    wt = None if w is None else _weights(w, rows, acc)
     out = torch.empty_like(acc)
     fn = "tdm_dequant_acc_i8" if q.dtype == torch.int8 else "tdm_dequant_acc_i16"
-    _call(fn, q.data_ptr(), scales.data_ptr(), acc.data_ptr(), wt.data_ptr(),
-          out.data_ptr(), rows, n, block)
+    _call(fn, q.data_ptr(), scales.data_ptr(), acc.data_ptr(),
+          None if wt is None else wt.data_ptr(), out.data_ptr(), rows, n, block)
     LAUNCHES["dequant_accumulate"] += 1
     return out
 
@@ -167,4 +174,42 @@ def scatter_accumulate_fwd(vals: torch.Tensor, idxs: torch.Tensor, acc: torch.Te
     _call("tdm_scatter_acc", vals.data_ptr(), idxs.data_ptr(), acc.data_ptr(),
           wt.data_ptr(), out.data_ptr(), rows, n, block, k)
     LAUNCHES["scatter_accumulate"] += 1
+    return out
+
+
+def _scale_row_stride(scales: torch.Tensor, x: torch.Tensor, rows: int, nb: int) -> int:
+    """Check per-block scales of payload ``x``: ``(nb,)`` shared by every row
+    (stride 0) or, for a stacked payload, ``(rows, nb)`` (stride nb)."""
+    _check(scales, "scales", (torch.float32,))
+    if tuple(scales.shape) == (nb,):
+        return 0
+    _check(scales, "scales", (torch.float32,), _block_shape(x, rows, nb))
+    return nb
+
+
+def quantize_scaled_fwd(x: torch.Tensor, scales: torch.Tensor, *,
+                        block: int = 1024) -> torch.Tensor:
+    """x f32 -> q int8 like x, encoded with the caller's blockwise scales
+    (``(nb,)`` shared, or ``(rows, nb)``); one launch."""
+    rows, n, nb = _geometry(x, block)
+    _check(x, "x", (torch.float32,))
+    stride = _scale_row_stride(scales, x, rows, nb)
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    _call("tdm_quantize_scaled", x.data_ptr(), scales.data_ptr(), q.data_ptr(),
+          rows, n, block, stride)
+    LAUNCHES["quantize_scaled"] += 1
+    return q
+
+
+def dequantize_fwd(q: torch.Tensor, scales: torch.Tensor, *,
+                   block: int = 1024) -> torch.Tensor:
+    """q int8 -> q * scale as f32 like q (scales ``(nb,)`` shared, or
+    ``(rows, nb)``); one launch."""
+    rows, n, nb = _geometry(q, block)
+    _check(q, "q", (torch.int8,))
+    stride = _scale_row_stride(scales, q, rows, nb)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _call("tdm_dequantize", q.data_ptr(), scales.data_ptr(), out.data_ptr(),
+          rows, n, block, stride)
+    LAUNCHES["dequantize"] += 1
     return out

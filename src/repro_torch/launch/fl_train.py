@@ -23,6 +23,14 @@ returns, so CHOCO restarts from zeros every round.
 Each round checks that the row gathers it issued equal the static oracle
 :func:`repro_torch.telemetry.expected_tdm_collectives` (the reference checks
 its compiled HLO's collective-permutes against the same oracle).
+
+The ground-segment half (:func:`run_groundseg_fl`) drives sink-based FL:
+satellites train, their params relay to ground sinks along contact-graph
+routes, the sinks FedAvg, and the global model floods back
+(:mod:`repro_torch.groundseg.aggregation`), one-shot or in pipelined,
+delay-tolerant windows. Its rounds hold both the gathers and the all-node
+reductions they issue against
+:func:`repro_torch.groundseg.aggregation.expected_collectives`.
 """
 
 from __future__ import annotations
@@ -34,9 +42,10 @@ import numpy as np
 import torch
 
 from repro_torch import telemetry
-from repro_torch.core import fl, tdm
+from repro_torch.core import fl, fused, tdm
 from repro_torch.core.relation import Relation
 from repro_torch.device import resolve_device
+from repro_torch.groundseg import aggregation, routing
 from repro_torch.models import registry
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
@@ -73,14 +82,15 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 
 def local_train(b, opt_cfg, state: Dict[str, Any], batch: Dict[str, torch.Tensor],
-                local_steps: int) -> torch.Tensor:
+                local_steps: int, rows: Optional[Sequence[int]] = None) -> torch.Tensor:
     """``local_steps`` AdamW steps per node on its own batches; writes the
-    results into the stacked ``state`` rows in place. Returns each node's
-    mean loss over its steps, shape (n,)."""
+    results into the stacked ``state`` rows in place. ``rows`` limits the
+    training to those nodes (default all); the others keep their state and
+    report a NaN loss. Returns each node's mean loss over its steps, (n,)."""
     n = tree_leaves(state["params"])[0].shape[0]
     dev = tree_leaves(state["params"])[0].device
-    losses = torch.zeros((n, local_steps), dtype=torch.float32, device=dev)
-    for i in range(n):
+    losses = torch.full((n, local_steps), float("nan"), dtype=torch.float32, device=dev)
+    for i in range(n) if rows is None else rows:
         node = tree_map(lambda t: t[i], state)
         for h in range(local_steps):
             mb = {k: v[i, h] for k, v in batch.items()}
@@ -295,19 +305,469 @@ def run_constellation_fl(
                           log_every=log_every)
 
 
+# ===========================================================================
+# Ground-segment (centralized / hierarchical) FL over contact-graph routes
+# ===========================================================================
+
+@dataclasses.dataclass(frozen=True)
+class GroundSegConfig:
+    """Config for sink-based FL over the ground segment.
+
+    mode: 'centralized'  -- sinks pool every round over terrestrial backhaul
+                           (one reduction of the sink rows per buffer);
+                           every satellite the downlink reaches gets the
+                           same global.
+          'hierarchical' -- sinks keep regional FedAvg models and pool only
+                           every ``sink_sync_every`` rounds.
+    compression: relay payload encoding ('none' | 'int8' -- blockwise via
+                 the tdm_compress kernels, quantized ONCE end to end: shared
+                 scales, exact int16 relay sums, one dequant at the sink).
+    quant_impl: 'auto' (the CUDA kernels for CUDA tensors, the plain
+                versions for CPU ones) | 'cuda' | 'ref'.
+    pipeline_depth: 1 -- one-shot rounds: uplink then downlink traverse the
+                    window one after the other. 2 -- pipelined: round r's
+                    downlink flood overlaps round r+1's uplink relay inside
+                    one window, on disjoint slot capacity.
+    max_staleness_windows: delay-tolerant horizon -- an undelivered payload
+                    persists (and keeps aging) this many windows before it
+                    is dropped and reported; 0 disables persistence.
+    staleness_decay: sink FedAvg weight of a payload delivered at age
+                    ``a`` is ``staleness_decay ** a``.
+    """
+
+    mode: str = "centralized"
+    sink_sync_every: int = 2
+    compression: str = "none"
+    block: int = 1024
+    quant_impl: str = "auto"
+    pipeline_depth: int = 1
+    max_staleness_windows: int = 0
+    staleness_decay: float = 0.5
+
+    def __post_init__(self):
+        if self.mode not in ("centralized", "hierarchical"):
+            raise ValueError(f"unknown groundseg mode {self.mode!r}")
+        if self.compression not in ("none", "int8"):
+            raise ValueError(
+                f"groundseg compression must be 'none' or 'int8', "
+                f"got {self.compression!r}"
+            )
+        if self.pipeline_depth not in (1, 2):
+            raise ValueError(
+                f"pipeline_depth must be 1 or 2, got {self.pipeline_depth}"
+            )
+        if self.max_staleness_windows < 0:
+            raise ValueError(
+                f"max_staleness_windows must be >= 0, "
+                f"got {self.max_staleness_windows}"
+            )
+        if not (0.0 < self.staleness_decay <= 1.0):
+            raise ValueError(
+                f"staleness_decay must be in (0, 1], got {self.staleness_decay}"
+            )
+
+    @property
+    def pipelined(self) -> bool:
+        """Does this config need the multi-window engine? The trivial
+        config (depth 1, no persistence) takes the one-shot path, which the
+        pipelined engine reproduces bit for bit."""
+        return self.pipeline_depth > 1 or self.max_staleness_windows > 0
+
+    def pool_round(self, rnd: int) -> bool:
+        """Do the sinks reconcile over backhaul this round?"""
+        if self.mode == "centralized":
+            return True
+        return self.sink_sync_every > 0 and rnd % self.sink_sync_every == 0
+
+
+def _sat_rows(n_nodes: int, sinks) -> List[int]:
+    return [v for v in range(n_nodes) if v not in sinks]
+
+
+def _train_satellites(rec, b, opt_cfg, state, batch, local_steps: int,
+                      rows: List[int]) -> torch.Tensor:
+    """The ``groundseg.local_steps`` span: the satellites' local steps (sinks
+    hold their state), ending in a synchronize when tracing."""
+    with rec.span("groundseg.local_steps", cat="compute"):
+        loss = local_train(b, opt_cfg, state, batch, local_steps, rows=rows)
+        _sync_if_tracing(rec, state["params"])
+    return loss
+
+
+def build_groundseg_round(
+    cfg: ModelConfig,
+    opt_cfg: adamw.OptConfig,
+    n_nodes: int,
+    fl_cfg: FLConfig,
+    gs_cfg: GroundSegConfig,
+    uplink,
+    downlink,
+    pool: bool,
+) -> Callable:
+    """One ground-segment FL round: satellites run ``local_steps`` AdamW
+    steps on their own data (sinks hold their state; the reference computes
+    their steps and discards them, the port skips them), then the uplink
+    relay -> sink FedAvg -> downlink broadcast exchange of
+    :func:`repro_torch.groundseg.aggregation.groundseg_round`, in place.
+    Same ``(stacked_state, stacked_batch) -> (stacked_state, losses)``
+    contract as :func:`build_fl_round`; sinks' losses are NaN."""
+    b = registry.bundle(cfg)
+    train_rows = _sat_rows(n_nodes, uplink.sinks)
+
+    def gs_round(state, batch):
+        rec = telemetry.get_recorder()
+        params = state["params"]
+        local_loss = _train_satellites(rec, b, opt_cfg, state, batch,
+                                       fl_cfg.local_steps, train_rows)
+        with rec.span("groundseg.exchange", cat="exchange"), torch.no_grad():
+            aggregation.groundseg_round(
+                params, uplink, downlink, pool=pool,
+                compression=gs_cfg.compression, block=gs_cfg.block,
+                quant_impl=gs_cfg.quant_impl,
+            )
+            _sync_if_tracing(rec, params)
+        return state, local_loss
+
+    return gs_round
+
+
+def build_pipelined_groundseg_round(
+    cfg: ModelConfig,
+    opt_cfg: adamw.OptConfig,
+    n_nodes: int,
+    fl_cfg: FLConfig,
+    gs_cfg: GroundSegConfig,
+    wp,
+    pool: bool,
+) -> Callable:
+    """One pipelined / delay-tolerant window: local training (sinks hold),
+    then :func:`repro_torch.groundseg.aggregation.pipelined_window_round`.
+    Contract: ``(stacked_state, aux, stacked_batch) -> (stacked_state, aux,
+    losses)``, where ``aux = {"carry": .., "pending": ..}`` are the stacked
+    payload-queue and pending-global buffers, kept on the device across
+    windows and updated in place."""
+    b = registry.bundle(cfg)
+    train_rows = _sat_rows(n_nodes, wp.uplink.sinks)
+
+    def window_round(state, aux, batch):
+        rec = telemetry.get_recorder()
+        params = state["params"]
+        local_loss = _train_satellites(rec, b, opt_cfg, state, batch,
+                                       fl_cfg.local_steps, train_rows)
+        with rec.span("groundseg.exchange", cat="exchange"), torch.no_grad():
+            aggregation.pipelined_window_round(
+                params, aux["carry"], aux["pending"], wp, pool=pool,
+                staleness_decay=gs_cfg.staleness_decay,
+                compression=gs_cfg.compression, block=gs_cfg.block,
+                quant_impl=gs_cfg.quant_impl,
+            )
+            _sync_if_tracing(rec, params)
+        return state, aux, local_loss
+
+    return window_round
+
+
+@dataclasses.dataclass(frozen=True)
+class GroundSegRoundLog:
+    round: int
+    loss: float          # mean over live satellites (sinks excluded)
+    consensus: float     # consensus distance over satellite params
+    delivered: int       # satellite payloads landing at sinks this round
+    covered: int         # satellites the downlink reached
+    unreachable: int     # live satellites with no route to any sink
+    alive: int           # live satellites
+    pooled: bool         # sinks reconciled over backhaul this round
+    carried: int = 0     # payloads persisting to the next window
+    dropped: int = 0     # payloads discarded past the staleness horizon
+    max_age: int = 0     # oldest delivered payload's age (windows)
+
+
+def _record_exchanges(rec, rnd: int, issued: Dict[str, int],
+                      expected: Dict[str, int]) -> None:
+    """The round's gathers and reductions must equal the static oracle (the
+    reference holds its compiled HLO's collectives against it); both are
+    counted on the recorder."""
+    for kind, count in expected.items():
+        if issued[kind] != count:
+            raise RuntimeError(
+                f"round {rnd}: issued {issued[kind]} {kind} exchanges, the "
+                f"oracle expects {count}"
+            )
+    rec.counter("groundseg.exchange.gathers", issued["collective-permute"])
+    rec.counter("groundseg.exchange.reductions", issued["all-reduce"])
+    for kind, count in expected.items():
+        rec.counter(f"groundseg.collectives.{kind}", count)
+
+
+def _exchange_counts() -> Dict[str, int]:
+    """Gathers and all-node reductions issued so far in this process."""
+    return {"collective-permute": tdm.gather_count(),
+            "all-reduce": aggregation.reduction_count()}
+
+
+def _sat_metrics(losses: torch.Tensor, params, live_sats: List[int], log_this: bool):
+    if not (log_this and live_sats):
+        return float("nan"), float("nan")
+    rows = torch.as_tensor(live_sats, device=losses.device)
+    return (float(losses.index_select(0, rows).mean()),
+            consensus_distance(params, rows=live_sats))
+
+
+def run_groundseg_fl(
+    cfg: ModelConfig,
+    opt_cfg,
+    n_nodes: int,
+    fl_cfg: FLConfig,
+    gs_cfg: GroundSegConfig,
+    plan,
+    state: Any,
+    batch_fn: Callable[[int], Any],
+    sinks,
+    rounds: int,
+    alive: Optional[set] = None,
+    on_round: Optional[Callable[[GroundSegRoundLog], None]] = None,
+    optimize: Optional[str] = None,
+    antennas=None,
+    payload_bytes: int = 1 << 20,
+    acquisition_s: float = 0.0,
+    log_every: int = 1,
+):
+    """Centralized/hierarchical FL with ground stations as aggregation
+    sinks, routed over the plan's antenna-constrained TDM schedule.
+
+    ``plan`` must include the ground stations; ``sinks`` are their node ids
+    (satellites first, then ground). Each round: local training, the
+    store-and-forward uplink of every reachable satellite's params along
+    its earliest-delivery route, sink FedAvg (pooled per
+    :meth:`GroundSegConfig.pool_round`), and the global (or regional) model
+    flooding back on the downlink. ``alive`` is read every round (mutable
+    mid-flight); sinks are ground infrastructure and always up. Routing
+    programs are cached per alive set and rebuilt when it changes; round
+    functions per (alive set, pool flag). Every round's gathers and
+    reductions are held against :func:`aggregation.expected_collectives`.
+    When ``gs_cfg.pipelined`` the multi-window engine drives the loop.
+    Only the greedy schedule (``optimize`` None or "greedy") is ported.
+    Returns ``(state, [GroundSegRoundLog, ...])``."""
+    if optimize not in (None, "greedy"):
+        raise NotImplementedError(
+            f"optimize={optimize!r}: the schedule optimizer is not ported yet "
+            "(ROADMAP queue 1)"
+        )
+    sinks_s = frozenset(int(s) for s in sinks)
+    if not sinks_s:
+        raise ValueError("run_groundseg_fl needs at least one sink node id")
+    sched = plan.schedule(
+        antennas=antennas,
+        payload_bytes=payload_bytes,
+        optimize=optimize,
+        acquisition_s=acquisition_s,
+    )
+    base_rels = list(sched.tdm)
+    sat_ids = _sat_rows(n_nodes, sinks_s)
+    if gs_cfg.pipelined:
+        return _run_groundseg_pipelined(
+            cfg, opt_cfg, n_nodes, fl_cfg, gs_cfg, base_rels, state,
+            batch_fn, sinks_s, sat_ids, rounds, alive, on_round, log_every,
+        )
+    rec = telemetry.get_recorder()
+    device = tree_leaves(state["params"])[0].device
+    n_buckets = len(fused.cached_spec(state["params"], block=gs_cfg.block).buckets)
+    prog_cache: Dict[Any, Any] = {}
+    fn_cache: Dict[Any, Any] = {}      # key -> (round fn, expected exchanges)
+    logs: list = []
+    for rnd in range(rounds):
+        live = set(alive) if alive is not None else set(range(n_nodes))
+        live |= sinks_s
+        pool = gs_cfg.pool_round(rnd)
+        live_key = frozenset(live)
+        if live_key not in prog_cache:
+            rec.counter("groundseg.route_cache.misses")
+            rec.event("reroute", cat="routing", round=rnd, alive=len(live))
+            with rec.span("groundseg.route", cat="routing", alive=len(live)):
+                rels = [r.restrict(live) for r in base_rels]
+                table = routing.earliest_delivery_routes(
+                    rels, n_nodes, sinks_s, sources=[v for v in sat_ids if v in live],
+                )
+                up = routing.build_relay_program(rels, n_nodes, sinks_s, table=table)
+                down = routing.build_broadcast_program(rels, n_nodes, sinks_s)
+            prog_cache[live_key] = (up, down)
+        else:
+            rec.counter("groundseg.route_cache.hits")
+        up, down = prog_cache[live_key]
+        fn_key = (live_key, pool)
+        batch = batch_to_device(batch_fn(rnd), device)
+        if fn_key not in fn_cache:
+            rec.counter("groundseg.round_cache.misses")
+            rec.event("retrace", cat="compile", kind="groundseg_round", round=rnd,
+                      pool=pool, cache_size=len(fn_cache))
+            fn_cache[fn_key] = (
+                build_groundseg_round(cfg, opt_cfg, n_nodes, fl_cfg, gs_cfg,
+                                      up, down, pool),
+                aggregation.expected_collectives(
+                    up, down, n_buckets, compression=gs_cfg.compression, pool=pool),
+            )
+        else:
+            rec.counter("groundseg.round_cache.hits")
+        fn, expected = fn_cache[fn_key]
+        with rec.span("groundseg.round", cat="window", round=rnd, pool=pool,
+                      alive=len(live), delivered=up.delivered_count(),
+                      unreachable=len(up.unreachable)):
+            before = _exchange_counts()
+            state, losses = fn(state, batch)
+            issued = {k: v - before[k] for k, v in _exchange_counts().items()}
+            _sync_if_tracing(rec, state["params"])
+        _record_exchanges(rec, rnd, issued, expected)
+        rec.counter("groundseg.rounds")
+        rec.counter("groundseg.payloads.delivered", up.delivered_count())
+        rec.counter("groundseg.payloads.unreachable", len(up.unreachable))
+        live_sats = [v for v in sat_ids if v in live]
+        loss_v, cons_v = _sat_metrics(losses, state["params"], live_sats,
+                                      log_every > 0 and rnd % log_every == 0)
+        log = GroundSegRoundLog(
+            round=rnd,
+            loss=loss_v,
+            consensus=cons_v,
+            delivered=up.delivered_count(),
+            covered=len(down.covered - sinks_s),
+            unreachable=len(up.unreachable),
+            alive=len(live_sats),
+            pooled=pool,
+        )
+        logs.append(log)
+        if on_round is not None:
+            on_round(log)
+    return state, logs
+
+
+def _run_groundseg_pipelined(
+    cfg: ModelConfig,
+    opt_cfg,
+    n_nodes: int,
+    fl_cfg: FLConfig,
+    gs_cfg: GroundSegConfig,
+    base_rels,
+    state: Any,
+    batch_fn: Callable[[int], Any],
+    sinks_s,
+    sat_ids,
+    rounds: int,
+    alive: Optional[set],
+    on_round: Optional[Callable[[GroundSegRoundLog], None]],
+    log_every: int,
+):
+    """The multi-window loop behind :func:`run_groundseg_fl`: one window
+    per round, payload queues persisting in carry buffers on the device, the
+    previous round's global staged in a pending buffer when pipelining."""
+    rec = telemetry.get_recorder()
+    router = routing.MultiWindowRouter(
+        n_nodes,
+        sinks_s,
+        max_staleness_windows=gs_cfg.max_staleness_windows,
+        pipeline_depth=gs_cfg.pipeline_depth,
+    )
+    device = tree_leaves(state["params"])[0].device
+    spec = fused.cached_spec(state["params"], block=gs_cfg.block)
+    n_buckets = len(spec.buckets)
+    aux = {
+        "carry": aggregation.stacked_zero_buffers(spec, n_nodes, device),
+        "pending": aggregation.stacked_zero_buffers(spec, n_nodes, device),
+    }
+    fn_cache: Dict[Any, Any] = {}      # key -> (window fn, expected exchanges)
+    logs: list = []
+    for rnd in range(rounds):
+        live = set(alive) if alive is not None else set(range(n_nodes))
+        live |= sinks_s
+        pool = gs_cfg.pool_round(rnd)
+        with rec.span("groundseg.plan_window", cat="routing", window=rnd):
+            wp = router.plan_window(base_rels, alive=live)
+        key = (frozenset(live), tuple(sorted(wp.ages.items())), pool, wp.downlink is None)
+        batch = batch_to_device(batch_fn(rnd), device)
+        if key not in fn_cache:
+            rec.counter("groundseg.window_cache.misses")
+            rec.event("retrace", cat="compile", kind="groundseg_window",
+                      window=wp.window, pool=pool, ages=dict(wp.ages),
+                      cache_size=len(fn_cache))
+            fn_cache[key] = (
+                build_pipelined_groundseg_round(cfg, opt_cfg, n_nodes, fl_cfg,
+                                                gs_cfg, wp, pool),
+                aggregation.expected_window_collectives(
+                    wp, n_buckets, compression=gs_cfg.compression, pool=pool),
+            )
+        else:
+            rec.counter("groundseg.window_cache.hits")
+        fn, expected = fn_cache[key]
+        with rec.span("groundseg.window", cat="window", window=wp.window, pool=pool,
+                      alive=len(live), queued=len(wp.injected),
+                      delivered=wp.uplink.delivered_count(),
+                      carried=len(wp.residual), dropped=len(wp.dropped)):
+            before = _exchange_counts()
+            state, aux, losses = fn(state, aux, batch)
+            issued = {k: v - before[k] for k, v in _exchange_counts().items()}
+            _sync_if_tracing(rec, state["params"])
+        _record_exchanges(rec, rnd, issued, expected)
+        # payload lifecycle: queued -> relayed -> delivered | carried |
+        # dropped. Counters are default-on; per-payload instants (with
+        # staleness ages) exist only while tracing.
+        rec.counter("groundseg.rounds")
+        rec.counter("groundseg.payloads.queued", len(wp.injected))
+        rec.counter("groundseg.payloads.delivered", wp.uplink.delivered_count())
+        rec.counter("groundseg.payloads.carried", len(wp.residual))
+        rec.counter("groundseg.payloads.dropped", len(wp.dropped))
+        rec.counter("groundseg.payloads.unreachable", len(wp.uplink.unreachable))
+        rec.set_counter(
+            "groundseg.payloads.max_delivered_age",
+            max(rec.get_counter("groundseg.payloads.max_delivered_age"),
+                wp.max_delivered_age()),
+        )
+        if rec.tracing:
+            for src in sorted(wp.injected):
+                rec.event("payload.queued", cat="payload", window=wp.window, source=src)
+            for kind, items in (("delivered", wp.delivered_ages), ("carried", wp.residual),
+                                ("dropped", wp.dropped)):
+                for src, age in sorted(items.items()):
+                    rec.event(f"payload.{kind}", cat="payload", window=wp.window,
+                              source=src, age=age)
+        live_sats = [v for v in sat_ids if v in live]
+        loss_v, cons_v = _sat_metrics(losses, state["params"], live_sats,
+                                      log_every > 0 and rnd % log_every == 0)
+        log = GroundSegRoundLog(
+            round=rnd,
+            loss=loss_v,
+            consensus=cons_v,
+            delivered=wp.uplink.delivered_count(),
+            covered=(len(wp.downlink.covered - sinks_s) if wp.downlink is not None else 0),
+            unreachable=len(wp.uplink.unreachable),
+            alive=len(live_sats),
+            pooled=pool,
+            carried=len(wp.residual),
+            dropped=len(wp.dropped),
+            max_age=wp.max_delivered_age(),
+        )
+        logs.append(log)
+        if on_round is not None:
+            on_round(log)
+    return state, logs
+
+
 CONSENSUS_CHUNK = 1 << 24   # elements per node summed at once, in float64
 
 
-def consensus_distance(stacked_params) -> float:
+def consensus_distance(stacked_params, rows: Optional[Sequence[int]] = None) -> float:
     """Relative L2 distance of the nodes' params from their mean, in float64
-    on the params' device (``CONSENSUS_CHUNK`` elements per node at a time)."""
+    on the params' device (``CONSENSUS_CHUNK`` elements per node at a time).
+    ``rows`` restricts it to those nodes, copying one chunk of their rows at
+    a time, never the rows whole."""
     chunk = CONSENSUS_CHUNK
     num = 0.0
     den = 0.0
     for leaf in tree_leaves(stacked_params):
         flat = leaf.detach().reshape(leaf.shape[0], -1)
+        sel = None if rows is None else torch.as_tensor(list(rows), device=flat.device)
         for start in range(0, flat.shape[1], chunk):
-            arr = flat[:, start:start + chunk].to(torch.float64)
+            arr = flat[:, start:start + chunk]
+            if sel is not None:
+                arr = arr.index_select(0, sel)
+            arr = arr.to(torch.float64)
             mean = arr.mean(dim=0, keepdim=True)
             num += float(torch.square(arr - mean).sum())
             den += float(torch.square(mean).sum()) * arr.shape[0]
@@ -350,10 +810,33 @@ class ConstellationRun:
 
 
 @dataclasses.dataclass
+class GroundSegRun:
+    """Config for :func:`run_groundseg_fl`: ground stations as sinks."""
+
+    cfg: ModelConfig
+    opt_cfg: Any
+    n_nodes: int
+    fl_cfg: FLConfig
+    gs_cfg: GroundSegConfig
+    plan: Any
+    state: Any
+    batch_fn: Callable[[int], Any]
+    sinks: Any = ()
+    rounds: int = 1
+    alive: Optional[set] = None
+    on_round: Optional[Callable[[GroundSegRoundLog], None]] = None
+    optimize: Optional[str] = None
+    antennas: Any = None
+    payload_bytes: int = 1 << 20
+    acquisition_s: float = 0.0
+    log_every: int = 1
+
+
+@dataclasses.dataclass
 class RunResult:
     """Shared return shape of :func:`run`: mode tag + final state + logs."""
 
-    mode: str                    # "tdm" | "constellation"
+    mode: str                    # "tdm" | "constellation" | "groundseg"
     state: Any
     logs: List[Any]
 
@@ -369,8 +852,8 @@ class RunResult:
 
 def run(run_cfg) -> RunResult:
     """One driver entry point: :class:`TDMRun` -> :func:`run_tdm_rounds`,
-    :class:`ConstellationRun` -> :func:`run_constellation_fl`. (The
-    ground-segment mode is not ported yet.)"""
+    :class:`ConstellationRun` -> :func:`run_constellation_fl`,
+    :class:`GroundSegRun` -> :func:`run_groundseg_fl`."""
     if isinstance(run_cfg, TDMRun):
         state, logs = run_tdm_rounds(
             run_cfg.cache, run_cfg.state, run_cfg.relations, run_cfg.batch_fn,
@@ -387,6 +870,17 @@ def run(run_cfg) -> RunResult:
             log_every=run_cfg.log_every,
         )
         return RunResult("constellation", state, logs)
+    if isinstance(run_cfg, GroundSegRun):
+        state, logs = run_groundseg_fl(
+            run_cfg.cfg, run_cfg.opt_cfg, run_cfg.n_nodes, run_cfg.fl_cfg,
+            run_cfg.gs_cfg, run_cfg.plan, run_cfg.state, run_cfg.batch_fn,
+            run_cfg.sinks, run_cfg.rounds, alive=run_cfg.alive,
+            on_round=run_cfg.on_round, optimize=run_cfg.optimize,
+            antennas=run_cfg.antennas, payload_bytes=run_cfg.payload_bytes,
+            acquisition_s=run_cfg.acquisition_s, log_every=run_cfg.log_every,
+        )
+        return RunResult("groundseg", state, logs)
     raise TypeError(
-        f"run() takes a TDMRun / ConstellationRun config, got {type(run_cfg).__name__}"
+        f"run() takes a TDMRun / ConstellationRun / GroundSegRun config, "
+        f"got {type(run_cfg).__name__}"
     )

@@ -5,11 +5,14 @@ present. Run on a machine with an H100:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
-Standards as in ``chip_smoke.py``: int8 codes and scales and top-k
-dense/vals/idxs bit for bit; the accumulates within one rounding of the
-product and of the sum (the kernels fuse the multiply-add, the plain
-versions round twice); one int8 and one topk FL round on the small model
-through the kernels, held to the same round through the plain versions.
+Standards as in ``chip_smoke.py``: int8 codes and scales, codes with given
+(shared or per-row) scales, dequantized values and top-k dense/vals/idxs bit
+for bit; the weighted accumulates within one rounding of the product and of
+the sum (the kernels fuse the multiply-add, the plain versions round twice),
+the unit-weight accumulate bit for bit (both round once); one int8 and one
+topk FL round on the small model through the kernels, held to the same round
+through the plain versions, and the int8 ground-segment exchange through the
+kernels equal to it through the plain versions bit for bit.
 """
 
 from __future__ import annotations
@@ -32,6 +35,10 @@ def _bits(a, b):
     if a.dtype.is_floating_point:
         same |= torch.isnan(a) & torch.isnan(b)
     return a.shape == b.shape and bool(same.all())
+
+
+def _clone(tree):
+    return {k: t.clone() for k, t in tree.items()}
 
 
 SHAPES = [(1, 1, 64), (3, 5000, 1024), (2, 777, 64), (8, 3 * 1024, 256), (2, 1025, 4096)]
@@ -75,6 +82,101 @@ def test_topk_and_scatter_accumulate(device, rows, n, block):
         want = ref.scatter_acc_ref(v, i, acc, w, block)
         dense = ref.scatter_acc_ref(v, i, torch.zeros_like(acc), 1.0, block)
         assert bool(ref.fma_gap_ok(got, want, w[:, None] * dense).all())
+
+
+def _edge(x, g):
+    u = torch.rand(x.shape, generator=g, device=x.device)
+    x[u < 0.03] = float("nan")
+    x[(u >= 0.03) & (u < 0.06)] = float("inf")
+    x[(u >= 0.06) & (u < 0.09)] = float("-inf")
+    x[(u >= 0.09) & (u < 0.12)] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("rows,n,block", SHAPES + [SLICE])
+def test_quantize_scaled_and_dequantize(device, rows, n, block):
+    from repro_torch.kernels.tdm_compress import ref
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+
+    g = torch.Generator(device=device).manual_seed(n + 2)
+    x = torch.randn(rows, n, generator=g, device=device) * 2
+    if n < 10**6:
+        x = _edge(x, g)
+    per_row = ref.blockwise_scales_ref(x, block)
+    shared = per_row.amax(dim=0)
+    if n < 10**6:
+        per_row[0, 0] = float("nan")
+        per_row[-1, -1] = float("inf")
+    for scales in (shared, per_row):
+        q = kern.quantize_scaled_fwd(x, scales, block=block)
+        assert _bits(q, ref.quantize_scaled_ref(x, scales, block))
+        assert _bits(kern.dequantize_fwd(q, scales, block=block),
+                     ref.dequantize_ref(q, scales, block))
+
+
+@pytest.mark.parametrize("rows,n,block", SHAPES + [SLICE])
+def test_unit_weight_dequant_accumulate(device, rows, n, block):
+    """w=None: fma(q, s, acc), one rounding, in the kernel and (exactly, via
+    float64 rounded to odd) in the plain version: bit for bit."""
+    from repro_torch.kernels.tdm_compress import ref
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+
+    g = torch.Generator(device=device).manual_seed(n + 3)
+    nb = -(-n // block)
+    s = torch.rand(rows, nb, generator=g, device=device) * 0.1
+    acc = torch.randn(rows, n, generator=g, device=device) * 10 ** (
+        torch.rand(rows, n, generator=g, device=device) * 12 - 6)
+    for qtype, hi in ((torch.int16, 762), (torch.int8, 127)):
+        q = torch.randint(-hi, hi + 1, (rows, n), generator=g, device=device).to(qtype)
+        assert _bits(kern.dequant_accumulate_fwd(q, s, acc, None, block=block),
+                     ref.dequant_acc_ref(q, s, acc, None, block))
+
+
+def test_groundseg_exchange_through_kernels(device):
+    """The int8 ground-segment round and pipelined window on a stacked
+    smoke-size tree, in the example's sky: through the kernels and through
+    the plain versions, bit for bit; the kernels launch."""
+    from repro_torch.constellation import scenario
+    from repro_torch.core import fused
+    from repro_torch.groundseg import aggregation, routing
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+
+    scn = scenario.build_scenario(scenario.ScenarioSpec(
+        shells=(scenario.ShellSpec(planes=2, per_plane=3),), n_ground=2, steps=4,
+        max_range_km=14_000.0))
+    rels = list(scn.plan.schedule(antennas=2, payload_bytes=1 << 22).tdm)
+    sinks = scn.ground_ids
+    up = routing.build_relay_program(rels, 8, sinks)
+    down = routing.build_broadcast_program(rels, 8, sinks)
+    g = torch.Generator(device=device).manual_seed(9)
+    tree = {"a": torch.randn(8, 70_000, generator=g, device=device),
+            "b": torch.randn(8, 3, 5000, generator=g, device=device) * 0.01}
+    for pool in (True, False):
+        before = kern.launch_counts()
+        got = aggregation.groundseg_round(_clone(tree), up, down, pool=pool,
+                                          compression="int8", quant_impl="cuda")
+        after = kern.launch_counts()
+        assert all(after[k] > before[k] for k in
+                   ("quantize_scaled", "quantize", "dequant_accumulate"))
+        want = aggregation.groundseg_round(_clone(tree), up, down, pool=pool,
+                                           compression="int8", quant_impl="ref")
+        for k in ("a", "b"):
+            assert _bits(got[k], want[k])
+    router = routing.MultiWindowRouter(8, sinks, max_staleness_windows=1, pipeline_depth=2)
+    spec = fused.cached_spec(tree)
+    aux = {impl: (aggregation.stacked_zero_buffers(spec, 8, device),
+                  aggregation.stacked_zero_buffers(spec, 8, device)) for impl in ("cuda", "ref")}
+    params = {impl: _clone(tree) for impl in ("cuda", "ref")}
+    for w in range(2):
+        wp = router.plan_window(rels)
+        for impl in ("cuda", "ref"):
+            params[impl], c, p = aggregation.pipelined_window_round(
+                params[impl], *aux[impl], wp, pool=(w == 0), compression="int8",
+                quant_impl=impl)
+            aux[impl] = (c, p)
+        for k in ("a", "b"):
+            assert _bits(params["cuda"][k], params["ref"][k])
+        assert _bits(aux["cuda"][1]["float32"], aux["ref"][1]["float32"])
 
 
 @pytest.mark.parametrize("compression", ["int8", "topk"])
