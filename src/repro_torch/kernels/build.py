@@ -1,6 +1,7 @@
 """Build a CUDA source of ``repro_torch/csrc`` into a plain-C shared library.
 
-One ``nvcc`` call per source, for ``sm_90a``, into ``build/repro_torch/`` at
+One ``nvcc`` call per source (several sources build in parallel,
+:func:`build_many`), for ``sm_90a``, into ``build/repro_torch/`` at
 the repository root (listed in ``.gitignore``). The library's file name
 carries the source's hash, so an edited source rebuilds on first use and an
 unchanged one loads the library built before. ``-Xptxas -v`` is always on;
@@ -47,42 +48,70 @@ def _nvcc() -> str:
     )
 
 
-def build(name: str) -> Tuple[pathlib.Path, dict]:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source hash
-    exists. Returns ``(library path, record)``; the record holds the
-    compile seconds (0 when reused), whether it was built, and ptxas' report."""
+def _paths(name: str) -> Tuple[pathlib.Path, pathlib.Path, pathlib.Path]:
+    """(source, library, ptxas report) of ``csrc/<name>.cu``; the library's
+    name carries the hash of the source and the flags."""
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
-    log = BUILD_DIR / f"lib{name}-{digest}.ptxas.txt"
-    if lib.exists():
-        report = log.read_text() if log.exists() else ""
-        return lib, {"built": False, "seconds": 0.0, "ptxas": report}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {src}:\n"
-            f"{' '.join(cmd)}\n{proc.stderr}"
-        )
-    report = proc.stdout + proc.stderr
-    log.write_text(report)
-    os.replace(tmp, lib)
-    return lib, {"built": True, "seconds": seconds, "ptxas": report}
+    return src, lib, BUILD_DIR / f"lib{name}-{digest}.ptxas.txt"
+
+
+def build_many(names) -> Dict[str, Tuple[pathlib.Path, dict]]:
+    """Compile every ``csrc/<name>.cu`` of ``names`` that has no library of
+    the same source hash yet, one ``nvcc`` process per source, all started
+    together. Returns ``{name: (library path, record)}``; a record holds the
+    compile seconds (0 when reused), whether it was built, and ptxas' report."""
+    out: Dict[str, Tuple[pathlib.Path, dict]] = {}
+    running = {}
+    for name in dict.fromkeys(names):
+        src, lib, log = _paths(name)
+        if lib.exists():
+            report = log.read_text() if log.exists() else ""
+            out[name] = (lib, {"built": False, "seconds": 0.0, "ptxas": report})
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        running[name] = (proc, cmd, src, lib, log, tmp, time.perf_counter())
+    failures = []
+    for name, (proc, cmd, src, lib, log, tmp, t0) in running.items():
+        stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed ({proc.returncode}) building {src}:\n"
+                            f"{' '.join(cmd)}\n{stderr}")
+            continue
+        report = stdout + stderr
+        log.write_text(report)
+        os.replace(tmp, lib)
+        out[name] = (lib, {"built": True, "seconds": seconds, "ptxas": report})
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return out
+
+
+def build(name: str) -> Tuple[pathlib.Path, dict]:
+    """Compile ``csrc/<name>.cu`` unless a library of the same source hash
+    exists. Returns ``(library path, record)``."""
+    return build_many([name])[name]
+
+
+def load_many(names) -> None:
+    """Build (in parallel, where needed) and load every source of ``names``."""
+    missing = [n for n in names if n not in _LOADED]
+    for name, (path, record) in build_many(missing).items():
+        _LOADED[name] = (ctypes.CDLL(str(path)), record)
 
 
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    if name not in _LOADED:
-        path, record = build(name)
-        _LOADED[name] = (ctypes.CDLL(str(path)), record)
+    load_many([name])
     return _LOADED[name][0]
 
 

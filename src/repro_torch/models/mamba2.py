@@ -1,10 +1,19 @@
-"""Mamba-2 (SSD) mixer, chunked, in PyTorch ops: the training forward.
+"""Mamba-2 (SSD) mixer: training forward, prefill and one-step decode.
 
-Counterpart of the JAX package's ``models/mamba2.py`` (its pure-JAX path,
-which the reference model runs; the Pallas ``ssd_scan`` kernel is not on any
-running path there and is not ported yet). The chunk loop is a Python loop
-carrying the (B, H, P, N) float32 state, where the reference uses
-``lax.scan``. Prefill and decode come with the serving slice.
+Counterpart of the JAX package's ``models/mamba2.py``.
+
+- Training (:func:`mamba_forward`) runs :func:`ssd_chunked`, the reference
+  model's own pure-JAX path in PyTorch ops, with autograd: a Python loop over
+  the chunks carries the (B, H, P, N) float32 state where the reference uses
+  ``lax.scan``.
+- Prefill (:func:`mamba_prefill`) runs the prompt's scan through
+  :func:`repro_torch.kernels.ssd_scan.ops.ssd_scan`: the CUDA kernel on the
+  card, its plain version on the CPU. The scan keeps the intra-chunk weights
+  W in float32, as the Pallas kernel does; the reference's ``ssd_chunked``
+  rounds W to the compute dtype first, so in bf16 the two differ by bf16
+  rounding (ROADMAP queue 3).
+- Decode (:func:`mamba_decode_step`) advances the (ssm, conv) cache
+  (:class:`MambaCache`) one token.
 
 Layout: x (B,S,D) -> z, xc (B,S,di), B, C (B,S,G,N), dt (B,S,Hm); the
 Hm = di / P heads share B/C within each of the G groups.
@@ -13,11 +22,12 @@ Hm = di / P heads share B/C within each of the G groups.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import dtype_of, matmul_f32, rmsnorm, truncated_normal
 
@@ -68,6 +78,20 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tens
     for i in range(K):
         out = out + xp[:, i:i + S, :] * w[i][None, None, :]
     return out + b[None, None, :]
+
+
+def conv_step(x_t: torch.Tensor, conv_state: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single decode step. x_t: (B,C); conv_state: (B,K-1,C). Returns
+    (out (B,C), new_state)."""
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)   # (B,K,C)
+    out = torch.einsum("bkc,kc->bc", window, w) + b[None, :]
+    return out, window[:, 1:, :]
+
+
+class MambaCache(NamedTuple):
+    ssm: torch.Tensor     # (B, Hm, P, N) f32 recurrent state
+    conv: torch.Tensor    # (B, K-1, conv_dim): last K-1 pre-conv [x|B|C] inputs
 
 
 def _project(p, x: torch.Tensor):
@@ -178,3 +202,78 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y = y.reshape(B_, S, di)
     y = rmsnorm(y * F.silu(z.to(torch.float32)).to(y.dtype), p["norm"], cfg.norm_eps)
     return torch.einsum("bsi,id->bsd", y, p["out"].to(y.dtype))
+
+
+def mamba_prefill(p, x: torch.Tensor, cfg: ModelConfig, ssd_impl: str = "auto"
+                  ) -> Tuple[torch.Tensor, MambaCache]:
+    """Prefill: the mixer over the whole prompt, its scan through
+    ``ssd_ops.ssd_scan`` (``ssd_impl`` as there: the kernel for CUDA tensors),
+    plus the decode cache (final state and the conv tail)."""
+    mb = cfg.mamba
+    D = cfg.d_model
+    di, Hm = mb.d_inner(D), mb.n_heads(D)
+    G, N = mb.n_groups, mb.d_state
+    B_, S, _ = x.shape
+    z, xc0, Bv0, Cv0, dt_raw = _project(p, x)
+    # decode conv state: the last K-1 pre-conv inputs, concat layout [x|B|C]
+    K = mb.d_conv
+    conv_tail = torch.cat(
+        [xc0, Bv0.reshape(B_, S, G * N), Cv0.reshape(B_, S, G * N)], dim=-1
+    )[:, S - (K - 1):, :]
+    xc, Bv, Cv = _conv_mix(p, xc0, Bv0, Cv0, cfg)
+    dt = softplus(dt_raw.to(torch.float32) + p["dt_bias"][None, None])
+    A = -torch.exp(p["A_log"])
+    xh = xc.reshape(B_, S, Hm, mb.head_dim)
+    y, final_state = ssd_ops.ssd_scan(xh, dt, A, Bv, Cv, chunk=min(mb.chunk, S),
+                                      impl=ssd_impl)
+    y = y + xh * p["D_skip"][None, None, :, None].to(y.dtype)
+    y = y.reshape(B_, S, di)
+    y = rmsnorm(y * F.silu(z.to(torch.float32)).to(y.dtype), p["norm"], cfg.norm_eps)
+    out = torch.einsum("bsi,id->bsd", y, p["out"].to(y.dtype))
+    return out, MambaCache(ssm=final_state, conv=conv_tail.contiguous())
+
+
+def mamba_decode_step(p, x_t: torch.Tensor, cache: MambaCache, cfg: ModelConfig
+                      ) -> Tuple[torch.Tensor, MambaCache]:
+    """One recurrent step. x_t: (B,1,D) -> (B,1,D)."""
+    mb = cfg.mamba
+    D = cfg.d_model
+    di, Hm = mb.d_inner(D), mb.n_heads(D)
+    P, N, G = mb.head_dim, mb.d_state, mb.n_groups
+    B_ = x_t.shape[0]
+    f32 = torch.float32
+    z, xc, Bv, Cv, dt_raw = _project(p, x_t)
+    cat = torch.cat(
+        [xc[:, 0], Bv.reshape(B_, 1, G * N)[:, 0], Cv.reshape(B_, 1, G * N)[:, 0]],
+        dim=-1,
+    )
+    window = torch.cat([cache.conv, cat[:, None, :]], dim=1)   # (B,K,C)
+    new_conv = window[:, 1:, :]
+    # per-stream convs applied to the shared [x|B|C] window
+    wx = window[..., :di]
+    wB = window[..., di:di + G * N]
+    wC = window[..., di + G * N:]
+    cdt = cat.dtype
+    xc = F.silu(torch.einsum("bkc,kc->bc", wx, p["conv_wx"].to(cdt))
+                + p["conv_bx"].to(cdt)[None])
+    Bv = F.silu(torch.einsum("bkc,kc->bc", wB, p["conv_wB"].to(cdt))
+                + p["conv_bB"].to(cdt)[None]).reshape(B_, G, N)
+    Cv = F.silu(torch.einsum("bkc,kc->bc", wC, p["conv_wC"].to(cdt))
+                + p["conv_bC"].to(cdt)[None]).reshape(B_, G, N)
+    dt = softplus(dt_raw[:, 0].to(f32) + p["dt_bias"][None])
+    A = -torch.exp(p["A_log"])
+
+    xh = xc.reshape(B_, Hm, P)
+    r = Hm // G
+    Bh = Bv[:, :, None, :].expand(B_, G, r, N).reshape(B_, Hm, N)
+    Ch = Cv[:, :, None, :].expand(B_, G, r, N).reshape(B_, Hm, N)
+    decay = torch.exp(dt * A[None])                            # (B,H)
+    new_ssm = decay[:, :, None, None] * cache.ssm + torch.einsum(
+        "bhn,bhp,bh->bhpn", Bh.to(f32), xh.to(f32), dt
+    )
+    y = torch.einsum("bhn,bhpn->bhp", Ch.to(f32), new_ssm)
+    y = y + xh.to(f32) * p["D_skip"][None, :, None]
+    y = y.reshape(B_, 1, di).to(x_t.dtype)
+    y = rmsnorm(y * F.silu(z.to(f32)).to(y.dtype), p["norm"], cfg.norm_eps)
+    out = torch.einsum("bsi,id->bsd", y, p["out"].to(y.dtype))
+    return out, MambaCache(ssm=new_ssm, conv=new_conv.contiguous())

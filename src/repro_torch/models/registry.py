@@ -1,7 +1,9 @@
-"""Model registry: a config -> callable bundle (init and training loss).
+"""Model registry: a config -> callable bundle (init, training loss,
+prefill, decode and the decode cache).
 
-Counterpart of ``bundle`` in the JAX package's ``models/registry.py``.
-Prefill, decode and the dry-run input specs come with later slices.
+Counterpart of ``bundle`` in the JAX package's ``models/registry.py``. The
+dry-run input specs (``input_specs``, ``cache_specs``) have no counterpart:
+they feed the reference's AOT dry run, which the port does not have.
 """
 
 from __future__ import annotations
@@ -25,6 +27,15 @@ class ModelBundle:
 
     def loss_fn(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         return transformer.loss_fn(params, batch, self.cfg)
+
+    def prefill_fn(self, params, batch, max_len: int):
+        return transformer.prefill(params, batch["tokens"], self.cfg, max_len)
+
+    def decode_fn(self, params, cache, batch):
+        return transformer.decode_step(params, cache, batch["token"], self.cfg)
+
+    def init_cache(self, batch: int, max_len: int, device=None):
+        return transformer.init_cache(self.cfg, batch, max_len, device)
 
 
 def bundle(cfg: ModelConfig) -> ModelBundle:

@@ -1,6 +1,16 @@
-"""Flight-recorder telemetry (counters, spans, events, histograms) and the
-exchange-count oracle. Stdlib and numpy only."""
+"""Flight-recorder telemetry (counters, spans, events, histograms), the
+exchange-count oracle, and the route-provenance auditor
+(:func:`audit_window_programs`). Stdlib and numpy only."""
 
+from repro_torch.telemetry.audit import (
+    AuditError,
+    AuditReport,
+    AuditViolation,
+    PayloadTrail,
+    audit_recorder,
+    audit_window_programs,
+    expected_sink_weights,
+)
 from repro_torch.telemetry.metrics import (
     get_gauge,
     get_histogram,
@@ -23,10 +33,17 @@ from repro_torch.telemetry.recorder import (
 )
 
 __all__ = [
+    "AuditError",
+    "AuditReport",
+    "AuditViolation",
     "Event",
+    "PayloadTrail",
     "Recorder",
     "Span",
+    "audit_recorder",
+    "audit_window_programs",
     "counters_snapshot",
+    "expected_sink_weights",
     "expected_tdm_collectives",
     "get_gauge",
     "get_histogram",

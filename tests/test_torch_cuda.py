@@ -12,7 +12,11 @@ the sum (the kernels fuse the multiply-add, the plain versions round twice),
 the unit-weight accumulate bit for bit (both round once); one int8 and one
 topk FL round on the small model through the kernels, held to the same round
 through the plain versions, and the int8 ground-segment exchange through the
-kernels equal to it through the plain versions bit for bit.
+kernels equal to it through the plain versions bit for bit. The SSD-scan
+kernel against its plain version within ``ssd_scan.ref.ssd_tolerance`` (1e-4
+of the output's scale, plus one bf16 ulp for bf16 outputs), y and state
+finite, on ragged cases and on strong decay at chunk 256; and a
+``ModelDecoder`` prefill and decode tick on the card.
 """
 
 from __future__ import annotations
@@ -240,3 +244,87 @@ def test_fl_round_through_kernels(device, compression):
     rowmax = buf.abs().amax(dim=1, keepdim=True)
     ulp = torch.nextafter(rowmax, torch.full_like(rowmax, float("inf"))) - rowmax
     assert bool(((got - want).abs() <= 2 * (m + 2) * ulp).all())
+
+
+# (B, S, H, P, G, N, chunk): chunks 8 to 256 (96: a ragged last tile), 1 to 4
+# chunks, groups 1, 2 and 4, head dims 16 to 64, states 32 to 128
+SSD_CASES = [
+    (2, 8, 4, 64, 1, 128, 8),
+    (3, 32, 4, 64, 2, 128, 8),
+    (1, 128, 2, 16, 1, 32, 32),
+    (1, 128, 8, 64, 4, 128, 64),
+    (2, 192, 4, 32, 2, 64, 64),
+    (1, 192, 4, 64, 1, 128, 96),
+    (2, 1024, 2, 64, 2, 128, 256),
+]
+
+
+def _ssd_inputs(device, case, dtype, strong=False):
+    B, S, H, P, G, N, _ = case
+    g = torch.Generator(device=device).manual_seed(S + H + G)
+    x = torch.randn(B, S, H, P, generator=g, device=device).to(dtype)
+    Bv = torch.randn(B, S, G, N, generator=g, device=device).to(dtype)
+    Cv = torch.randn(B, S, G, N, generator=g, device=device).to(dtype)
+    if strong:
+        dt = 0.05 + 0.05 * torch.rand(B, S, H, generator=g, device=device)
+        A = torch.full((H,), -16.0, device=device)
+    else:
+        dt = torch.nn.functional.softplus(torch.randn(B, S, H, generator=g, device=device))
+        A = -torch.exp(torch.rand(H, generator=g, device=device) * 2 - 1)
+    return x, dt, A, Bv, Cv
+
+
+def _ssd_check(inputs, chunk):
+    from repro_torch.kernels.ssd_scan import ops, ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as kern
+
+    before = kern.launch_counts()["ssd_scan"]
+    y, s = ops.ssd_scan(*inputs, chunk=chunk)
+    assert kern.launch_counts()["ssd_scan"] == before + 1   # CUDA tensors: the kernel
+    y_r, s_r = ops.ssd_scan(*inputs, chunk=chunk, impl="ref")
+    torch.cuda.synchronize()
+    assert y.dtype == inputs[0].dtype and s.dtype == torch.float32
+    for got, want in ((y, y_r), (s, s_r)):
+        ok, err = ref.ssd_close(got, want)
+        assert ok, err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", SSD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_ssd_scan_against_plain(device, case, dtype):
+    _ssd_check(_ssd_inputs(device, case, dtype), case[-1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_ssd_scan_strong_decay_at_published_chunk(device, dtype):
+    """A = -16, dt 0.05-0.1, chunk 256: exp before the mask would be inf
+    above the diagonal; the kernel's y and state are finite and equal."""
+    _ssd_check(_ssd_inputs(device, (2, 512, 4, 64, 1, 128, 256), dtype, strong=True), 256)
+
+
+def test_model_decoder_prefill_and_tick(device):
+    """A two-replica ModelDecoder on the mamba2-780m smoke config (chunk 8)
+    on the card: the prefill launches ssd_scan once per layer, and its first
+    tokens and one decode tick equal a CPU decoder's with the same params
+    (float32 compute; both take the plain SSD version on the CPU side)."""
+    import numpy as np
+
+    from repro_torch.configs import archs
+    from repro_torch.kernels.ssd_scan import ssd_scan as kern
+    from repro_torch.pytree import tree_map
+    from repro_torch.serving import ModelDecoder
+
+    cfg = archs.smoke_cfg(archs.get("mamba2-780m")).replace(compute_dtype="float32")
+    gpu = ModelDecoder(cfg, 2, 2, 40, seed=3, device=device)
+    cpu = ModelDecoder(cfg, 2, 2, 40, seed=3, device="cpu")
+    cpu.params = tree_map(lambda t: t.cpu(), gpu.params)
+    rng = np.random.default_rng(0)
+    waves = {0: [rng.integers(0, 128, 13).astype(np.int32),
+                 rng.integers(0, 128, 9).astype(np.int32)],
+             1: [rng.integers(0, 128, 16).astype(np.int32)]}
+    before = kern.launch_counts()["ssd_scan"]
+    first = gpu.prefill_waves(waves)
+    assert kern.launch_counts()["ssd_scan"] == before + cfg.n_layers
+    assert first == cpu.prefill_waves(waves)
+    active = np.array([True, True])
+    assert (gpu.step(active) == cpu.step(active)).all()

@@ -20,6 +20,22 @@ MODULES = sorted(
 )
 
 
+def test_serving_slice_modules_are_covered():
+    """The scans above reach the serving slice's modules: the SSD-scan kernel
+    package, the Mamba-2 prefill/decode model, serving, the elastic host
+    helpers, the auditor and both serving launchers."""
+    want = {
+        "repro_torch.kernels.ssd_scan.ops", "repro_torch.kernels.ssd_scan.ref",
+        "repro_torch.kernels.ssd_scan.ssd_scan", "repro_torch.models.mamba2",
+        "repro_torch.serving.engine", "repro_torch.serving.replica",
+        "repro_torch.serving.requests", "repro_torch.serving.audit",
+        "repro_torch.launch.elastic", "repro_torch.telemetry.audit",
+        "repro_torch.launch.serve", "repro_torch.launch.serve_constellation",
+    }
+    assert want <= set(MODULES)
+    assert (PKG / "csrc" / "ssd_scan.cu").is_file()
+
+
 def test_imports_without_jax():
     """Every module of the port imports with ``jax`` made unimportable."""
     code = (
