@@ -7,10 +7,10 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: compiles ``src/repro_torch/csrc/tdm_compress.cu`` and
-   ``src/repro_torch/csrc/ssd_scan.cu`` with nvcc (``sm_90a``), one process
-   per source started together, and prints the build times and ptxas'
-   per-kernel report;
+2. build: compiles ``src/repro_torch/csrc/tdm_compress.cu``,
+   ``ssd_scan.cu`` and ``flash_attention.cu`` with nvcc (``sm_90a``), one
+   process per source started together, and prints the build times and
+   ptxas' per-kernel report;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    on small ragged / NaN / inf cases and at the slice's shape (one stacked
    ``(8, P)`` float32 buffer of the full-width model): int8 codes, scales,
@@ -28,7 +28,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    strong decay at chunk 256 (A = -16, dt 0.05-0.1: the exponent above the
    diagonal passes 88, so exp before the mask would be inf): y and the state
    finite and within ``ssd_scan.ref.ssd_tolerance`` (1e-4 of the output's
-   scale, plus one bf16 ulp for bf16 outputs);
+   scale, plus one bf16 ulp for bf16 outputs). Both attention entry points
+   are held to their plain version within
+   ``flash_attention.ref.fa_tolerance`` (1e-5 of the output's scale, plus
+   one bf16 ulp of each entry for bf16 outputs) on prefill cases of head
+   dim 16 to 256, G 1, 2 and 4, causal and not, windows below and above S,
+   softcap 50 and none, S 1 to 512 (ragged tiles included) and decode cases
+   with per-row kv_len of 1, a middle value and the full cache, bf16 and
+   float32;
 4. slice 3, serving (run first among the paths, so its peak memory is its
    own): ``repro_torch.launch.serve_constellation`` with the torch
    ``ModelDecoder`` on mamba2-780m at its published config, all 48 layers,
@@ -50,6 +57,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    layers carry and amplify a layer's rounding differences. Prints prefill
    ms per call with its bucket, decode ms per fleet tick, generated tokens
    per second of device time, peak GiB and the ``serve.*`` counters;
+4b. slice 4, serving gemma2-9b at its published config, **all 42 layers**
+   (9.24 B f32 params, 36.97 GB, one copy for both replicas), random
+   weights from seed 0, the same scenario and workload as 4. Checks: every
+   request delivered with 16 tokens, the audit clean,
+   ``flash_attention_fwd`` launched 42 times per prefill call and
+   ``flash_attention_decode`` 42 times per decode tick, no other kernel; a
+   replay on a fresh decoder (the first one freed: two copies of the params
+   do not fit) under ``torch.profiler`` gives the same token streams bit for
+   bit; one wave's prefill through the kernel and through the plain version,
+   layer by layer on the same input (attention within ``fa_tolerance``, the
+   sub-layer output within 2 bf16 ulps of its largest magnitude, K/V cache
+   entries bit-identical), and the whole prefill's last-token logits within
+   4x the plain path's own spread (the same prefill with p rounded to bf16
+   before the PV product, as the reference's prefill attention computes).
+   Prints prefill ms per call with its bucket and lanes, decode ms per tick,
+   generated tokens per second of device time, the busy share, the device
+   time by kind of kernel, ``lm_logits``' time, peak GiB and the
+   ``serve.*`` counters;
 5. slice 1: the port's TDM path through its user entry points
    (``repro_torch.launch.train_fl_constellation``): constellation-driven
    TDM-FLA rounds of mamba2-780m at its published widths, depth cut to 8
@@ -70,7 +95,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``ssd_scan`` at the serving prefill's shape with both replicas admitted
    (8 lanes x 48 heads, S 512, chunk 256, bf16), each beside its bound: the
    larger of the bytes it must move over 3.35 TB/s and its float32
-   operations (the triangle s <= t only) over 67 TFLOP/s.
+   operations (the triangle s <= t only) over 67 TFLOP/s; both attention
+   entry points at gemma2-9b's serving shapes (prefill 8 lanes x 16 heads,
+   S 512, hd 256, causal, softcap 50, bf16, and the served 4-lane shape;
+   decode 8 lanes against a 529-slot cache), each beside its bound (the
+   prefill's causal triangle in float32 operations, the decode's K and V
+   bytes) and ``F.scaled_dot_product_attention`` on the same tensors, which
+   has no softcap and so is logged, not reported as the library time.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line. Exits non-zero when no CUDA device is present or the
@@ -93,6 +124,7 @@ F32_FLOPS_PER_S = 67e12        # float32 outside the tensor cores, same sheet
 SOURCES = {
     "tdm_compress": "src/repro_torch/csrc/tdm_compress.cu",
     "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 SOURCE = list(SOURCES.values())
 REPLACES = {
@@ -103,6 +135,8 @@ REPLACES = {
     "quantize_scaled": "src/repro/kernels/tdm_compress/tdm_compress.py:211",
     "dequantize": "src/repro/kernels/tdm_compress/tdm_compress.py:150",
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:80",
+    "flash_attention_fwd": "src/repro/kernels/flash_attention/flash_attention.py:100",
+    "flash_attention_decode": "src/repro/kernels/flash_attention/flash_attention.py:100",
 }
 SLICE_NODES = 8
 SLICE_LAYERS = 8            # mamba2-780m has 48; cut for memory (8 stacked nodes)
@@ -177,6 +211,7 @@ def phase_device() -> dict:
 
 def phase_build() -> None:
     from repro_torch.kernels import build as build_lib
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kern
     from repro_torch.kernels.ssd_scan import ssd_scan as ssd_kern
     from repro_torch.kernels.tdm_compress import tdm_compress as kern
 
@@ -184,7 +219,8 @@ def phase_build() -> None:
     build_lib.load_many(list(SOURCES))       # one nvcc per source, in parallel
     kern.library()
     ssd_kern.library()
-    log(f"[build] both sources built and loaded in {time.perf_counter() - t0:.1f} s")
+    fa_kern.library()
+    log(f"[build] {len(SOURCES)} sources built and loaded in {time.perf_counter() - t0:.1f} s")
     for name in SOURCES:
         rec = build_lib.build_record(name)
         log(f"[build] {name}.cu: nvcc {rec['seconds']:.1f} s (built={rec['built']})")
@@ -859,7 +895,7 @@ def _wave_prefill_vs_plain(decoder, report, device) -> None:
         def whole(impl, chunk):
             c = cfg.replace(mamba=dataclasses.replace(cfg.mamba, chunk=chunk))
             logits, cache = transformer.prefill(params, tokens, c, decoder.max_len,
-                                                ssd_impl=impl)
+                                                impl=impl)
             return logits, cache["units"]["mamba0"].ssm
 
         lk, sk = whole("cuda", cfg.mamba.chunk)
@@ -894,30 +930,131 @@ def _wave_prefill_vs_plain(decoder, report, device) -> None:
         f"{'bit-identical' if same else f'differ, max |diff| {diff:.3g}'}")
 
 
-def phase_serving(device) -> dict:
-    """The serving path through ``serve_constellation``'s entry points, the
-    launch counters zeroed just before and read just after. Returns the
-    ``ssd_scan`` launches of that run."""
+def _serve_workload(dec, cfg, tag: str):
+    from repro_torch.launch import serve_constellation as sc
+
+    return sc.run(decoder=dec, vocab=cfg.vocab_size, requests=SERVE_REQUESTS,
+                  batch=SERVE_BATCH, max_new=SERVE_MAX_NEW, prompt_len=SERVE_PROMPT,
+                  log=lambda m: log(f"[{tag}] {m.strip()}"))
+
+
+def _make_decoder(arch: str, device):
+    from repro_torch.launch import serve_constellation as sc
+
+    return sc.model_decoder(arch, False, len(sc.REPLICAS), SERVE_BATCH, SERVE_PROMPT,
+                            SERVE_MAX_NEW, 0, device)
+
+
+def _launch_counts() -> dict:
+    """Every kernel's launch count, by kernel name."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kern
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_kern
+    from repro_torch.kernels.tdm_compress import tdm_compress as tdm_kern
+
+    return {**tdm_kern.launch_counts(), **ssd_kern.launch_counts(),
+            **fa_kern.launch_counts()}
+
+
+def _reset_launch_counts() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kern
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_kern
+    from repro_torch.kernels.tdm_compress import tdm_compress as tdm_kern
+
+    for mod in (tdm_kern, ssd_kern, fa_kern):
+        mod.reset_launch_counts()
+
+
+def _run_serving(dec, cfg, device, tag: str):
+    """The serving workload through ``serve_constellation``'s entry points,
+    every launch counter zeroed just before and read just after; checks the
+    deliveries, tokens, audit and re-routing. Returns (run, recorder,
+    launches by kernel, seconds in model calls)."""
     import torch
 
     from repro_torch import telemetry
-    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_kern
-    from repro_torch.kernels.tdm_compress import tdm_compress as tdm_kern
-    from repro_torch.launch import serve_constellation as sc
+
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    with telemetry.record_scope(tracing=True) as rec:
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        res = _serve_workload(dec, cfg, tag)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    summ = res.report.summary()
+    prefills = [sp for sp in rec.spans if sp.name == "serve.prefill"]
+    decodes = [sp for sp in rec.spans if sp.name == "serve.decode"]
+    for sp in prefills:
+        log(f"[{tag}] prefill call: bucket {sp.args['bucket']}, {sp.args['lanes']} lanes, "
+            f"{sp.dur_us / 1e3:.1f} ms")
+    dms = sorted(sp.dur_us / 1e3 for sp in decodes)
+    model_s = sum(sp.dur_us for sp in prefills + decodes) / 1e6
+    log(f"[{tag}] decode: {len(decodes)} fleet ticks, ms per tick mean "
+        f"{sum(dms) / len(dms):.1f} (min {dms[0]:.1f}, median {dms[len(dms) // 2]:.1f}, "
+        f"max {dms[-1]:.1f}); 4-lane ticks {sum(1 for sp in decodes if sp.args['lanes'] == 4)}, "
+        f"8-lane {sum(1 for sp in decodes if sp.args['lanes'] == 8)}")
+    log(f"[{tag}] run: {wall:.2f} s wall, {model_s:.2f} s in model calls (host clock, each "
+        f"call ends in a copy of its tokens to the host), peak {peak / 2**30:.2f} GiB "
+        f"({(peak - base) / 2**30:.2f} GiB above the params and caches)")
+    for name in sorted(n for n in rec.counters if n.startswith("serve.")):
+        log(f"[{tag}]   {name} = {rec.counters[name]:g}")
+    check(summ["delivered"] == summ["n_requests"] == SERVE_REQUESTS and not summ["undelivered"],
+          f"{tag}: delivered {summ['delivered']}/{summ['n_requests']}")
+    check(all(len(r.out) == SERVE_MAX_NEW for r in res.report.requests),
+          f"{tag}: a request was delivered without its 16 tokens")
+    check(res.verdict.ok, f"{tag}: audit, {len(res.verdict.violations)} violations")
+    check(summ["retries"] > 0, f"{tag}: the mid-epoch failure re-routed nothing")
+    return res, rec, launches, model_s
+
+
+def _profiled_replay(arch, cfg, device, tokens, model_s: float, tag: str):
+    """The same workload again on a fresh decoder (the caller has freed the
+    first), under the profiler: the same token streams bit for bit, and the
+    device's busy time. Returns (decoder, run)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import telemetry
+
+    _, dec = _make_decoder(arch, device)
+    t0 = time.perf_counter()
+    with telemetry.record_scope(tracing=False):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = _serve_workload(dec, cfg, tag)
+            torch.cuda.synchronize(device)
+    log(f"[{tag}] profiled replay: {time.perf_counter() - t0:.1f} s")
+    check(_tokens_by_request(res.report) == tokens,
+          f"{tag}: a second run of the same workload gave other token streams")
+    busy_ms, by_name = _device_busy(prof)
+    generated = SERVE_REQUESTS * SERVE_MAX_NEW
+    if busy_ms > 0:
+        log(f"[{tag}] replay on a fresh decoder: token streams bit-identical; device busy "
+            f"{busy_ms:.1f} ms (torch.profiler) -> {generated / (busy_ms / 1e3):.0f} generated "
+            f"tokens/s of device time; busy share of the first run's model-call time "
+            f"{busy_ms / 1e3 / model_s:.1%}; {sum(n for _, n in by_name.values())} device "
+            f"activities")
+        for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+            log(f"[{tag}]   device {ms:8.1f} ms {n:6d}x  {name[:110]}")
+    else:
+        log(f"[{tag}] replay on a fresh decoder: token streams bit-identical; device time "
+            "not measured (the profiler recorded no device events)")
+    del prof
+    return dec, res, by_name
+
+
+def phase_serving(device) -> dict:
+    """Slice 3: mamba2-780m serving through ``serve_constellation``'s entry
+    points, the launch counters zeroed just before and read just after.
+    Returns the ``ssd_scan`` launches of that run."""
+    import torch
+
     from repro_torch.pytree import tree_leaves
-
-    def decoder():
-        return sc.model_decoder(SERVE_ARCH, False, len(sc.REPLICAS), SERVE_BATCH,
-                                SERVE_PROMPT, SERVE_MAX_NEW, 0, device)
-
-    def serve(dec, cfg):
-        return sc.run(decoder=dec, vocab=cfg.vocab_size, requests=SERVE_REQUESTS,
-                      batch=SERVE_BATCH, max_new=SERVE_MAX_NEW, prompt_len=SERVE_PROMPT,
-                      log=lambda m: log(f"[serve] {m.strip()}"))
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    cfg, dec = decoder()
+    cfg, dec = _make_decoder(SERVE_ARCH, device)
     torch.cuda.synchronize(device)
     log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.mamba.n_heads(cfg.d_model)} SSM heads x {cfg.mamba.head_dim}, d_state "
@@ -925,46 +1062,16 @@ def phase_serving(device) -> dict:
         f"{sum(t.numel() for t in tree_leaves(dec.params)) / 1e6:.1f} M f32 (seed 0), "
         f"{cfg.compute_dtype} compute; decoder built in {time.perf_counter() - t0:.1f} s")
     check(cfg.n_layers == SERVE_LAYERS, f"{cfg.name} has {cfg.n_layers} layers")
-    torch.cuda.reset_peak_memory_stats(device)
-    base = torch.cuda.memory_allocated(device)
-    with telemetry.record_scope(tracing=True) as rec:
-        ssd_kern.reset_launch_counts()
-        tdm_kern.reset_launch_counts()
-        t0 = time.perf_counter()
-        res = serve(dec, cfg)
-        torch.cuda.synchronize(device)
-        wall = time.perf_counter() - t0
-        launches = ssd_kern.launch_counts()["ssd_scan"]
-        tdm_launches = tdm_kern.launch_counts()
-    peak = torch.cuda.max_memory_allocated(device)
-    summ = res.report.summary()
+    res, rec, counts, model_s = _run_serving(dec, cfg, device, "serve")
+    launches = counts["ssd_scan"]
     prefill_calls = int(rec.get_counter("serve.prefill.calls"))
     prefills = [sp for sp in rec.spans if sp.name == "serve.prefill"]
-    decodes = [sp for sp in rec.spans if sp.name == "serve.decode"]
-    for sp in prefills:
-        log(f"[serve] prefill call: bucket {sp.args['bucket']}, {sp.args['lanes']} lanes, "
-            f"{sp.dur_us / 1e3:.1f} ms")
-    dms = sorted(sp.dur_us / 1e3 for sp in decodes)
-    model_s = sum(sp.dur_us for sp in prefills + decodes) / 1e6
-    log(f"[serve] decode: {len(decodes)} fleet ticks, ms per tick mean "
-        f"{sum(dms) / len(dms):.1f} (min {dms[0]:.1f}, median {dms[len(dms) // 2]:.1f}, "
-        f"max {dms[-1]:.1f}); 4-lane ticks {sum(1 for sp in decodes if sp.args['lanes'] == 4)}, "
-        f"8-lane {sum(1 for sp in decodes if sp.args['lanes'] == 8)}")
-    log(f"[serve] run: {wall:.2f} s wall, {model_s:.2f} s in model calls (host clock, each "
-        f"call ends in a copy of its tokens to the host), peak {peak / 2**30:.2f} GiB "
-        f"({(peak - base) / 2**30:.2f} GiB above the params and caches)")
-    for name in sorted(n for n in rec.counters if n.startswith("serve.")):
-        log(f"[serve]   {name} = {rec.counters[name]:g}")
-    check(summ["delivered"] == summ["n_requests"] == SERVE_REQUESTS and not summ["undelivered"],
-          f"serving delivered {summ['delivered']}/{summ['n_requests']}")
-    check(all(len(r.out) == SERVE_MAX_NEW for r in res.report.requests),
-          "a request was delivered without its 16 tokens")
-    check(res.verdict.ok, f"serving audit: {len(res.verdict.violations)} violations")
-    check(summ["retries"] > 0, "the mid-epoch failure re-routed nothing")
     check(prefill_calls > 0 and launches == cfg.n_layers * prefill_calls,
           f"ssd_scan launched {launches} times for {prefill_calls} prefill calls")
-    check(all(v == 0 for v in tdm_launches.values()), f"tdm kernels on the serving path: {tdm_launches}")
+    others = {k: v for k, v in counts.items() if k != "ssd_scan" and v}
+    check(not others, f"other kernels on the mamba2 serving path: {others}")
     check(any(sp.args["bucket"] == 512 for sp in prefills), "no two-chunk prefill (bucket 512)")
+    summ = res.report.summary()
     log(f"[serve] {summ['delivered']}/{summ['n_requests']} delivered x {SERVE_MAX_NEW} tokens, "
         f"audit OK ({res.verdict.n_hops} hops), {summ['retries']} retries; ssd_scan "
         f"launches {launches} = {cfg.n_layers} x {prefill_calls} prefill calls")
@@ -973,43 +1080,19 @@ def phase_serving(device) -> dict:
     tokens = _tokens_by_request(res.report)
     del dec, res
     torch.cuda.empty_cache()
-
-    # the same workload again on a fresh decoder, under the profiler
-    _, dec2 = decoder()
-    from torch.profiler import ProfilerActivity, profile
-
-    t0 = time.perf_counter()
-    with telemetry.record_scope(tracing=False):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            res2 = serve(dec2, cfg)
-            torch.cuda.synchronize(device)
-    log(f"[serve] profiled replay: {time.perf_counter() - t0:.1f} s")
-    check(_tokens_by_request(res2.report) == tokens,
-          "a second run of the same workload gave other token streams")
-    busy_ms, by_name = _device_busy(prof)
-    generated = SERVE_REQUESTS * SERVE_MAX_NEW
-    if busy_ms > 0:
-        log(f"[serve] replay on a fresh decoder: token streams bit-identical; device busy "
-            f"{busy_ms:.1f} ms (torch.profiler) -> {generated / (busy_ms / 1e3):.0f} generated "
-            f"tokens/s of device time; busy share of the first run's model-call time "
-            f"{busy_ms / 1e3 / model_s:.1%}; {sum(n for _, n in by_name.values())} device "
-            f"activities")
-        for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-            log(f"[serve]   device {ms:8.1f} ms {n:6d}x  {name[:110]}")
-    else:
-        log("[serve] replay on a fresh decoder: token streams bit-identical; device time "
-            "not measured (the profiler recorded no device events)")
-    _split_one_call(dec2, res2.report, device)
-    del dec2, res2, prof
+    dec2, res2, _ = _profiled_replay(SERVE_ARCH, cfg, device, tokens, model_s, "serve")
+    _split_one_call(dec2, res2.report, device, "serve", "ssd_scan")
+    del dec2, res2
     torch.cuda.empty_cache()
     return {"ssd_scan": launches}
 
 
-def _split_one_call(dec, report, device) -> None:
+def _split_one_call(dec, report, device, tag: str, kernel_key: str) -> None:
     """Host wall against device busy time of one 4-lane prefill (the first
     wave's prompts) and one 4-lane decode tick, each timed once unprofiled
     (host clock, ending in the copy of its tokens) and once under the
-    profiler."""
+    profiler; the device time of the kernels whose names hold
+    ``kernel_key``."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1031,10 +1114,10 @@ def _split_one_call(dec, report, device) -> None:
             fn()
             torch.cuda.synchronize(device)
         busy, by_name = _device_busy(prof)
-        ssd = sum(ms for name, (ms, _) in by_name.items() if "ssd_scan" in name)
-        log(f"[serve] one {what}: host {host_ms:.1f} ms, device busy {busy:.1f} ms "
+        mine = sum(ms for name, (ms, _) in by_name.items() if kernel_key in name)
+        log(f"[{tag}] one {what}: host {host_ms:.1f} ms, device busy {busy:.1f} ms "
             f"({busy / host_ms:.0%}) in {sum(n for _, n in by_name.values())} activities"
-            f"{f', ssd_scan {ssd:.1f} ms' if ssd else ''}")
+            f"{f', {kernel_key} {mine:.1f} ms' if mine else ''}")
 
 
 SSD_SLICE = (2 * SERVE_BATCH, 512, 48, 64, 1, 128, 256)   # (B, S, H, P, G, N, chunk)
@@ -1079,6 +1162,406 @@ def phase_ssd_slice(device, power_note: str) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# slice 4: attention and gemma2-9b serving
+# ---------------------------------------------------------------------------
+
+# (B, S, H, KV, hd, causal, window, softcap): hd 16 to 256, G 1, 2 and 4,
+# causal on and off, windows below and above S, softcap 50 and none, S 1 to
+# 512 with ragged tiles
+FA_PREFILL_CASES = [
+    (2, 1, 4, 4, 16, True, None, 50.0),
+    (2, 8, 8, 4, 64, True, None, None),
+    (1, 23, 8, 2, 128, False, None, 50.0),
+    (2, 64, 4, 1, 256, True, 16, 50.0),
+    (1, 300, 4, 2, 64, True, 64, None),
+    (1, 300, 2, 2, 16, False, 100, None),
+    (2, 512, 16, 8, 256, True, None, 50.0),
+    (1, 512, 16, 8, 256, True, 4096, 50.0),
+    (1, 512, 8, 8, 128, True, 100, 50.0),
+]
+# (B, L, H, KV, hd, Sq), rows' kv_len 1, L // 2 + 1 and L
+FA_DECODE_CASES = [
+    (3, 23, 4, 2, 16, 1),
+    (3, 64, 8, 2, 64, 1),
+    (3, 300, 4, 4, 128, 2),
+    (3, 529, 16, 8, 256, 1),
+    (3, 512, 8, 2, 256, 4),
+]
+DENSE_ARCH = "gemma2-9b"
+DENSE_LAYERS = 42
+DENSE_TAG = "serve-dense"
+# the kernels at the serving shapes, both replicas admitted (8 lanes)
+FA_SERVE_PREFILL = (2 * SERVE_BATCH, 512, 16, 8, 256)      # (B, S, H, KV, hd)
+FA_SERVE_DECODE = (2 * SERVE_BATCH, 529, 16, 8, 256)       # (B, L, H, KV, hd)
+
+
+def _fa_inputs(gen, q_shape, kv_shape, dtype, device):
+    import torch
+
+    q = torch.randn(*q_shape, generator=gen, device=device).to(dtype)
+    k = torch.randn(*kv_shape, generator=gen, device=device).to(dtype)
+    v = torch.randn(*kv_shape, generator=gen, device=device).to(dtype)
+    return q, k, v
+
+
+def _fa_vs_plain(got, want, what: str) -> float:
+    import torch
+
+    from repro_torch.kernels.flash_attention import ref
+
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype, f"{what}: dtype {got.dtype} != {want.dtype}")
+    ok, err = ref.fa_close(got, want)
+    check(ok, f"{what}: outside fa_tolerance (max |diff| {err})")
+    return err
+
+
+def phase_fa_small(device) -> None:
+    """Both attention entry points against their plain version on small,
+    ragged and serving-sized cases, within ``fa_tolerance`` (1e-5 of the
+    output's scale, plus one bf16 ulp of each entry for bf16 outputs)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device=device).manual_seed(19)
+    worst, n = 0.0, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, S, H, KV, hd, causal, window, cap in FA_PREFILL_CASES:
+            q, k, v = _fa_inputs(gen, (B, S, H, hd), (B, S, KV, hd), dtype, device)
+            kw = dict(causal=causal, window=window, softcap=cap)
+            worst = max(worst, _fa_vs_plain(
+                ops.flash_attention(q, k, v, impl="cuda", **kw),
+                ops.flash_attention(q, k, v, impl="ref", **kw),
+                f"flash_attention_fwd {(B, S, H, KV, hd)} {kw} {dtype}"))
+            n += 1
+        for B, L, H, KV, hd, Sq in FA_DECODE_CASES:
+            q, k, v = _fa_inputs(gen, (B, Sq, H, hd), (B, L, KV, hd), dtype, device)
+            kv_len = torch.tensor([1, L // 2 + 1, L], dtype=torch.int32, device=device)
+            worst = max(worst, _fa_vs_plain(
+                ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0, impl="cuda"),
+                ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0, impl="ref"),
+                f"flash_attention_decode {(B, L, H, KV, hd, Sq)} {dtype}"))
+            n += 1
+    log(f"[attention] {n} prefill and decode cases (hd 16-256, G 1-4, causal and not, "
+        f"windows, softcap 50 and none, S 1-512, per-row kv_len, bf16 and f32) within "
+        f"fa_tolerance of the plain version (max |diff| {worst:.3g})")
+
+
+def _wave_prefill_dense(decoder, report, device) -> None:
+    """One wave (the first four requests' prompts, left-padded to their
+    bucket) through the attention kernel and through its plain version, same
+    params and tokens:
+
+    - layer by layer, both fed the same input: the raw attention within
+      ``fa_tolerance``, the sub-layer's output (after the output projection)
+      within ``OUT_ULPS`` bf16 ulps of its largest magnitude, and the layer's
+      K/V cache entries bit-identical (they do not pass through the kernel);
+    - the whole prefill (``transformer.prefill``): the last-token logits
+      within ``SERVE_SPREAD`` times the plain path's own spread, i.e. its
+      difference from the same prefill with the reference's prefill
+      attention (its ``naive_attention``, computed by ``attention_ref`` with
+      ``p_dtype=bfloat16``: p rounded to bf16 before the PV product, as the
+      reference computes at S below its 1024 block). Later
+      layers carry and amplify a layer's rounding differences, so a bound in
+      ulps does not apply there."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import embed_tokens, lm_logits, mlp_apply, rmsnorm
+    from repro_torch.pytree import tree_map
+
+    cfg, params, max_len = decoder.cfg, decoder.params, decoder.max_len
+    prompts = [r.prompt for r in sorted(report.requests, key=lambda r: r.rid)[:SERVE_BATCH]]
+    plen = decoder._bucket(max(len(p) for p in prompts))
+    toks = np.zeros((SERVE_BATCH, plen), np.int64)
+    for lane, p in enumerate(prompts):
+        toks[lane, plen - len(p):] = p
+    tokens = torch.from_numpy(toks).to(device)
+    positions = torch.arange(plen, device=device)[None].expand(SERVE_BATCH, plen)
+
+    def scale_ulps(a, b):
+        a, b = a.float(), b.float()
+        top = float(b.abs().max())
+        ulp = 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 2.0 ** -133
+        return float((a - b).abs().max()) / ulp
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).abs().max() / b.abs().max())
+
+    def attn_naive(p, hn, d):
+        q, k, v = transformer._qkv(p, hn, cfg)
+        q, k = transformer._rope_qk(q, k, positions, cfg)
+        spec = transformer._attn_spec(cfg, d)
+        return transformer._attn_out(p, fa_ref.attention_ref(
+            q, k, v, causal=spec.causal, window=spec.window, softcap=spec.softcap,
+            p_dtype=v.dtype))
+
+    worst_raw = worst_out = 0.0
+    with torch.no_grad():
+        h = h_naive = embed_tokens(params["embed"], tokens, cfg)
+        for u in range(transformer.n_units(cfg)):
+            unit_p = tree_map(lambda t: t[u], params["units"])
+            for j, d in enumerate(transformer.scan_unit(cfg)):
+                p = unit_p[f"L{j}"]
+                hn = rmsnorm(h, p["ln"], cfg.norm_eps)
+                q, k, v = transformer._qkv(p["attn"], hn, cfg)
+                q, k = transformer._rope_qk(q, k, positions, cfg)
+                spec = transformer._attn_spec(cfg, d)
+                kw = dict(causal=spec.causal, window=spec.window, softcap=spec.softcap)
+                ok_raw, err_raw = fa_ref.fa_close(
+                    fa_ops.flash_attention(q, k, v, impl="cuda", **kw),
+                    fa_ops.flash_attention(q, k, v, impl="ref", **kw))
+                out_k, kv_k = transformer.attn_prefill(p["attn"], hn, positions, cfg, d,
+                                                       max_len, impl="cuda")
+                out_r, kv_r = transformer.attn_prefill(p["attn"], hn, positions, cfg, d,
+                                                       max_len, impl="ref")
+                err_o = scale_ulps(out_k, out_r)
+                same_kv = torch.equal(kv_k.k, kv_r.k) and torch.equal(kv_k.v, kv_r.v)
+                check(ok_raw and err_o <= OUT_ULPS and same_kv,
+                      f"wave prefill layer {2 * u + j}, same input: attention {err_raw:.3g} "
+                      f"(fa_tolerance), sub-layer output {err_o:.3g} bf16 ulps at scale "
+                      f"(bound {OUT_ULPS}), or K/V cache entries differ")
+                worst_raw, worst_out = max(worst_raw, err_raw), max(worst_out, err_o)
+                h = h + out_r
+                h = h + mlp_apply(p["ffn"], rmsnorm(h, p["ln2"], cfg.norm_eps), cfg)
+                hn = rmsnorm(h_naive, p["ln"], cfg.norm_eps)
+                h_naive = h_naive + attn_naive(p["attn"], hn, d)
+                h_naive = h_naive + mlp_apply(p["ffn"], rmsnorm(h_naive, p["ln2"], cfg.norm_eps),
+                                              cfg)
+        del q, k, v, out_k, out_r, kv_k, kv_r, hn
+        final = params["final_ln"]
+        l_loop = lm_logits(params["embed"], rmsnorm(h, final, cfg.norm_eps)[:, -1:], cfg)
+        l_naive = lm_logits(params["embed"], rmsnorm(h_naive, final, cfg.norm_eps)[:, -1:], cfg)
+        del h, h_naive
+        lk, _ = transformer.prefill(params, tokens, cfg, max_len, impl="cuda")
+        lr, _ = transformer.prefill(params, tokens, cfg, max_len, impl="ref")
+    check(all(bool(torch.isfinite(t).all()) for t in (lk, lr, l_naive)),
+          "wave prefill: non-finite logits")
+    check(torch.equal(l_loop, lr), "the layer-by-layer loop is not the plain prefill")
+    kern_l, spread_l = rel(lk, lr), rel(l_naive, lr)
+    same_top = bool((lk[:, -1].argmax(-1) == lr[:, -1].argmax(-1)).all())
+    log(f"[{DENSE_TAG}] wave prefill (4 lanes, bucket {plen}), kernel vs plain version: "
+        f"layer by layer on the same input, attention max |diff| {worst_raw:.3g} (within "
+        f"fa_tolerance), sub-layer outputs up to {worst_out:.3g} bf16 ulps at their scale "
+        f"(bound {OUT_ULPS}), K/V caches bit-identical; whole prefill, last-token logits "
+        f"{kern_l:.3g} of their scale against the plain path's own spread (p rounded to "
+        f"bf16, the reference's prefill attention) of {spread_l:.3g} (bound "
+        f"{SERVE_SPREAD}x); greedy tokens {'equal' if same_top else 'differ'}")
+    check(kern_l <= SERVE_SPREAD * spread_l,
+          f"wave prefill, kernel vs plain: logits {kern_l:.3g} of their scale, beyond "
+          f"{SERVE_SPREAD}x the plain path's spread ({spread_l:.3g})")
+
+
+def _device_time_by_kind(by_name: dict) -> None:
+    """The replay's device time by kind of kernel."""
+    index = "index ops (K/V slot writes, embedding rows)"
+    kinds = {"attention (fa_prefill/fa_decode)": 0.0, "GEMMs": 0.0, index: 0.0,
+             "casts and copies": 0.0, "other": 0.0}
+    for name, (ms, _) in by_name.items():
+        low = name.lower()
+        if "fa_prefill_kernel" in name or "fa_decode_kernel" in name:
+            kinds["attention (fa_prefill/fa_decode)"] += ms
+        elif any(t in low for t in ("gemm", "xmma", "nvjet", "cutlass", "cublas")):
+            kinds["GEMMs"] += ms
+        elif "index" in low:
+            kinds[index] += ms
+        elif "copy" in low or "memcpy" in low:
+            kinds["casts and copies"] += ms
+        else:
+            kinds["other"] += ms
+    log(f"[{DENSE_TAG}] replay device time by kind: " + ", ".join(
+        f"{k} {ms:.1f} ms" for k, ms in kinds.items()))
+
+
+def _time_logits(dec, device, power_note: str) -> None:
+    """``lm_logits`` alone at a fleet tick's 8 lanes: the tied embedding
+    upcast to f32 on every call, then an f32 product."""
+    import torch
+
+    from repro_torch.models.layers import lm_logits
+
+    cfg = dec.cfg
+    gen = torch.Generator(device=device).manual_seed(23)
+    h = torch.randn(2 * SERVE_BATCH, 1, cfg.d_model, generator=gen, device=device).to(
+        torch.bfloat16)
+    with torch.no_grad():
+        ms = time_ms(lambda: lm_logits(dec.params["embed"], h, cfg), reps=5)
+    log(f"[{DENSE_TAG}] lm_logits at 8 lanes (tied {cfg.vocab_size} x {cfg.d_model} "
+        f"embedding upcast to f32 per call): {ms:.2f} ms  [{power_note}]")
+
+
+def _time_cache_fold(dec, device, power_note: str) -> None:
+    """A decode tick's cache traffic with both replicas active: the copy of
+    their caches into one folded batch (``ModelDecoder._lanes``) and the
+    copy back (``_write``), each against its byte bound (every cache byte
+    read once and written once). With one replica active the fold is a view
+    and nothing moves."""
+    import torch
+
+    from repro_torch.pytree import tree_leaves
+
+    both = list(range(dec.n_replicas))
+    nbytes = 2 * sum(t.numel() * t.element_size() for t in tree_leaves(dec._cache["units"]))
+    folded = dec._lanes(both)
+    one = dec._lanes([0])
+    check(all(a.data_ptr() == b[0].data_ptr() for a, b in
+              zip(tree_leaves(one["units"]), tree_leaves(dec._cache["units"]))),
+          "one replica's fold is not a view of its cache")
+    fold_ms = time_ms(lambda: dec._lanes(both), reps=10)
+    write_ms = time_ms(lambda: dec._write(both, folded), reps=10)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[{DENSE_TAG}] decode cache traffic at {dec.n_replicas * dec.batch} lanes: fold "
+        f"{fold_ms:.3f} ms, write-back {write_ms:.3f} ms, each against a bound of "
+        f"{bound:.3f} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s); at {dec.batch} lanes (one "
+        f"replica) the fold is a view, nothing is copied  [{power_note}]")
+
+
+def phase_serving_dense(device, power_note: str) -> dict:
+    """Slice 4: gemma2-9b at its published config, all 42 layers, through
+    ``serve_constellation``'s entry points, the launch counters zeroed just
+    before and read just after. Returns the attention launches of that run."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.pytree import tree_leaves
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    cfg, dec = _make_decoder(DENSE_ARCH, device)
+    torch.cuda.synchronize(device)
+    init_peak = torch.cuda.max_memory_allocated(device)
+    n_params = sum(t.numel() for t in tree_leaves(dec.params))
+    cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(dec._cache))
+    log(f"[{DENSE_TAG}] {cfg.name}: {cfg.n_layers} layers ({transformer.n_units(cfg)} "
+        f"local/global units), d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} "
+        f"kv heads x {cfg.head_dim}, d_ff {cfg.d_ff}, window {cfg.sliding_window}, softcaps "
+        f"{cfg.attn_softcap}/{cfg.final_softcap}, vocab {cfg.vocab_size}; params "
+        f"{n_params:,} f32 ({n_params * 4 / 1e9:.2f} GB, seed 0), caches "
+        f"{cache_bytes / 1e9:.3f} GB for 2 replicas (max_len {dec.max_len}); "
+        f"{cfg.compute_dtype} compute; decoder built in {time.perf_counter() - t0:.1f} s, "
+        f"peak {init_peak / 2**30:.2f} GiB while building")
+    check(cfg.n_layers == DENSE_LAYERS, f"{cfg.name} has {cfg.n_layers} layers")
+    res, rec, counts, model_s = _run_serving(dec, cfg, device, DENSE_TAG)
+    prefill_calls = int(rec.get_counter("serve.prefill.calls"))
+    ticks = sum(1 for sp in rec.spans if sp.name == "serve.decode")
+    fwd, dcd = counts["flash_attention_fwd"], counts["flash_attention_decode"]
+    check(prefill_calls > 0 and fwd == cfg.n_layers * prefill_calls,
+          f"flash_attention_fwd launched {fwd} times for {prefill_calls} prefill calls")
+    check(ticks > 0 and dcd == cfg.n_layers * ticks,
+          f"flash_attention_decode launched {dcd} times for {ticks} decode ticks")
+    others = {k: v for k, v in counts.items() if not k.startswith("flash_attention") and v}
+    check(not others, f"other kernels on the gemma2 serving path: {others}")
+    summ = res.report.summary()
+    log(f"[{DENSE_TAG}] {summ['delivered']}/{summ['n_requests']} delivered x {SERVE_MAX_NEW} "
+        f"tokens, audit OK ({res.verdict.n_hops} hops), {summ['retries']} retries; "
+        f"flash_attention_fwd launches {fwd} = {cfg.n_layers} x {prefill_calls} prefill "
+        f"calls, flash_attention_decode {dcd} = {cfg.n_layers} x {ticks} ticks")
+
+    _wave_prefill_dense(dec, res.report, device)
+    tokens = _tokens_by_request(res.report)
+    del dec, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(device)
+    check(left < 2**30, f"{left / 2**30:.2f} GiB still allocated after the first decoder")
+    torch.cuda.reset_peak_memory_stats(device)
+    dec2, res2, by_name = _profiled_replay(DENSE_ARCH, cfg, device, tokens, model_s,
+                                           DENSE_TAG)
+    log(f"[{DENSE_TAG}] replay peak {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB "
+        f"(a fresh decoder: one copy of the params)")
+    _device_time_by_kind(by_name)
+    _split_one_call(dec2, res2.report, device, DENSE_TAG, "fa_")
+    _time_logits(dec2, device, power_note)
+    _time_cache_fold(dec2, device, power_note)
+    del dec2, res2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash_attention_fwd": fwd, "flash_attention_decode": dcd}
+
+
+def _sdpa_ms(q, k, v, causal: bool) -> float:
+    """``F.scaled_dot_product_attention`` on the same tensors (heads moved
+    to dim 1, GQA by ``enable_gqa``): no logit softcap, so not the same
+    function; a yardstick only, never called by the port."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                          enable_gqa=True), reps=20)
+
+
+def phase_fa_slice(device, power_note: str) -> list:
+    """Both attention entry points at the serving shapes (gemma2-9b, both
+    replicas admitted: 8 lanes x 16 heads / 8 kv heads x 256, bf16, softcap
+    50), against their plain version, timed, with their bounds."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+
+    gen = torch.Generator(device=device).manual_seed(29)
+    rows = []
+
+    def record(name, err, ms, plain, flops, nbytes, sdpa, shape):
+        op_ms, byte_ms = flops / F32_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(op_ms, byte_ms)
+        log(f"[kernels] {name} at {shape}: {ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_ms / ms:.1%}; {flops / 1e9:.3f} GFLOP -> {op_ms:.4f} ms at 67 TFLOP/s "
+            f"f32, {nbytes / 1e6:.2f} MB -> {byte_ms:.4f} ms at 3.35 TB/s), plain "
+            f"{plain:.3f} ms, library null (sdpa without softcap, not the same function: "
+            f"{sdpa:.4f} ms), max_abs_err {err:.3g}  [{power_note}]")
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCES["flash_attention"],
+            "replaces": REPLACES[name], "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes", "library_ms": None,
+        })
+
+    cap = 50.0
+    for B in (FA_SERVE_PREFILL[0], SERVE_BATCH):
+        _, S, H, KV, hd = FA_SERVE_PREFILL
+        q, k, v = _fa_inputs(gen, (B, S, H, hd), (B, S, KV, hd), torch.bfloat16, device)
+        err = _fa_vs_plain(ops.flash_attention(q, k, v, softcap=cap, impl="cuda"),
+                           ops.flash_attention(q, k, v, softcap=cap, impl="ref"),
+                           f"flash_attention_fwd at the serving shape, {B} lanes")
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, softcap=cap, impl="cuda"), reps=20)
+        plain = time_ms(lambda: ops.flash_attention(q, k, v, softcap=cap, impl="ref"), reps=3)
+        flops = B * H * (S * (S + 1) // 2) * 4 * hd       # the causal triangle, QK and PV
+        nbytes = 2 * B * S * H * hd * 2 + 2 * B * S * KV * hd * 2
+        shape = f"(B {B}, S {S}, H {H}, KV {KV}, hd {hd}, causal, bf16)"
+        if B == FA_SERVE_PREFILL[0]:
+            record("flash_attention_fwd", err, ms, plain, flops, nbytes,
+                   _sdpa_ms(q, k, v, True), shape)
+        else:
+            log(f"[kernels] flash_attention_fwd at the served 4-lane shape {shape}: "
+                f"{ms:.4f} ms, plain {plain:.3f} ms, sdpa without softcap "
+                f"{_sdpa_ms(q, k, v, True):.4f} ms  [{power_note}]")
+        del q, k, v
+    B, L, H, KV, hd = FA_SERVE_DECODE
+    q, k, v = _fa_inputs(gen, (B, 1, H, hd), (B, L, KV, hd), torch.bfloat16, device)
+    kv_len = torch.full((B,), L, dtype=torch.int32, device=device)
+    err = _fa_vs_plain(ops.flash_attention_decode(q, k, v, kv_len, softcap=cap, impl="cuda"),
+                       ops.flash_attention_decode(q, k, v, kv_len, softcap=cap, impl="ref"),
+                       "flash_attention_decode at the serving shape")
+    ms = time_ms(lambda: ops.flash_attention_decode(q, k, v, kv_len, softcap=cap,
+                                                    impl="cuda"), reps=50)
+    plain = time_ms(lambda: ops.flash_attention_decode(q, k, v, kv_len, softcap=cap,
+                                                       impl="ref"), reps=10)
+    flops = B * H * L * 4 * hd
+    nbytes = 2 * B * L * KV * hd * 2 + 2 * B * H * hd * 2 + B * 4
+    record("flash_attention_decode", err, ms, plain, flops, nbytes, _sdpa_ms(q, k, v, False),
+           f"(B {B}, Sq 1, L {L}, kv_len {L}, H {H}, KV {KV}, hd {hd}, bf16)")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -1107,9 +1590,12 @@ def main() -> int:
     mark("build")
     phase_kernels_small(device)
     phase_ssd_small(device)
+    phase_fa_small(device)
     mark("small kernel cases")
     serve_launches = phase_serving(device)
-    mark("serving")
+    mark("serving, mamba2-780m")
+    dense_launches = phase_serving_dense(device, dev["card"])
+    mark("serving, gemma2-9b")
     launches, buf, k_b = phase_slice(device)
     mark("slice 1")
     gs_launches = phase_groundseg(device)
@@ -1122,6 +1608,9 @@ def main() -> int:
     ssd_row = phase_ssd_slice(device, dev["card"])
     ssd_row["launches"] = serve_launches["ssd_scan"]
     kernels.append(ssd_row)
+    for row in phase_fa_slice(device, dev["card"]):
+        row["launches"] = dense_launches[row["name"]]
+        kernels.append(row)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(dev["card"])

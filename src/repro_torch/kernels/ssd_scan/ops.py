@@ -12,18 +12,9 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import use_ref
 from repro_torch.kernels.ssd_scan import ref
 from repro_torch.kernels.ssd_scan import ssd_scan as kernel
-
-IMPLS = ("auto", "cuda", "ref")
-
-
-def use_ref(t: torch.Tensor, impl: str = "auto") -> bool:
-    if impl not in IMPLS:
-        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
-    if impl == "auto":
-        return t.device.type == "cpu"
-    return impl == "ref"
 
 
 def to_kernel_layout(xh, dt, A, Bv, Cv):

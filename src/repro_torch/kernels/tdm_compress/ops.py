@@ -12,18 +12,9 @@ import math
 
 import torch
 
+from repro_torch.kernels import use_ref
 from repro_torch.kernels.tdm_compress import ref
 from repro_torch.kernels.tdm_compress import tdm_compress as kernel
-
-IMPLS = ("auto", "cuda", "ref")
-
-
-def use_ref(t: torch.Tensor, impl: str = "auto") -> bool:
-    if impl not in IMPLS:
-        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
-    if impl == "auto":
-        return t.device.type == "cpu"
-    return impl == "ref"
 
 
 def quantize(x, *, block: int = 1024, impl: str = "auto"):

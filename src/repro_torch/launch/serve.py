@@ -8,8 +8,10 @@ continuous-batching semantics as the constellation engine
 requests that arrive at ground stations and route over inter-satellite
 links, use :mod:`repro_torch.launch.serve_constellation`.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
-        --smoke --requests 6 --max-new 12 [--device cuda|cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
+        [--smoke] --requests 6 --max-new 12 [--device cuda|cpu]
+
+``--arch`` takes the ssm and dense configs (mamba2-780m, gemma2-9b, ...).
 """
 
 from __future__ import annotations

@@ -10,15 +10,15 @@ the route-provenance auditor checks every hop (slot-legal links, no lost
 requests). The run exits non-zero on a lost request or an audit violation.
 
 The default decoder is the deterministic ``NullDecoder``. ``--model``
-decodes with the real ``ModelDecoder`` on ``--arch`` (default mamba2-780m,
-the family the port has; the reference's example hardcodes the gemma2-9b
-smoke config) at its published config, or its smoke config with
-``--smoke``, with random weights from seed 0. Prompts are drawn over the
-model's vocabulary. ``run`` takes the batch, the prompt lengths and the
-number of new tokens for callers that serve other workloads.
+decodes with the real ``ModelDecoder`` on ``--arch`` (default gemma2-9b, the
+reference example's model; mamba2-780m and the other dense configs work as
+well) at its published config, or its smoke config with ``--smoke`` (the
+reference example's choice), with random weights from seed 0. Prompts are
+drawn over the model's vocabulary. ``run`` takes the batch, the prompt
+lengths and the number of new tokens for callers that serve other workloads.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_constellation \\
-        [--model [--arch mamba2-780m] [--smoke] [--device cuda|cpu]] [--requests 10]
+        [--model [--arch gemma2-9b] [--smoke] [--device cuda|cpu]] [--requests 10]
 """
 
 from __future__ import annotations
@@ -137,7 +137,7 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeRun:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", action="store_true",
                    help="decode with the real ModelDecoder (default: NullDecoder)")
-    p.add_argument("--arch", default="mamba2-780m")
+    p.add_argument("--arch", default="gemma2-9b")
     p.add_argument("--smoke", action="store_true",
                    help="the arch's smoke config (default: its published config)")
     p.add_argument("--device", default=None,

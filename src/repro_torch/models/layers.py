@@ -1,7 +1,7 @@
 """Base layers for the port: norms, embedding, tied LM head, init.
 
 Counterpart of the JAX package's ``models/layers.py`` (the parts the ssm
-family uses). Params are plain dicts of tensors. Inits draw from an explicit
+and dense families use; ``apply_mrope`` waits for qwen2-vl). Params are plain dicts of tensors. Inits draw from an explicit
 ``torch.Generator`` and allocate on its device; they cannot reproduce
 ``jax.random`` draws, so parity tests load the reference's params instead
 (:mod:`repro_torch.weights`).
@@ -78,3 +78,57 @@ def lm_logits(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
         c = cfg.final_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exponents)  # (hd/2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, N, hd); positions: (B, S) integer. Angles in float32."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    ang = positions[..., None].to(torch.float32) * freqs        # (B, S, hd/2)
+    sin, cos = torch.sin(ang)[:, :, None, :], torch.cos(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# gated MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: int) -> Params:
+    dt = dtype_of(cfg.param_dtype)
+    D = cfg.d_model
+    std_in, std_out = D ** -0.5, d_ff ** -0.5
+    p = {"wi": truncated_normal(gen, (D, d_ff), std_in, dt)}
+    if cfg.gated_mlp:
+        p["wg"] = truncated_normal(gen, (D, d_ff), std_in, dt)
+    p["wo"] = truncated_normal(gen, (d_ff, D), std_out, dt)
+    return p
+
+
+def activation(x: torch.Tensor, act: str) -> torch.Tensor:
+    if act == "silu":
+        return torch.nn.functional.silu(x)
+    if act == "gelu":
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    raise ValueError(act)
+
+
+def mlp_apply(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = x.dtype
+    up = torch.einsum("...d,df->...f", x, params["wi"].to(dt))
+    if cfg.gated_mlp:
+        gate = activation(torch.einsum("...d,df->...f", x, params["wg"].to(dt)), cfg.act)
+        h = gate * up
+    else:
+        h = activation(up, cfg.act)
+    return torch.einsum("...f,fd->...d", h, params["wo"].to(dt))

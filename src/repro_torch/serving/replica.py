@@ -86,9 +86,16 @@ class ModelDecoder:
     (``(R, layers, batch, ...)``) and ``pos`` is one value per replica.
     ``prefill_waves`` left-pads every admitted wave into one prompt-length
     bucket and runs ONE prefill over the admitted replicas' lanes (so one
-    ``ssd_scan`` launch per layer serves all of them), then writes their
-    new caches back; ``step`` runs one ``decode_step`` over the lanes of
-    the active replicas. Replicas outside a call keep their cache and
+    kernel launch per layer serves all of them: ``ssd_scan`` or
+    ``flash_attention_fwd``), then writes their new caches back; ``step``
+    runs one ``decode_step`` over the lanes of the active replicas, whose
+    ``pos`` differ (``decode_step`` expands them to one per lane for the
+    rope, the cache write and the attention's ``kv_len``) and updates the
+    folded cache in place. With one replica active the fold is a view of its
+    cache and nothing is copied; with several, a tick moves their caches
+    twice (concatenated into the fold, copied back). Folding and
+    unfolding work leaf by leaf, so ``KVCache`` and ``MambaCache`` fields
+    alike keep their replica axis. Replicas outside a call keep their cache and
     ``pos`` frozen, as under the reference's ``jnp.where`` merge (which
     computes them and discards the result; skipping them gives the same
     outputs). Under tracing, each call is a ``serve.prefill`` or
@@ -130,27 +137,36 @@ class ModelDecoder:
             b *= 2
         return b
 
-    def _lanes(self, sel: torch.Tensor) -> Dict:
-        """The cache of replicas ``sel`` folded to ``(layers, k*batch, ...)``,
-        with one ``pos`` per replica."""
-        def fold(x):
-            x = x.index_select(0, sel).movedim(0, 1)
-            return x.reshape((x.shape[0], -1) + tuple(x.shape[3:]))
+    def _lanes(self, ridxs: Sequence[int]) -> Dict:
+        """The cache of replicas ``ridxs`` as ``(layers, k*batch, ...)``, with
+        one ``pos`` per replica. One replica's cache already has that layout
+        and is returned as a view, so decode updates it in place; several are
+        concatenated into a copy."""
+        rs = [int(r) for r in ridxs]
 
+        def fold(x):
+            return x[rs[0]] if len(rs) == 1 else torch.cat([x[r] for r in rs], dim=1)
+
+        sel = torch.as_tensor(rs, dtype=torch.long, device=self.device)
         return {"pos": self._cache["pos"].index_select(0, sel),
                 "units": tree_map(fold, self._cache["units"])}
 
-    def _write(self, sel: torch.Tensor, new: Dict) -> None:
-        """Write folded caches of replicas ``sel`` back under the replica axis."""
-        k = sel.shape[0]
+    def _write(self, ridxs: Sequence[int], new: Dict) -> None:
+        """Write folded caches of replicas ``ridxs`` back under the replica
+        axis. A leaf that is a view of the cache itself (one replica's fold,
+        updated in place by decode) needs no copy."""
+        rs = [int(r) for r in ridxs]
 
         def put(dst, src):
-            src = src.reshape((src.shape[0], k, self.batch) + tuple(src.shape[2:]))
-            dst.index_copy_(0, sel, src.movedim(1, 0).to(dst.dtype))
+            if src.untyped_storage().data_ptr() == dst.untyped_storage().data_ptr():
+                return
+            for i, r in enumerate(rs):
+                dst[r].copy_(src[:, i * self.batch:(i + 1) * self.batch])
 
         tree_map(put, self._cache["units"], new["units"])
+        sel = torch.as_tensor(rs, dtype=torch.long, device=self.device)
         self._cache["pos"].index_copy_(
-            0, sel, new["pos"].to(torch.int32).expand(k).contiguous())
+            0, sel, new["pos"].to(torch.int32).expand(len(rs)).contiguous())
 
     def _tokens(self, logits: torch.Tensor, k: int) -> np.ndarray:
         nxt = torch.argmax(logits[:, -1], dim=-1)
@@ -170,14 +186,13 @@ class ModelDecoder:
         for k, ridx in enumerate(ridxs):
             for lane, prompt in enumerate(waves[ridx]):
                 toks[k, lane, plen - len(prompt):] = prompt  # left-pad
-        sel = torch.as_tensor(ridxs, dtype=torch.long, device=self.device)
         rec = telemetry.get_recorder()
         with rec.span("serve.prefill", cat="serve", bucket=plen,
                       lanes=len(ridxs) * self.batch):
             tokens = torch.from_numpy(toks.reshape(-1, plen)).to(self.device)
             logits, new = self.bundle.prefill_fn(self.params, {"tokens": tokens},
                                                  self.max_len)
-            self._write(sel, new)
+            self._write(ridxs, new)
             first = self._tokens(logits, len(ridxs))
         rec.counter("serve.prefill.calls")
         out: Dict[int, List[int]] = {}
@@ -191,13 +206,12 @@ class ModelDecoder:
         ridxs = np.flatnonzero(active)
         if ridxs.size == 0:
             return self._last.copy()
-        sel = torch.as_tensor(ridxs, dtype=torch.long, device=self.device)
         rec = telemetry.get_recorder()
         with rec.span("serve.decode", cat="serve", lanes=int(ridxs.size) * self.batch):
             tok = torch.from_numpy(self._last[ridxs].reshape(-1, 1)).to(self.device)
-            logits, new = self.bundle.decode_fn(self.params, self._lanes(sel),
+            logits, new = self.bundle.decode_fn(self.params, self._lanes(ridxs),
                                                 {"token": tok})
-            self._write(sel, new)
+            self._write(ridxs, new)
             nxt = self._tokens(logits, int(ridxs.size))
         self._last[ridxs] = nxt
         return self._last.copy()

@@ -4,7 +4,9 @@ The reference's trees come in as numpy arrays (``np.asarray`` of each leaf)
 in the same nested-dict layout the port uses; bfloat16 leaves arrive as
 numpy arrays of the ``bfloat16`` extension dtype. NamedTuples of fields
 ``(q, scale)`` (int8 moments) become the port's
-:class:`repro_torch.optim.adamw.QTensor`. Nothing here imports JAX.
+:class:`repro_torch.optim.adamw.QTensor`; any other NamedTuple (a decode
+cache's ``KVCache`` or ``MambaCache``) converts field by field and keeps its
+type. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ def _convert(tree: Any, device) -> Any:
         return QTensor(q=_to_tensor(tree[0], device), scale=_to_tensor(tree[1], device))
     if isinstance(tree, dict):
         return {k: _convert(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_convert(v, device) for v in tree))
+    if isinstance(tree, (list, tuple)):
         return type(tree)(_convert(v, device) for v in tree)
     if tree is None:
         return None

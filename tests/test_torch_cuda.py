@@ -16,7 +16,12 @@ kernels equal to it through the plain versions bit for bit. The SSD-scan
 kernel against its plain version within ``ssd_scan.ref.ssd_tolerance`` (1e-4
 of the output's scale, plus one bf16 ulp for bf16 outputs), y and state
 finite, on ragged cases and on strong decay at chunk 256; and a
-``ModelDecoder`` prefill and decode tick on the card.
+``ModelDecoder`` prefill and decode tick on the card. The attention kernels
+(prefill and decode) against their plain version within
+``flash_attention.ref.fa_tolerance`` (1e-5 of the output's scale, plus one
+bf16 ulp for bf16 outputs) on head dims 16 to 256, G 1 to 4, causal,
+window and softcap, ragged S and per-row kv_len; and a gemma2-9b smoke
+``ModelDecoder`` prefill and tick on the card.
 """
 
 from __future__ import annotations
@@ -328,3 +333,89 @@ def test_model_decoder_prefill_and_tick(device):
     assert first == cpu.prefill_waves(waves)
     active = np.array([True, True])
     assert (gpu.step(active) == cpu.step(active)).all()
+
+
+# (B, S, H, KV, hd, causal, window, softcap)
+FA_CASES = [
+    (2, 23, 4, 2, 16, True, None, 50.0),
+    (1, 300, 4, 1, 64, True, 16, None),
+    (1, 64, 8, 2, 128, False, None, None),
+    (2, 512, 16, 8, 256, True, None, 50.0),
+    (1, 8, 4, 4, 256, False, 3, 50.0),
+]
+
+
+def _fa_inputs(device, shape_q, shape_kv, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(*shape_q, generator=g, device=device).to(dtype)
+    k = torch.randn(*shape_kv, generator=g, device=device).to(dtype)
+    v = torch.randn(*shape_kv, generator=g, device=device).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", FA_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_against_plain(device, case, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention as kern
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    B, S, H, KV, hd, causal, window, cap = case
+    q, k, v = _fa_inputs(device, (B, S, H, hd), (B, S, KV, hd), dtype, S + hd)
+    before = kern.launch_counts()["flash_attention_fwd"]
+    got = ops.flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    assert kern.launch_counts()["flash_attention_fwd"] == before + 1
+    want = ops.flash_attention(q, k, v, causal=causal, window=window, softcap=cap,
+                               impl="ref")
+    torch.cuda.synchronize()
+    ok, err = ref.fa_close(got, want)
+    assert ok, err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("hd,G,Sq", [(16, 2, 1), (64, 4, 4), (256, 2, 1), (128, 1, 2)])
+def test_flash_attention_decode_against_plain(device, hd, G, Sq, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention as kern
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    B, L, KV = 3, 529, 2
+    q, k, v = _fa_inputs(device, (B, Sq, G * KV, hd), (B, L, KV, hd), dtype, hd + G)
+    kv_len = torch.tensor([1, 300, L], dtype=torch.int32, device=device)
+    before = kern.launch_counts()["flash_attention_decode"]
+    got = ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0)
+    assert kern.launch_counts()["flash_attention_decode"] == before + 1
+    want = ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0, impl="ref")
+    torch.cuda.synchronize()
+    ok, err = ref.fa_close(got, want)
+    assert ok, err
+
+
+def test_dense_model_decoder_prefill_and_tick(device):
+    """A two-replica ModelDecoder on the gemma2-9b smoke config on the card:
+    the prefill launches the attention kernel once per layer and a tick the
+    decode kernel once per layer; the first tokens and two ticks (the
+    replicas at different pos) equal a CPU decoder's with the same params
+    (float32 compute)."""
+    import numpy as np
+
+    from repro_torch.configs import archs
+    from repro_torch.kernels.flash_attention import flash_attention as kern
+    from repro_torch.pytree import tree_map
+    from repro_torch.serving import ModelDecoder
+
+    cfg = archs.smoke_cfg(archs.get("gemma2-9b")).replace(compute_dtype="float32")
+    gpu = ModelDecoder(cfg, 2, 2, 40, seed=3, device=device)
+    cpu = ModelDecoder(cfg, 2, 2, 40, seed=3, device="cpu")
+    cpu.params = tree_map(lambda t: t.cpu(), gpu.params)
+    rng = np.random.default_rng(0)
+    first = {0: [rng.integers(0, 128, 13).astype(np.int32),
+                 rng.integers(0, 128, 9).astype(np.int32)]}
+    second = {1: [rng.integers(0, 128, 20).astype(np.int32)]}
+    kern.reset_launch_counts()
+    assert gpu.prefill_waves(first) == cpu.prefill_waves(first)
+    assert kern.launch_counts()["flash_attention_fwd"] == cfg.n_layers
+    one = np.array([True, False])
+    assert (gpu.step(one) == cpu.step(one)).all()
+    assert kern.launch_counts()["flash_attention_decode"] == cfg.n_layers
+    assert gpu.prefill_waves(second) == cpu.prefill_waves(second)
+    both = np.array([True, True])
+    assert (gpu.step(both) == cpu.step(both)).all()

@@ -36,6 +36,18 @@ def test_serving_slice_modules_are_covered():
     assert (PKG / "csrc" / "ssd_scan.cu").is_file()
 
 
+def test_dense_slice_modules_are_covered():
+    """The scans above reach the dense serving slice's modules: attention
+    (the model's and the kernel package) and its CUDA source."""
+    want = {
+        "repro_torch.models.attention", "repro_torch.models.transformer",
+        "repro_torch.kernels.flash_attention.flash_attention",
+        "repro_torch.kernels.flash_attention.ops", "repro_torch.kernels.flash_attention.ref",
+    }
+    assert want <= set(MODULES)
+    assert (PKG / "csrc" / "flash_attention.cu").is_file()
+
+
 def test_imports_without_jax():
     """Every module of the port imports with ``jax`` made unimportable."""
     code = (

@@ -161,7 +161,7 @@ def test_init_cache_and_other_families():
         assert tuple(got.shape) == want.shape and not got.any()
     assert int(cache["pos"]) == 0
     with pytest.raises(NotImplementedError):
-        registry.bundle(archs.get("gemma2-9b")).init_cache(1, 8, "cpu")
+        registry.bundle(archs.get("jamba-1.5-large-398b")).init_cache(1, 8, "cpu")
 
 
 # ---------------------------------------------------------------------------
