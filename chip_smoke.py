@@ -21,7 +21,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    CUDA events at the slice's shape (the buffers are ~100x the 50 MB L2, so
    every launch finds them cold) beside its byte bound at 3.35 TB/s, its
    plain version and, where one PyTorch call computes the same function,
-   that call;
+   that call. Top-k and its scatter have two kernel paths each, split at
+   ``TOPK_SELECT_MAX_K`` in the wrapper: the small cases run k in {0, 1, 7,
+   TOPK_SELECT_MAX_K, TOPK_SELECT_MAX_K + 1, 64, block} on normal, edge and
+   all-equal payloads and check from the launch counters that each k took
+   its path;
    The SSD-scan kernel is held to its plain version on small and ragged
    cases (chunks 8, 64, 96 and 256, one to four chunks, groups 1, 2 and 4,
    head dims 16 to 64, states 32 to 128, bf16 and float32 inputs) and on
@@ -91,7 +95,11 @@ Phases (any failure exits non-zero, and no result line is printed):
    routing programs', and the gathers and reductions equal the oracle's
    (the FL loop checks every round). Then one int8 exchange on the trained
    params, through the kernels and through the plain versions: bit for bit;
-7. timing: the six exchange kernels at slice 1's shape (see 3) and
+7. timing: the six exchange kernels at slice 1's shape (see 3; top-k and
+   the scatter at the CHOCO round's k, on their select paths) and, logged
+   beside them, the select path at k = TOPK_SELECT_MAX_K and the sort and
+   shared-memory scatter paths at TOPK_SELECT_MAX_K + 1, each checked
+   against its plain version and timed beside its bound and library call;
    ``ssd_scan`` at the serving prefill's shape with both replicas admitted
    (8 lanes x 48 heads, S 512, chunk 256, bf16), each beside its bound: the
    larger of the bytes it must move over 3.35 TB/s and its float32
@@ -275,6 +283,7 @@ def phase_kernels_small(device) -> None:
     from repro_torch.kernels.tdm_compress import tdm_compress as kern
 
     gen = torch.Generator(device=device).manual_seed(7)
+    sel = kern.TOPK_SELECT_MAX_K
     cases = 0
     for rows, n, block in [(1, 1, 64), (3, 5000, 1024), (2, 777, 64),
                            (4, 4096, 256), (1, 3000, 128), (2, 1025, 4096)]:
@@ -313,25 +322,53 @@ def phase_kernels_small(device) -> None:
                 _assert_bits(kern.dequantize_fwd(qs, scales, block=block),
                              ref.dequantize_ref(qs, scales, block),
                              f"dequantize {tag} {rows}x{n}/{block} {kind}")
-            for k in sorted({0, 1, 7, min(64, block), block}):
-                d, v, i = kern.topk_sparsify_fwd(x, k, block=block)
-                d_r, v_r, i_r = ref.topk_sparsify_ref(x, k, block)
-                _assert_bits(d, d_r, f"topk dense {rows}x{n}/{block} k={k} {kind}")
-                _assert_bits(v, v_r, f"topk vals {rows}x{n}/{block} k={k} {kind}")
-                _assert_bits(i, i_r, f"topk idxs {rows}x{n}/{block} k={k} {kind}")
-                if kind == "edge":
-                    continue  # inf * w sums make NaN, compared above as bits
-                got = kern.scatter_accumulate_fwd(v, i, acc, w, block=block)
-                want = ref.scatter_acc_ref(v_r, i_r, acc, w, block)
-                dense_w = ref.scatter_acc_ref(v_r, i_r, torch.zeros_like(acc), 1.0, block)
-                _assert_fma(got, want, w[:, None] * dense_w,
-                            f"scatter_accumulate {rows}x{n}/{block} k={k}")
-                cases += 1
+            _topk_small(x, acc, w, rows, n, block, kind)
+            cases += 1
+        # every key equal: only the lowest-index rule picks
+        _topk_small(torch.full((rows, n), -0.75, device=device), acc, w, rows, n, block,
+                    "all-equal")
     torch.cuda.synchronize()
     log(f"[kernels] small/ragged/edge cases: all equal to the plain versions "
-        f"({cases} scatter cases, blocks 64..4096; quantize_scaled and "
-        f"dequantize with shared and per-row scales, NaN/inf payloads and "
-        f"scales, bit for bit)")
+        f"({cases} payloads, blocks 64..4096; top-k and scatter at k in "
+        f"{{0, 1, 7, {sel}, {sel + 1}, 64, block}} on both paths; "
+        f"quantize_scaled and dequantize with shared and per-row scales, "
+        f"NaN/inf payloads and scales, bit for bit)")
+
+
+def _topk_small(x, acc, w, rows: int, n: int, block: int, kind: str) -> None:
+    """Both kernels at every k regime on one payload, each k on the path it
+    belongs to: top-k bit for bit, the scatter within one rounding."""
+    import torch
+
+    from repro_torch.kernels.tdm_compress import ref
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+
+    sel = kern.TOPK_SELECT_MAX_K
+
+    def on_path(k, select, large, tag):
+        counts = kern.launch_counts()
+        want = select if k <= sel else large
+        check(k == 0 or counts[want] == 1, f"{tag}: {want} not launched ({counts})")
+        kern.reset_launch_counts()
+
+    for k in sorted({0, 1, 7, sel, sel + 1, min(64, block), block}):
+        if k > block:
+            continue
+        tag = f"{rows}x{n}/{block} k={k} {kind}"
+        kern.reset_launch_counts()
+        d, v, i = kern.topk_sparsify_fwd(x, k, block=block)
+        on_path(k, "topk_sparsify", "topk_sparsify_sort", f"topk {tag}")
+        d_r, v_r, i_r = ref.topk_sparsify_ref(x, k, block)
+        _assert_bits(d, d_r, f"topk dense {tag}")
+        _assert_bits(v, v_r, f"topk vals {tag}")
+        _assert_bits(i, i_r, f"topk idxs {tag}")
+        if kind == "edge":
+            continue  # inf * w sums make NaN, compared above as bits
+        got = kern.scatter_accumulate_fwd(v, i, acc, w, block=block)
+        on_path(k, "scatter_accumulate", "scatter_accumulate_shared", f"scatter {tag}")
+        want = ref.scatter_acc_ref(v_r, i_r, acc, w, block)
+        dense_w = ref.scatter_acc_ref(v_r, i_r, torch.zeros_like(acc), 1.0, block)
+        _assert_fma(got, want, w[:, None] * dense_w, f"scatter_accumulate {tag}")
 
 
 def topk_total(n_leaves: int, padded: int) -> int:
@@ -428,7 +465,10 @@ def phase_kernels_slice(device, x, k_b: int, power_note: str) -> list:
     lib = time_ms(lambda: accv.scatter_add(1, iv, wv), reps=10)
     record("scatter_accumulate", err, ms, plain,
            elems * 8 + rows * nb * k_b * 8 + rows * 4, lib)
-    del acc, v, i, accv, wv, iv
+    del v, i, accv, wv, iv
+    torch.cuda.empty_cache()
+    _time_topk_paths(x, acc, w, block, power_note)
+    del acc
     torch.cuda.empty_cache()
 
     # 5. quantize_scaled, with the relay's shared (nb,) scales: the max over
@@ -457,6 +497,57 @@ def phase_kernels_slice(device, x, k_b: int, power_note: str) -> list:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return results
+
+
+def _time_topk_paths(x, acc, w, block: int, power_note: str) -> None:
+    """Both top-k paths off the main path at the slice's shape: the select
+    at its largest k and the sort (and the shared-memory scatter) at the
+    smallest k above it, each checked against its plain version. Logged
+    only: the kernels line lists the main path's kernels."""
+    import torch
+
+    from repro_torch.kernels.tdm_compress import ref
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+
+    rows, n = x.shape
+    nb = n // block
+    sel = kern.TOPK_SELECT_MAX_K
+    for k in (sel, sel + 1):
+        path = "select" if k <= sel else "sort"
+        d, v, i = kern.topk_sparsify_fwd(x, k, block=block)
+        d_r, v_r, i_r = ref.topk_sparsify_ref(x, k, block)
+        _assert_bits(d, d_r, f"topk dense at slice shape, k={k}")
+        _assert_bits(v, v_r, f"topk vals at slice shape, k={k}")
+        _assert_bits(i, i_r, f"topk idxs at slice shape, k={k}")
+        del d, d_r, v_r, i_r
+        ms = time_ms(lambda: kern.topk_sparsify_fwd(x, k, block=block), reps=3)
+        plain = time_ms(lambda: ref.topk_sparsify_ref(x, k, block), reps=2)
+        xv = x.view(rows * nb, block)
+        lib = time_ms(lambda: torch.topk(xv.abs(), k, dim=1), reps=3)
+        bound = (rows * n * 8 + rows * nb * k * 8) / HBM_BYTES_PER_S * 1e3
+        log(f"[kernels] topk_sparsify {path} path, k={k}: {ms:.3f} ms  bound {bound:.3f} ms "
+            f"({bound / ms:.1%})  plain {plain:.3f} ms  library {lib:.3f} ms (torch.topk)  "
+            f"bit for bit [{power_note}]")
+        if k > sel:
+            got = kern.scatter_accumulate_fwd(v, i, acc, w, block=block)
+            want = ref.scatter_acc_ref(v, i, acc, w, block)
+            prod = w[:, None] * ref.scatter_acc_ref(v, i, torch.zeros_like(acc), 1.0, block)
+            err = _assert_fma(got, want, prod, f"scatter_accumulate at slice shape, k={k}")
+            del got, want, prod
+            ms = time_ms(lambda: kern.scatter_accumulate_fwd(v, i, acc, w, block=block),
+                         reps=5)
+            plain = time_ms(lambda: ref.scatter_acc_ref(v, i, acc, w, block), reps=2)
+            accv = acc.view(rows * nb, block)
+            wv = (w[:, None, None] * v).reshape(rows * nb, k)
+            iv = i.reshape(rows * nb, k).to(torch.int64)
+            lib = time_ms(lambda: accv.scatter_add(1, iv, wv), reps=5)
+            bound = (rows * n * 8 + rows * nb * k * 8 + rows * 4) / HBM_BYTES_PER_S * 1e3
+            log(f"[kernels] scatter_accumulate shared path, k={k}: {ms:.3f} ms  bound "
+                f"{bound:.3f} ms ({bound / ms:.1%})  plain {plain:.3f} ms  library "
+                f"{lib:.3f} ms (scatter_add)  max_abs_err {err:.3g} [{power_note}]")
+            del accv, wv, iv
+        del v, i
+        torch.cuda.empty_cache()
 
 
 MODE_KERNELS = {

@@ -5,9 +5,10 @@
 // Every kernel works on a stacked (rows, row_len) float32 buffer: one row per
 // FL node, cut into blocks of `block` elements per row (the last block of a
 // row may be ragged; its missing lanes read as zero payload). One CUDA thread
-// block handles one (row, block) pair, so a whole round's send or receive
-// side over all nodes is ONE launch. Per-row scalars (Metropolis weights)
-// come as a (rows,) float32 vector.
+// block handles one (row, block) pair, or, in the top-k select paths, one
+// warp does, so a whole round's send or receive side over all nodes is ONE
+// launch. Per-row scalars (Metropolis weights) come as a (rows,) float32
+// vector.
 //
 // Rounding contract. The JAX reference runs under jit on XLA, which (a)
 // rewrites the scale's `/ 127.0` into `* fl(1/127)` and (b) contracts
@@ -23,10 +24,15 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;       // quantize / dequant_accumulate / scatter
-constexpr int kSortThreads = 512;   // topk_sparsify
+constexpr int kSortThreads = 512;   // topk_sparsify, sort path
+constexpr int kSelectMaxK = 32;     // select paths: one result (pair) per lane
+constexpr int kWarpsPerCta = 8;     // select paths: one payload block per warp
+constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kInv127 = 1.0f / 127.0f;
 
 // max that propagates NaN, like XLA's max and torch.amax (fmaxf drops it)
@@ -49,10 +55,10 @@ struct BlockRef {
   int len;         // real lanes in this block (< block only at a row's end)
 };
 
-__device__ __forceinline__ BlockRef block_ref(int64_t row_len, int64_t nb_row,
-                                              int block) {
+__device__ __forceinline__ BlockRef block_at(int64_t bid, int64_t row_len,
+                                             int64_t nb_row, int block) {
   BlockRef r;
-  r.bid = blockIdx.x;
+  r.bid = bid;
   r.row = r.bid / nb_row;
   const int64_t j = r.bid - r.row * nb_row;
   const int64_t start = j * block;
@@ -60,6 +66,101 @@ __device__ __forceinline__ BlockRef block_ref(int64_t row_len, int64_t nb_row,
   const int64_t rem = row_len - start;
   r.len = static_cast<int>(rem < block ? rem : block);
   return r;
+}
+
+// the payload block of this thread block
+__device__ __forceinline__ BlockRef block_ref(int64_t row_len, int64_t nb_row,
+                                              int block) {
+  return block_at(blockIdx.x, row_len, nb_row, block);
+}
+
+// The payload block of this warp in the select paths (kWarpsPerCta blocks
+// per thread block); false for the warps past the last block.
+__device__ __forceinline__ bool warp_block_ref(int64_t n_blocks, int64_t row_len,
+                                               int64_t nb_row, int block,
+                                               BlockRef& r) {
+  const int64_t bid =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerCta + (threadIdx.x >> 5);
+  if (bid >= n_blocks) return false;
+  r = block_at(bid, row_len, nb_row, block);
+  return true;
+}
+
+// Register layout of the select paths: a warp holds a block of up to 32 * E
+// lanes, E (a power of two) in each CUDA lane. Slot s = j * V + c of CUDA
+// lane l holds block-local index (l + 32 j) V + c: with V = 4 every j is one
+// coalesced float4 access of the warp, and a lane's slots ascend in index.
+template <int E>
+struct Slots {
+  static constexpr int V = E < 4 ? E : 4;
+  static constexpr int J = E / V;
+  static constexpr int W = (E + 31) / 32;  // 32-bit words of a slot mask
+  __device__ static int index(int lane, int s) {
+    return (lane + 32 * (s / V)) * V + s % V;
+  }
+  __device__ static int lane_of(int i) { return (i / V) & 31; }
+  __device__ static int slot_of(int i) { return ((i / V) >> 5) * V + i % V; }
+};
+
+// v[slot] = p[index] for the block's first `len` lanes, 0 past them; float4
+// loads where `vec` (p 16-byte aligned) and the four lanes are all real.
+template <int E>
+__device__ __forceinline__ void load_slots(const float* __restrict__ p, int len,
+                                           bool vec, int lane, float (&v)[E]) {
+  using L = Slots<E>;
+#pragma unroll
+  for (int j = 0; j < L::J; ++j) {
+    const int i0 = (lane + 32 * j) * L::V;
+    if constexpr (L::V == 4) {
+      if (vec && i0 + 4 <= len) {
+        const float4 t = *reinterpret_cast<const float4*>(p + i0);
+        v[4 * j] = t.x;
+        v[4 * j + 1] = t.y;
+        v[4 * j + 2] = t.z;
+        v[4 * j + 3] = t.w;
+        continue;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < L::V; ++c)
+      v[j * L::V + c] = (i0 + c < len) ? p[i0 + c] : 0.0f;
+  }
+}
+
+// p[index] = v[slot] for the block's first `len` lanes only
+template <int E>
+__device__ __forceinline__ void store_slots(float* __restrict__ p, int len,
+                                            bool vec, int lane,
+                                            const float (&v)[E]) {
+  using L = Slots<E>;
+#pragma unroll
+  for (int j = 0; j < L::J; ++j) {
+    const int i0 = (lane + 32 * j) * L::V;
+    if constexpr (L::V == 4) {
+      if (vec && i0 + 4 <= len) {
+        *reinterpret_cast<float4*>(p + i0) =
+            make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+        continue;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < L::V; ++c)
+      if (i0 + c < len) p[i0 + c] = v[j * L::V + c];
+  }
+}
+
+template <int W>
+__device__ __forceinline__ bool has_bit(const uint32_t (&m)[W], int s) {
+  return (m[s >> 5] >> (s & 31)) & 1u;
+}
+
+// m |= bit s for a slot known only at run time (registers have no dynamic
+// index, so every word is visited)
+template <int W>
+__device__ __forceinline__ void set_bit(uint32_t (&m)[W], int s) {
+#pragma unroll
+  for (int w = 0; w < W; ++w)
+    if (w == (s >> 5)) m[w] |= 1u << (s & 31);
 }
 
 // ---------------------------------------------------------------------------
@@ -166,18 +267,123 @@ dequant_acc_kernel(const QT* __restrict__ q, const float* __restrict__ scales,
 // ---------------------------------------------------------------------------
 // 3. topk_sparsify
 // Replaces: tdm_compress.py topk_sparsify_fwd (_topk_kernel), the CHOCO send
-//           side.
+//           side. Two paths, chosen by the wrapper from k: the select for
+//           k <= TOPK_SELECT_MAX_K (the CHOCO round's k is 1 per block), the
+//           sort above it.
 // Bound: bytes. Reads x (4 B) and writes dense (4 B) per element, plus
 //        8 B per selected entry: about 8 B/elem.
-// Design: the TPU kernel runs k rounds of masked argmax; here one thread
-//         block bitonic-sorts the block's (key, index) pairs in shared memory
-//         by key descending, index ascending (key = |x|, NaN as +inf). All
-//         pairs are distinct, so the order is total and equals the stable
-//         descending argsort of the reference for every k. Keys compare as
-//         floats: -0.0 and +0.0 tie and go to the lower index. The sort is
-//         O(block log^2 block) work per block, far above the byte bound for
-//         small k; it is kept for being simple and exact.
+// Semantics (the reference's stable descending argsort): key = |x| with NaN
+//        as +inf; ties go to the lower block-local index, -0.0 and +0.0
+//        tie; lanes past a ragged row end are zero payload, selectable with
+//        key 0 and value 0.0, never read or written in x or dense.
+//
+// 3a. select path. One warp per block, kWarpsPerCta blocks per thread block,
+//         no shared memory and no __syncthreads. The warp loads the block
+//         once into registers (float4 where aligned) and runs k rounds of
+//         the TPU kernel's masked argmax: a candidate is the uint64
+//         (bits(key) + 1) << 32 | (0xffffffff - index), whose unsigned max is
+//         the largest key, then the lowest index (a non-negative float's
+//         bits order as an unsigned integer; 0 is left free for "taken").
+//         Each lane keeps the best of its own slots; a round is five
+//         shuffles, and only the winning lane rescans its slots. Lane t keeps
+//         round t's result, so vals/idxs are one coalesced store, and dense
+//         is written from the registers. k rounds cost O(k E) per lane: at
+//         the CHOCO round's k = 1 the kernel is bound by its bytes.
+// 3b. sort path. One thread block bitonic-sorts the block's (key, index)
+//         pairs in shared memory by key descending, index ascending; all
+//         pairs are distinct, so the order is total and equals the
+//         reference's for every k. O(block log^2 block) work per block,
+//         whatever k: simple and exact, for the large k that the select's
+//         k rounds would make slower still.
 // ---------------------------------------------------------------------------
+
+// (bits(|v|) + 1) with NaN as +inf: the unsigned order of the keys, 0 free
+__device__ __forceinline__ uint32_t rank_key(float v) {
+  const uint32_t b = __float_as_uint(v) & 0x7fffffffu;
+  return (b > 0x7f800000u ? 0x7f800000u : b) + 1u;
+}
+
+// The lane's best untaken candidate (0 if none) and its value.
+template <int E>
+__device__ __forceinline__ unsigned long long lane_best(
+    const float (&v)[E], const uint32_t (&taken)[Slots<E>::W], int lane,
+    float& val) {
+  uint32_t bk = 0;
+  int bs = 0;
+  float bv = 0.0f;
+#pragma unroll
+  for (int s = 0; s < E; ++s) {
+    const uint32_t kk = has_bit(taken, s) ? 0u : rank_key(v[s]);
+    if (kk > bk) {  // strict: among equal keys the first slot, lowest index
+      bk = kk;
+      bs = s;
+      bv = v[s];
+    }
+  }
+  val = bv;
+  if (bk == 0) return 0ull;
+  const uint32_t idx = static_cast<uint32_t>(Slots<E>::index(lane, bs));
+  return (static_cast<unsigned long long>(bk) << 32) | (0xffffffffu - idx);
+}
+
+template <int E>
+__global__ void __launch_bounds__(kWarpsPerCta * 32)
+topk_select_kernel(const float* __restrict__ x, float* __restrict__ dense,
+                   float* __restrict__ vals, int32_t* __restrict__ idxs,
+                   int64_t n_blocks, int64_t row_len, int64_t nb_row,
+                   int block, int k) {
+  using L = Slots<E>;
+  BlockRef b;
+  if (!warp_block_ref(n_blocks, row_len, nb_row, block, b)) return;
+  const int lane = threadIdx.x & 31;
+  const float* xb = x + b.offset;
+  float* db = dense + b.offset;
+  const bool vec = (reinterpret_cast<uintptr_t>(xb) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(db) % 16 == 0);
+  float v[E];
+  load_slots<E>(xb, b.len, vec, lane, v);
+  uint32_t taken[L::W];
+#pragma unroll
+  for (int w = 0; w < L::W; ++w) taken[w] = 0u;
+#pragma unroll
+  for (int s = 0; s < E; ++s)  // slots past the block never compete
+    if (L::index(lane, s) >= block) taken[s >> 5] |= 1u << (s & 31);
+
+  float best_v;
+  unsigned long long best = lane_best<E>(v, taken, lane, best_v);
+  float out_v = 0.0f;
+  int32_t out_i = 0;
+  for (int t = 0; t < k; ++t) {
+    unsigned long long win = best;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const unsigned long long o = __shfl_xor_sync(kFullMask, win, off);
+      win = o > win ? o : win;
+    }
+    const int wi = static_cast<int>(0xffffffffu - static_cast<uint32_t>(win));
+    const int owner = L::lane_of(wi);
+    const float wv = __shfl_sync(kFullMask, best_v, owner);
+    if (lane == t) {
+      out_v = wv;
+      out_i = wi;
+    }
+    if (lane == owner) {
+      set_bit(taken, L::slot_of(wi));
+      best = lane_best<E>(v, taken, lane, best_v);
+    }
+  }
+  if (lane < k) {
+    vals[b.bid * k + lane] = out_v;
+    idxs[b.bid * k + lane] = out_i;
+  }
+  // dense: x at the selected lanes, 0 elsewhere (the slots past the block
+  // are marked too, but lie past len and are never stored)
+#pragma unroll
+  for (int s = 0; s < E; ++s)
+    if (!has_bit(taken, s)) v[s] = 0.0f;
+  store_slots<E>(db, b.len, vec, lane, v);
+}
+
 __global__ void __launch_bounds__(kSortThreads)
 topk_kernel(const float* __restrict__ x, float* __restrict__ dense,
             float* __restrict__ vals, int32_t* __restrict__ idxs,
@@ -240,15 +446,68 @@ topk_kernel(const float* __restrict__ x, float* __restrict__ dense,
 // ---------------------------------------------------------------------------
 // 4. scatter_accumulate
 // Replaces: tdm_compress.py scatter_accumulate_fwd (_scatter_acc_kernel),
-//           the CHOCO receive side, once per matching.
+//           the CHOCO receive side, once per matching. Two paths, chosen by
+//           the wrapper from k as in topk_sparsify.
 // Bound: bytes. Reads acc (4 B) and writes out (4 B) per element, plus 8 B
 //        per received entry: about 8 B/elem.
-// Design: the dense contribution is built in shared memory (zeros, then
-//         0 + vals at idxs: indices are unique per block by contract, so no
-//         atomics), and never touches HBM. Every lane then gets
-//         fma(w, dense, acc) -- also the untouched ones, because the
-//         reference's -0.0 + w*0 is +0.0 where a copy of acc would keep -0.0.
+// Semantics: every lane gets fma(w, c, acc), c = 0 + v at a received index
+//        and 0 elsewhere -- also the untouched lanes, because the
+//        reference's -0.0 + w*0 is +0.0 where a copy of acc would keep
+//        -0.0. Indices are unique per block by contract (no atomics);
+//        indices outside the block are ignored.
+// 4a. select path. One warp per block, kWarpsPerCta blocks per thread block,
+//         no shared memory and no __syncthreads: acc is loaded once into
+//         registers (float4 where aligned), lane t loads pair t, each pair is
+//         broadcast with __shfl_sync and applied by the lane that owns its
+//         index, and the warp stores fma(w, c, acc) with float4 stores.
+// 4b. shared path. One thread block per block builds the dense
+//         contribution in shared memory (zeros, then 0 + vals at idxs) and
+//         runs one read-FMA-write pass over acc; for k above the select's.
 // ---------------------------------------------------------------------------
+template <int E>
+__global__ void __launch_bounds__(kWarpsPerCta * 32)
+scatter_select_kernel(const float* __restrict__ vals,
+                      const int32_t* __restrict__ idxs,
+                      const float* __restrict__ acc, const float* __restrict__ w,
+                      float* __restrict__ out, int64_t n_blocks,
+                      int64_t row_len, int64_t nb_row, int block, int k) {
+  using L = Slots<E>;
+  BlockRef b;
+  if (!warp_block_ref(n_blocks, row_len, nb_row, block, b)) return;
+  const int lane = threadIdx.x & 31;
+  const float* ab = acc + b.offset;
+  float* ob = out + b.offset;
+  const bool vec = (reinterpret_cast<uintptr_t>(ab) % 16 == 0) &&
+                   (reinterpret_cast<uintptr_t>(ob) % 16 == 0);
+  float a[E];
+  load_slots<E>(ab, b.len, vec, lane, a);
+  const float wr = w[b.row];
+  int32_t my_i = -1;
+  float my_v = 0.0f;
+  if (lane < k) {
+    my_i = idxs[b.bid * k + lane];
+    my_v = vals[b.bid * k + lane];
+  }
+  uint32_t hit[L::W];
+#pragma unroll
+  for (int w = 0; w < L::W; ++w) hit[w] = 0u;
+  for (int t = 0; t < k; ++t) {
+    const int i = __shfl_sync(kFullMask, my_i, t);
+    const float c = __fadd_rn(0.0f, __shfl_sync(kFullMask, my_v, t));
+    if (i >= 0 && i < block && lane == L::lane_of(i)) {
+      const int slot = L::slot_of(i);
+#pragma unroll
+      for (int s = 0; s < E; ++s)
+        if (s == slot) a[s] = __fmaf_rn(wr, c, a[s]);
+      set_bit(hit, slot);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < E; ++s)
+    if (!has_bit(hit, s)) a[s] = __fmaf_rn(wr, 0.0f, a[s]);
+  store_slots<E>(ob, b.len, vec, lane, a);
+}
+
 __global__ void __launch_bounds__(kThreads)
 scatter_acc_kernel(const float* __restrict__ vals,
                    const int32_t* __restrict__ idxs,
@@ -338,6 +597,22 @@ dequantize_kernel(const int8_t* __restrict__ q,
 
 inline int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
+// Calls f(std::integral_constant<int, E>) with E the select paths' slots per
+// lane for `block`: the power of two with 32 E >= block. False above 4096.
+template <typename F>
+bool with_slots(int64_t block, F&& f) {
+  if (block <= 32) f(std::integral_constant<int, 1>{});
+  else if (block <= 64) f(std::integral_constant<int, 2>{});
+  else if (block <= 128) f(std::integral_constant<int, 4>{});
+  else if (block <= 256) f(std::integral_constant<int, 8>{});
+  else if (block <= 512) f(std::integral_constant<int, 16>{});
+  else if (block <= 1024) f(std::integral_constant<int, 32>{});
+  else if (block <= 2048) f(std::integral_constant<int, 64>{});
+  else if (block <= 4096) f(std::integral_constant<int, 128>{});
+  else return false;
+  return true;
+}
+
 template <typename QT, bool kUnit>
 void dequant_acc_grid(const void* q, const void* scales, const void* acc,
                       const void* w, void* out, int64_t grid, int64_t row_len,
@@ -404,9 +679,30 @@ int tdm_dequant_acc_i16(const void* q, const void* scales, const void* acc,
                             stream);
 }
 
-int tdm_topk_sparsify(const void* x, void* dense, void* vals, void* idxs,
-                      int64_t rows, int64_t row_len, int64_t block, int64_t k,
-                      void* stream) {
+// select path of topk_sparsify: k <= kSelectMaxK
+int tdm_topk_select(const void* x, void* dense, void* vals, void* idxs,
+                    int64_t rows, int64_t row_len, int64_t block, int64_t k,
+                    void* stream) {
+  const int64_t nb_row = cdiv(row_len, block);
+  const int64_t n_blocks = rows * nb_row;
+  if (n_blocks == 0 || k == 0) return 0;
+  if (k > kSelectMaxK || k > block) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t grid = cdiv(n_blocks, kWarpsPerCta);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool ok = with_slots(block, [&](auto e) {
+    topk_select_kernel<decltype(e)::value><<<grid, kWarpsPerCta * 32, 0, st>>>(
+        static_cast<const float*>(x), static_cast<float*>(dense),
+        static_cast<float*>(vals), static_cast<int32_t*>(idxs), n_blocks,
+        row_len, nb_row, static_cast<int>(block), static_cast<int>(k));
+  });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sort path of topk_sparsify: any k <= block
+int tdm_topk_sort(const void* x, void* dense, void* vals, void* idxs,
+                  int64_t rows, int64_t row_len, int64_t block, int64_t k,
+                  void* stream) {
   const int64_t nb_row = cdiv(row_len, block);
   if (rows * nb_row == 0 || k == 0) return 0;
   int p2 = 1;
@@ -421,9 +717,33 @@ int tdm_topk_sparsify(const void* x, void* dense, void* vals, void* idxs,
   return static_cast<int>(cudaGetLastError());
 }
 
-int tdm_scatter_acc(const void* vals, const void* idxs, const void* acc,
-                    const void* w, void* out, int64_t rows, int64_t row_len,
-                    int64_t block, int64_t k, void* stream) {
+// select path of scatter_accumulate: k <= kSelectMaxK
+int tdm_scatter_acc_select(const void* vals, const void* idxs, const void* acc,
+                           const void* w, void* out, int64_t rows,
+                           int64_t row_len, int64_t block, int64_t k,
+                           void* stream) {
+  const int64_t nb_row = cdiv(row_len, block);
+  const int64_t n_blocks = rows * nb_row;
+  if (n_blocks == 0) return 0;
+  if (k > kSelectMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t grid = cdiv(n_blocks, kWarpsPerCta);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool ok = with_slots(block, [&](auto e) {
+    scatter_select_kernel<decltype(e)::value><<<grid, kWarpsPerCta * 32, 0, st>>>(
+        static_cast<const float*>(vals), static_cast<const int32_t*>(idxs),
+        static_cast<const float*>(acc), static_cast<const float*>(w),
+        static_cast<float*>(out), n_blocks, row_len, nb_row,
+        static_cast<int>(block), static_cast<int>(k));
+  });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// shared path of scatter_accumulate: any k
+int tdm_scatter_acc_shared(const void* vals, const void* idxs, const void* acc,
+                           const void* w, void* out, int64_t rows,
+                           int64_t row_len, int64_t block, int64_t k,
+                           void* stream) {
   const int64_t nb_row = cdiv(row_len, block);
   if (rows * nb_row == 0) return 0;
   scatter_acc_kernel<<<rows * nb_row, kThreads,

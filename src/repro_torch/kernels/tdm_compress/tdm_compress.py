@@ -12,6 +12,12 @@ Shapes follow :mod:`.ref`: a flat ``(n,)`` payload or a stacked
 ``w`` is one float32 weight per row, ``(rows,)`` (a scalar for flat input).
 ``quantize_scaled_fwd`` and ``dequantize_fwd`` also take one ``(nb,)`` vector
 of scales shared by every row of a stacked payload.
+
+``topk_sparsify_fwd`` and ``scatter_accumulate_fwd`` have two kernel paths
+each, chosen here from the per-block k: for ``k <= TOPK_SELECT_MAX_K`` the
+select path (one warp per block, k rounds of a warp-wide argmax, the
+contribution patched in registers), above it the bitonic sort and the
+shared-memory scatter. Each path has its own launch counter.
 """
 
 from __future__ import annotations
@@ -27,12 +33,18 @@ from repro_torch.kernels.tdm_compress.ref import row_weights
 LIB_NAME = "tdm_compress"
 MIN_BLOCK, MAX_BLOCK = 32, 4096
 _MAX_GRID = 2**31 - 1
+# largest per-block k that takes the select paths (at most 32, the C
+# source's kSelectMaxK: one result per lane of the warp)
+TOPK_SELECT_MAX_K = 32
+_SELECT_BLOCKS_PER_CTA = 8     # kWarpsPerCta in the C source
 
 LAUNCHES: Dict[str, int] = {
     "quantize": 0,
     "dequant_accumulate": 0,
-    "topk_sparsify": 0,
-    "scatter_accumulate": 0,
+    "topk_sparsify": 0,             # select path
+    "topk_sparsify_sort": 0,
+    "scatter_accumulate": 0,        # select path
+    "scatter_accumulate_shared": 0,
     "quantize_scaled": 0,
     "dequantize": 0,
 }
@@ -53,8 +65,10 @@ _SIGNATURES = {
     "tdm_quantize": [_P, _P, _P, _I, _I, _I, _P],
     "tdm_dequant_acc_i8": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "tdm_dequant_acc_i16": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "tdm_topk_sparsify": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "tdm_scatter_acc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tdm_topk_select": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tdm_topk_sort": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tdm_scatter_acc_select": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "tdm_scatter_acc_shared": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tdm_quantize_scaled": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tdm_dequantize": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -90,15 +104,16 @@ def _check(t: torch.Tensor, name: str, dtypes, shape=None) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
 
 
-def _geometry(x: torch.Tensor, block: int) -> Tuple[int, int, int]:
-    """(rows, row_len, blocks per row) of a (n,) or (rows, n) payload."""
+def _geometry(x: torch.Tensor, block: int, per_cta: int = 1) -> Tuple[int, int, int]:
+    """(rows, row_len, blocks per row) of a (n,) or (rows, n) payload whose
+    kernel takes ``per_cta`` blocks per thread block."""
     if not MIN_BLOCK <= block <= MAX_BLOCK:
         raise ValueError(f"block must be in [{MIN_BLOCK}, {MAX_BLOCK}], got {block}")
     if x.dim() not in (1, 2):
         raise ValueError(f"payload must be (n,) or (rows, n), got {tuple(x.shape)}")
     rows, n = (1, x.shape[0]) if x.dim() == 1 else tuple(x.shape)
     nb = -(-n // block)
-    if rows * nb > _MAX_GRID:
+    if -(-rows * nb // per_cta) > _MAX_GRID:
         raise ValueError(f"{rows * nb} blocks exceed the launch grid")
     return rows, n, nb
 
@@ -141,9 +156,18 @@ def dequant_accumulate_fwd(q: torch.Tensor, scales: torch.Tensor, acc: torch.Ten
     return out
 
 
+def _path(k: int) -> Tuple[str, int]:
+    """(path, payload blocks per thread block) of the two-path kernels."""
+    if k <= TOPK_SELECT_MAX_K:
+        return "select", _SELECT_BLOCKS_PER_CTA
+    return "large", 1
+
+
 def topk_sparsify_fwd(x: torch.Tensor, k: int, *, block: int = 1024):
-    """Blockwise top-k -> (dense like x, vals (.., nb, k), idxs (.., nb, k))."""
-    rows, n, nb = _geometry(x, block)
+    """Blockwise top-k -> (dense like x, vals (.., nb, k), idxs (.., nb, k));
+    the select path for ``k <= TOPK_SELECT_MAX_K``, the sort above it."""
+    path, per_cta = _path(k)
+    rows, n, nb = _geometry(x, block, per_cta)
     if not 0 <= k <= block:
         raise ValueError(f"per-block k must be in [0, {block}], got {k}")
     _check(x, "x", (torch.float32,))
@@ -153,27 +177,33 @@ def topk_sparsify_fwd(x: torch.Tensor, k: int, *, block: int = 1024):
     dense = torch.empty_like(x)
     vals = torch.empty(_block_shape(x, rows, nb, k), dtype=torch.float32, device=x.device)
     idxs = torch.empty(vals.shape, dtype=torch.int32, device=x.device)
-    _call("tdm_topk_sparsify", x.data_ptr(), dense.data_ptr(), vals.data_ptr(),
-          idxs.data_ptr(), rows, n, block, k)
-    LAUNCHES["topk_sparsify"] += 1
+    fn, counter = (("tdm_topk_select", "topk_sparsify") if path == "select"
+                   else ("tdm_topk_sort", "topk_sparsify_sort"))
+    _call(fn, x.data_ptr(), dense.data_ptr(), vals.data_ptr(), idxs.data_ptr(),
+          rows, n, block, k)
+    LAUNCHES[counter] += 1
     return dense, vals, idxs
 
 
 def scatter_accumulate_fwd(vals: torch.Tensor, idxs: torch.Tensor, acc: torch.Tensor,
                            w, *, block: int = 1024) -> torch.Tensor:
-    """acc + w * scatter(vals at block-local idxs), every lane one FMA."""
-    rows, n, nb = _geometry(acc, block)
-    _check(acc, "acc", (torch.float32,))
+    """acc + w * scatter(vals at block-local idxs), every lane one FMA; the
+    select path for ``k <= TOPK_SELECT_MAX_K``, the shared-memory one above."""
     k = vals.shape[-1]
+    path, per_cta = _path(k)
+    rows, n, nb = _geometry(acc, block, per_cta)
+    _check(acc, "acc", (torch.float32,))
     _check(vals, "vals", (torch.float32,), _block_shape(acc, rows, nb, k))
     _check(idxs, "idxs", (torch.int32,), vals.shape)
     wt = _weights(w, rows, acc)
     if k == 0:
         return acc.clone()
     out = torch.empty_like(acc)
-    _call("tdm_scatter_acc", vals.data_ptr(), idxs.data_ptr(), acc.data_ptr(),
-          wt.data_ptr(), out.data_ptr(), rows, n, block, k)
-    LAUNCHES["scatter_accumulate"] += 1
+    fn, counter = (("tdm_scatter_acc_select", "scatter_accumulate") if path == "select"
+                   else ("tdm_scatter_acc_shared", "scatter_accumulate_shared"))
+    _call(fn, vals.data_ptr(), idxs.data_ptr(), acc.data_ptr(), wt.data_ptr(),
+          out.data_ptr(), rows, n, block, k)
+    LAUNCHES[counter] += 1
     return out
 
 

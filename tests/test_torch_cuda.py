@@ -7,7 +7,9 @@ present. Run on a machine with an H100:
 
 Standards as in ``chip_smoke.py``: int8 codes and scales, codes with given
 (shared or per-row) scales, dequantized values and top-k dense/vals/idxs bit
-for bit; the weighted accumulates within one rounding of the product and of
+for bit, on both top-k paths (select and sort, split at
+``TOPK_SELECT_MAX_K``) with normal, tied, all-equal and NaN/inf payloads;
+the weighted accumulates within one rounding of the product and of
 the sum (the kernels fuse the multiply-add, the plain versions round twice),
 the unit-weight accumulate bit for bit (both round once); one int8 and one
 topk FL round on the small model through the kernels, held to the same round
@@ -28,6 +30,8 @@ from __future__ import annotations
 
 import pytest
 import torch
+
+from repro_torch.kernels.tdm_compress.tdm_compress import TOPK_SELECT_MAX_K
 
 pytestmark = pytest.mark.cuda
 
@@ -73,24 +77,48 @@ def test_quantize_and_dequant_accumulate(device, rows, n, block):
     assert bool(ref.fma_gap_ok(got, want, prod).all())
 
 
-@pytest.mark.parametrize("rows,n,block", SHAPES + [SLICE])
-def test_topk_and_scatter_accumulate(device, rows, n, block):
+def _topk_cases():
+    """(rows, n, block, k): k on both sides of the select/sort split, 1 only
+    at the slice's shape; (3, 4097, 1024) puts rows 1 and 2 off 16-byte
+    alignment, so the select paths take their scalar loads there."""
+    sel = TOPK_SELECT_MAX_K
+    out = []
+    for rows, n, block in SHAPES + [(3, 4097, 1024), SLICE]:
+        ks = [1] if n > 10**6 else sorted({1, 7, sel, sel + 1, block})
+        out += [(rows, n, block, k) for k in ks if k <= block]
+    return out
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "equal", "edge"])
+@pytest.mark.parametrize("rows,n,block,k", _topk_cases())
+def test_topk_and_scatter_accumulate(device, rows, n, block, k, kind):
+    """Top-k bit for bit and the scatter within one rounding, on the path
+    that k selects (the launch counters say which)."""
     from repro_torch.kernels.tdm_compress import ref
     from repro_torch.kernels.tdm_compress import tdm_compress as kern
 
     g = torch.Generator(device=device).manual_seed(n + 1)
     x = torch.randn(rows, n, generator=g, device=device)
-    x[:, ::5] = 1.0                                    # exact ties
+    if kind == "ties":
+        x[:, ::5] = 1.0                                # exact ties
+    elif kind == "equal":
+        x.fill_(-0.75)                                 # only the index decides
+    elif kind == "edge":
+        x = _edge(x, g)
     acc = torch.randn(rows, n, generator=g, device=device)
     w = torch.rand(rows, generator=g, device=device)
-    for k in sorted({1, min(7, block), block} if n < 10**6 else {1}):
-        d, v, i = kern.topk_sparsify_fwd(x, k, block=block)
-        d_r, v_r, i_r = ref.topk_sparsify_ref(x, k, block)
-        assert _bits(d, d_r) and _bits(v, v_r) and _bits(i, i_r)
-        got = kern.scatter_accumulate_fwd(v, i, acc, w, block=block)
-        want = ref.scatter_acc_ref(v, i, acc, w, block)
-        dense = ref.scatter_acc_ref(v, i, torch.zeros_like(acc), 1.0, block)
-        assert bool(ref.fma_gap_ok(got, want, w[:, None] * dense).all())
+    select = k <= TOPK_SELECT_MAX_K
+    kern.reset_launch_counts()
+    d, v, i = kern.topk_sparsify_fwd(x, k, block=block)
+    d_r, v_r, i_r = ref.topk_sparsify_ref(x, k, block)
+    assert _bits(d, d_r) and _bits(v, v_r) and _bits(i, i_r)
+    got = kern.scatter_accumulate_fwd(v, i, acc, w, block=block)
+    want = ref.scatter_acc_ref(v, i, acc, w, block)
+    dense = ref.scatter_acc_ref(v, i, torch.zeros_like(acc), 1.0, block)
+    assert bool(ref.fma_gap_ok(got, want, w[:, None] * dense).all())
+    counts = kern.launch_counts()
+    assert counts["topk_sparsify" if select else "topk_sparsify_sort"] == 1
+    assert counts["scatter_accumulate" if select else "scatter_accumulate_shared"] == 1
 
 
 def _edge(x, g):

@@ -3,7 +3,8 @@
 Each torch function of ``repro_torch.kernels.tdm_compress.ref`` is held to
 the jitted JAX ``ref.py`` function on the same numpy inputs, over the case
 grid of ``tests/test_kernels.py`` (ragged tails, k = 0 and k = block,
-all-equal magnitudes, NaN/+-inf payloads, int16 q), and to the Pallas
+k on both sides of the kernels' ``TOPK_SELECT_MAX_K``, all-equal
+magnitudes and all-equal values, NaN/+-inf payloads, int16 q), and to the Pallas
 kernels in interpret mode for a few shapes. The dispatch rules (CPU tensor
 -> plain version, CUDA tensor -> kernel or raise) are checked here too; the
 CUDA kernels themselves are held to these plain versions on the card
@@ -38,11 +39,14 @@ _ref_scales = jax.jit(q_ref.blockwise_scales_ref, static_argnames=("block",))
 
 
 def _payload(seed: int, n: int, kind: str) -> np.ndarray:
-    """'normal' random scale, 'ties' only +-1, 'edge' with NaN/+-inf."""
+    """'normal' random scale, 'ties' only +-1, 'equal' one value repeated,
+    'edge' with NaN/+-inf."""
     rng = np.random.default_rng(seed)
     x = (rng.standard_normal(n) * rng.uniform(0.1, 10.0)).astype(np.float32)
     if kind == "ties":
         x = np.where(x >= 0, np.float32(1.0), np.float32(-1.0))
+    elif kind == "equal":
+        x = np.full(n, x[0], np.float32)
     elif kind == "edge":
         m = rng.random(n)
         x[m < 0.05] = np.nan
@@ -65,8 +69,11 @@ CASES = [
     (1024, 256, "normal"), (4096, 1024, "normal"), (8192, 512, "normal"),
     (100, 64, "normal"), (1, 256, "normal"), (1023, 1024, "normal"),
     (1025, 1024, "edge"), (500, 128, "ties"), (2500, 256, "edge"),
-    (3000, 512, "ties"), (777, 64, "edge"),
+    (3000, 512, "ties"), (777, 64, "edge"), (2048, 1024, "equal"),
+    (777, 256, "equal"),
 ]
+# k on both sides of the split between the kernels' select and sort paths
+SELECT_KS = [kern.TOPK_SELECT_MAX_K, kern.TOPK_SELECT_MAX_K + 1]
 
 
 @pytest.mark.parametrize("n,block,kind", CASES)
@@ -98,7 +105,7 @@ def test_quantize_scaled_and_dequantize(n, block):
 
 
 @pytest.mark.parametrize("n,block,kind", CASES)
-@pytest.mark.parametrize("k", [0, 1, 7, "block"])
+@pytest.mark.parametrize("k", [0, 1, 7, *SELECT_KS, "block"])
 def test_topk_sparsify_bitwise(n, block, kind, k):
     k = block if k == "block" else min(k, block)
     x = _payload(n + k, n, kind)
@@ -121,7 +128,7 @@ def test_topk_signed_zero_ties_go_to_lowest_index():
 
 
 @pytest.mark.parametrize("n,block,kind", [c for c in CASES if c[2] != "edge"])
-@pytest.mark.parametrize("k", [0, 1, 33])
+@pytest.mark.parametrize("k", sorted({0, 1, 33, *SELECT_KS}))
 def test_scatter_accumulate_within_one_rounding(n, block, kind, k):
     k = min(k, block)
     x = _payload(n * 13 + k, n, kind)
@@ -229,6 +236,23 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kern.quantize_fwd(x, block=16)
     with pytest.raises(ValueError, match="unknown impl"):
         ops.quantize(x, impl="pallas")
+
+
+def test_select_constants_match_the_source():
+    """The wrapper's split and grid follow the C source's select paths: at
+    most one result per lane (kSelectMaxK) and kWarpsPerCta blocks per
+    thread block."""
+    import re
+
+    from repro_torch.kernels import build
+
+    src = (build.CSRC_DIR / "tdm_compress.cu").read_text()
+    max_k = int(re.search(r"constexpr int kSelectMaxK = (\d+);", src).group(1))
+    per_cta = int(re.search(r"constexpr int kWarpsPerCta = (\d+);", src).group(1))
+    assert 8 <= kern.TOPK_SELECT_MAX_K <= max_k == 32
+    assert kern._SELECT_BLOCKS_PER_CTA == per_cta
+    assert kern._path(kern.TOPK_SELECT_MAX_K) == ("select", per_cta)
+    assert kern._path(kern.TOPK_SELECT_MAX_K + 1) == ("large", 1)
 
 
 def test_fused_impl_resolution():
