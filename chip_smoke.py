@@ -37,9 +37,25 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``flash_attention.ref.fa_tolerance`` (1e-5 of the output's scale, plus
    one bf16 ulp of each entry for bf16 outputs) on prefill cases of head
    dim 16 to 256, G 1, 2 and 4, causal and not, windows below and above S,
-   softcap 50 and none, S 1 to 512 (ragged tiles included) and decode cases
-   with per-row kv_len of 1, a middle value and the full cache, bf16 and
-   float32;
+   softcap 50 and none, S 1 to 4608 (ragged tiles included; S 4608 puts
+   gemma2-9b's local mask at its window of 4096 on the card) and decode
+   cases with per-row kv_len of 1, a middle value and the full cache, and
+   against caches of 4096 and 8192 slots (many chunks of the split-KV
+   decode; kv_len 1, one past a chunk edge, full), bf16 and float32; every
+   case launched twice, bit-identical; the launch counters (counted by the
+   kernel the C side reports it launched) show every bf16 prefill on the
+   tensor-core kernel and no float32 one; the serving-shape decode queued
+   alternately on two streams, and replayed from a CUDA graph, equals one
+   launch bit for bit; both at their 8-lane serving shapes by
+   ``torch.profiler`` (the serving phases' instrument), CUDA events and
+   CUDA-graph replay, logged side by side;
+3b. gemma2-9b smoke edges (``repro_torch.serving.edge_check``, which the
+   card tests run too): the smoke config (window 16) through
+   ``ModelDecoder``, one prefill call admitting both replicas with prompts
+   of 129-256 tokens (a bucket-256 wave), 24 ticks past the window (the
+   local rings engaged): in float32 the tokens equal a CPU decoder's, in
+   bf16 the launches are one per layer per call and the first local and
+   global layers' attention (prompt and caches) within ``fa_tolerance``;
 4. slice 3, serving (run first among the paths, so its peak memory is its
    own): ``repro_torch.launch.serve_constellation`` with the torch
    ``ModelDecoder`` on mamba2-780m at its published config, all 48 layers,
@@ -66,7 +82,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    weights from seed 0, the same scenario and workload as 4. Checks: every
    request delivered with 16 tokens, the audit clean,
    ``flash_attention_fwd`` launched 42 times per prefill call and
-   ``flash_attention_decode`` 42 times per decode tick, no other kernel; a
+   ``flash_attention_decode`` 42 times per decode tick, every prefill
+   launch on the tensor-core kernel, no other kernel; a
    replay on a fresh decoder (the first one freed: two copies of the params
    do not fit) under ``torch.profiler`` gives the same token streams bit for
    bit; one wave's prefill through the kernel and through the plain version,
@@ -105,11 +122,18 @@ Phases (any failure exits non-zero, and no result line is printed):
    larger of the bytes it must move over 3.35 TB/s and its float32
    operations (the triangle s <= t only) over 67 TFLOP/s; both attention
    entry points at gemma2-9b's serving shapes (prefill 8 lanes x 16 heads,
-   S 512, hd 256, causal, softcap 50, bf16, and the served 4-lane shape;
-   decode 8 lanes against a 529-slot cache), each beside its bound (the
-   prefill's causal triangle in float32 operations, the decode's K and V
-   bytes) and ``F.scaled_dot_product_attention`` on the same tensors, which
-   has no softcap and so is logged, not reported as the library time.
+   S 512, hd 256, causal, softcap 50, bf16; decode 8 lanes against a
+   529-slot cache; each also at the served 4 lanes), by the CUDA-event time
+   of eager calls like every other row (where a wrapper costs the host more
+   than its kernel costs the card, the host's time per call)
+   and by device time per call from CUDA-graph replays (``graph_ms``),
+   each beside its bound (the larger of the bytes of q, k, v and out at
+   3.35 TB/s and the operations at the bf16 tensor-core rate: bytes for
+   both), the library call (``flex_attention`` under ``torch.compile`` with
+   the softcap as a ``score_mod`` and the causal or kv_len mask as a
+   ``mask_mod``: the same function; null with the error if it does not
+   build) and ``F.scaled_dot_product_attention`` on the same tensors, which
+   has no softcap and so is only logged.
 
 Prints a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
 as the last line. Exits non-zero when no CUDA device is present or the
@@ -128,6 +152,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet, at the 700 W limit
+BF16_FLOPS_PER_S = 989e12      # dense bf16 on the tensor cores, same sheet
 F32_FLOPS_PER_S = 67e12        # float32 outside the tensor cores, same sheet
 SOURCES = {
     "tdm_compress": "src/repro_torch/csrc/tdm_compress.cu",
@@ -233,7 +258,7 @@ def phase_build() -> None:
         rec = build_lib.build_record(name)
         log(f"[build] {name}.cu: nvcc {rec['seconds']:.1f} s (built={rec['built']})")
         for line in rec["ptxas"].splitlines():
-            if "Used" in line or "spill" in line or "Compiling entry" in line:
+            if any(t in line for t in ("Used", "spill", "Compiling entry", "arning")):
                 log(f"[build]   {line.strip()}")
 
 
@@ -1270,6 +1295,7 @@ FA_PREFILL_CASES = [
     (2, 512, 16, 8, 256, True, None, 50.0),
     (1, 512, 16, 8, 256, True, 4096, 50.0),
     (1, 512, 8, 8, 128, True, 100, 50.0),
+    (1, 4608, 16, 8, 256, True, 4096, 50.0),     # gemma2-9b's local layer, S > window
 ]
 # (B, L, H, KV, hd, Sq), rows' kv_len 1, L // 2 + 1 and L
 FA_DECODE_CASES = [
@@ -1278,6 +1304,13 @@ FA_DECODE_CASES = [
     (3, 300, 4, 4, 128, 2),
     (3, 529, 16, 8, 256, 1),
     (3, 512, 8, 2, 256, 4),
+]
+# (B, L, H, KV, hd, Sq) against long caches, gemma2-9b's window 4096 as a
+# ring and twice that: many cache chunks; rows' kv_len 1, one past the
+# first chunk's edge and L
+FA_DECODE_LONG_CASES = [
+    (3, 4096, 16, 8, 256, 1),
+    (3, 8192, 16, 8, 256, 1),
 ]
 DENSE_ARCH = "gemma2-9b"
 DENSE_LAYERS = 42
@@ -1308,36 +1341,118 @@ def _fa_vs_plain(got, want, what: str) -> float:
     return err
 
 
+def _twice(fn, what: str):
+    """Two launches of ``fn`` on the same input: bit-identical outputs."""
+    import torch
+
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), f"{what}: two launches on the same input differ")
+    return a
+
+
 def phase_fa_small(device) -> None:
     """Both attention entry points against their plain version on small,
     ragged and serving-sized cases, within ``fa_tolerance`` (1e-5 of the
-    output's scale, plus one bf16 ulp of each entry for bf16 outputs)."""
+    output's scale, plus one bf16 ulp of each entry for bf16 outputs); two
+    launches of each case bit-identical; the launch counters show that bf16
+    prefills took the tensor-core kernel and float32 ones did not."""
     import torch
 
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kern
     from repro_torch.kernels.flash_attention import ops
 
     gen = torch.Generator(device=device).manual_seed(19)
     worst, n = 0.0, 0
     for dtype in (torch.bfloat16, torch.float32):
+        fwd0 = fa_kern.launch_counts()
         for B, S, H, KV, hd, causal, window, cap in FA_PREFILL_CASES:
             q, k, v = _fa_inputs(gen, (B, S, H, hd), (B, S, KV, hd), dtype, device)
             kw = dict(causal=causal, window=window, softcap=cap)
+            what = f"flash_attention_fwd {(B, S, H, KV, hd)} {kw} {dtype}"
             worst = max(worst, _fa_vs_plain(
-                ops.flash_attention(q, k, v, impl="cuda", **kw),
-                ops.flash_attention(q, k, v, impl="ref", **kw),
-                f"flash_attention_fwd {(B, S, H, KV, hd)} {kw} {dtype}"))
+                _twice(lambda: ops.flash_attention(q, k, v, impl="cuda", **kw), what),
+                ops.flash_attention(q, k, v, impl="ref", **kw), what))
             n += 1
+        fwd1 = fa_kern.launch_counts()
+        launched = fwd1["flash_attention_fwd"] - fwd0["flash_attention_fwd"]
+        wgmma = fwd1["flash_attention_fwd_wgmma"] - fwd0["flash_attention_fwd_wgmma"]
+        check(launched == 2 * len(FA_PREFILL_CASES) and
+              wgmma == (launched if dtype == torch.bfloat16 else 0),
+              f"{dtype} prefills: {launched} launches, {wgmma} on the tensor-core kernel")
         for B, L, H, KV, hd, Sq in FA_DECODE_CASES:
             q, k, v = _fa_inputs(gen, (B, Sq, H, hd), (B, L, KV, hd), dtype, device)
             kv_len = torch.tensor([1, L // 2 + 1, L], dtype=torch.int32, device=device)
+            what = f"flash_attention_decode {(B, L, H, KV, hd, Sq)} {dtype}"
             worst = max(worst, _fa_vs_plain(
-                ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0, impl="cuda"),
+                _twice(lambda: ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0,
+                                                          impl="cuda"), what),
                 ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0, impl="ref"),
-                f"flash_attention_decode {(B, L, H, KV, hd, Sq)} {dtype}"))
+                what))
+            n += 1
+        for B, L, H, KV, hd, Sq in FA_DECODE_LONG_CASES:
+            q, k, v = _fa_inputs(gen, (B, Sq, H, hd), (B, L, KV, hd), dtype, device)
+            n_split, chunk, _, _ = fa_kern.decode_plan(
+                B, KV, L, H // KV * Sq, hd,
+                torch.cuda.get_device_properties(device).multi_processor_count)
+            check(n_split > 1, f"decode against L {L}: one chunk")
+            kv_len = torch.tensor([1, chunk + 1, L], dtype=torch.int32, device=device)
+            what = f"flash_attention_decode {(B, L, H, KV, hd, Sq)} {n_split} chunks {dtype}"
+            worst = max(worst, _fa_vs_plain(
+                _twice(lambda: ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0,
+                                                          impl="cuda"), what),
+                ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0, impl="ref"),
+                what))
             n += 1
     log(f"[attention] {n} prefill and decode cases (hd 16-256, G 1-4, causal and not, "
-        f"windows, softcap 50 and none, S 1-512, per-row kv_len, bf16 and f32) within "
-        f"fa_tolerance of the plain version (max |diff| {worst:.3g})")
+        f"windows, softcap 50 and none, S 1-4608 with gemma2-9b's window 4096 below S, "
+        f"per-row kv_len, caches up to 8192 slots split into many chunks with kv_len 1, "
+        f"one past a chunk edge and full, bf16 and f32) within fa_tolerance of the plain "
+        f"version (max |diff| {worst:.3g}); two launches of each bit-identical; bf16 "
+        f"prefills on the tensor-core kernel, f32 ones not")
+    _decode_streams_and_graph(gen, device)
+
+
+def _decode_streams_and_graph(gen, device) -> None:
+    """The split-KV decode's scratch and arrival counters are the stream's:
+    at the serving shape, decodes queued alternately on two side streams
+    without waits between them, and decodes captured in a CUDA graph and
+    replayed, equal one eager launch bit for bit."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+
+    B, L, H, KV, hd = FA_SERVE_DECODE
+    q, k, v = _fa_inputs(gen, (B, 1, H, hd), (B, L, KV, hd), torch.bfloat16, device)
+    kv_len = torch.tensor([1, 17, 100, 264, 265, 528, 529, 529][:B], dtype=torch.int32,
+                          device=device)
+    run = lambda: ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0,  # noqa: E731
+                                             impl="cuda")
+    want = run()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for i in range(16):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(run())
+    for st in streams:
+        torch.cuda.current_stream().wait_stream(st)
+    torch.cuda.synchronize()
+    check(all(torch.equal(o, want) for o in outs),
+          "flash_attention_decode on two streams differs from one launch")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [run() for _ in range(3)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        check(all(torch.equal(o, want) for o in captured),
+              "flash_attention_decode replayed from a CUDA graph differs from one launch")
+    del graph
+    log("[attention] split-KV decode at the serving shape: 16 launches alternating on "
+        "two streams and 3 launches replayed twice from a CUDA graph equal one launch "
+        "bit for bit")
 
 
 def _wave_prefill_dense(decoder, report, device) -> None:
@@ -1456,7 +1571,7 @@ def _device_time_by_kind(by_name: dict) -> None:
              "casts and copies": 0.0, "other": 0.0}
     for name, (ms, _) in by_name.items():
         low = name.lower()
-        if "fa_prefill_kernel" in name or "fa_decode_kernel" in name:
+        if "fa_prefill" in name or "fa_decode" in name:
             kinds["attention (fa_prefill/fa_decode)"] += ms
         elif any(t in low for t in ("gemm", "xmma", "nvjet", "cutlass", "cublas")):
             kinds["GEMMs"] += ms
@@ -1468,6 +1583,11 @@ def _device_time_by_kind(by_name: dict) -> None:
             kinds["other"] += ms
     log(f"[{DENSE_TAG}] replay device time by kind: " + ", ".join(
         f"{k} {ms:.1f} ms" for k, ms in kinds.items()))
+    for name, (ms, n) in sorted(by_name.items()):
+        if "fa_prefill" in name or "fa_decode" in name:
+            short = name.replace("(anonymous namespace)::", "").split("(")[0]
+            log(f"[{DENSE_TAG}]   {short[-60:]}: {ms:.1f} ms in {n} launches "
+                f"({ms / n * 1e3:.1f} us each)")
 
 
 def _time_logits(dec, device, power_note: str) -> None:
@@ -1549,13 +1669,16 @@ def phase_serving_dense(device, power_note: str) -> dict:
           f"flash_attention_fwd launched {fwd} times for {prefill_calls} prefill calls")
     check(ticks > 0 and dcd == cfg.n_layers * ticks,
           f"flash_attention_decode launched {dcd} times for {ticks} decode ticks")
+    check(counts["flash_attention_fwd_wgmma"] == fwd,
+          f"{counts['flash_attention_fwd_wgmma']} of {fwd} prefill launches on tensor cores")
     others = {k: v for k, v in counts.items() if not k.startswith("flash_attention") and v}
     check(not others, f"other kernels on the gemma2 serving path: {others}")
     summ = res.report.summary()
     log(f"[{DENSE_TAG}] {summ['delivered']}/{summ['n_requests']} delivered x {SERVE_MAX_NEW} "
         f"tokens, audit OK ({res.verdict.n_hops} hops), {summ['retries']} retries; "
         f"flash_attention_fwd launches {fwd} = {cfg.n_layers} x {prefill_calls} prefill "
-        f"calls, flash_attention_decode {dcd} = {cfg.n_layers} x {ticks} ticks")
+        f"calls (all on the tensor-core kernel), flash_attention_decode {dcd} = "
+        f"{cfg.n_layers} x {ticks} ticks")
 
     _wave_prefill_dense(dec, res.report, device)
     tokens = _tokens_by_request(res.report)
@@ -1579,77 +1702,259 @@ def phase_serving_dense(device, power_note: str) -> dict:
     return {"flash_attention_fwd": fwd, "flash_attention_decode": dcd}
 
 
-def _sdpa_ms(q, k, v, causal: bool) -> float:
+def phase_dense_edges(device) -> None:
+    """Serving paths the full-size cell does not reach, on gemma2-9b's smoke
+    config through ``ModelDecoder`` (``repro_torch.serving.edge_check``,
+    which the card tests run too): one ``prefill_waves`` call that admits
+    both replicas with prompts of 129-256 tokens (a bucket-256 wave), then
+    24 ticks of both, each local layer's ring of 16 slots engaged. In
+    float32 compute the first tokens and every tick equal a CPU decoder's
+    with the same params; in bf16 compute the prefill launches the
+    tensor-core kernel once per layer and every tick the decode kernel once
+    per layer, and the first local and global layers' attention lies within
+    ``fa_tolerance`` of the plain version."""
+    from repro_torch.serving.edge_check import dense_edge_check
+
+    try:
+        seen = dense_edge_check(device, DENSE_ARCH)
+    except AssertionError as exc:
+        raise SmokeFailure(f"edge cell: {exc}") from exc
+    cfg = seen["config"]
+    log(f"[dense-edges] gemma2-9b smoke config ({cfg.n_layers} layers, window "
+        f"{cfg.sliding_window}): one prefill call admitting both replicas, prompts "
+        f"{seen['prompts']} (bucket 256), {seen['ticks']} ticks of both; f32: first tokens "
+        f"and every tick equal a CPU decoder's; bf16: launches {seen['launches']}, prefill "
+        f"on tensor cores; {'; '.join(seen['rings'])}; layers 0-1 prefill and decode "
+        f"attention within fa_tolerance of the plain version (max |diff| "
+        f"{seen['worst']:.3g})")
+
+
+def _sdpa_ms(q, k, v, causal: bool) -> str:
     """``F.scaled_dot_product_attention`` on the same tensors (heads moved
     to dim 1, GQA by ``enable_gqa``): no logit softcap, so not the same
     function; a yardstick only, never called by the port."""
     import torch.nn.functional as F
 
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    return time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                          enable_gqa=True), reps=20)
+    run = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,  # noqa: E731
+                                                 enable_gqa=True)
+    return f"{time_ms(run, reps=20):.4f} ms by CUDA events, {_graph_ms(run, 20):.4f} ms device"
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, the graph replayed and timed with CUDA events, over ``reps``. A
+    replay launches the calls back to back, so a wrapper whose host time
+    exceeds its kernel's (the decode's) is timed by its kernel alone."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = time_ms(graph.replay, reps=3) / reps
+    del graph
+    return ms
+
+
+def _profiled_ms(fn, key: str, reps: int) -> str:
+    """Device time per launch of the kernels whose names hold ``key``, over
+    ``reps`` eager calls of ``fn`` under ``torch.profiler``: the instrument
+    of the serving phases' device times, read here beside CUDA events and
+    graph replay on the same calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    _, by_name = _device_busy(prof)
+    hits = [(ms, n) for name, (ms, n) in by_name.items() if key in name]
+    launches = sum(n for _, n in hits)
+    if launches != reps:
+        return f"not measured (the profiler saw {launches} of {reps} launches)"
+    return f"{sum(ms for ms, _ in hits) / launches:.4f} ms per launch"
+
+
+def _flex(q, k, v, cap: float, causal: bool, kv_len=None):
+    """The library yardstick: one ``flex_attention`` call under
+    ``torch.compile`` that computes the kernel's function (softcap as a
+    ``score_mod``, causal or per-row kv_len as a ``mask_mod``, GQA by
+    ``enable_gqa``). Returns (a function that runs it and returns the output
+    in the kernels' layout, None) or (None, the error). Never called by the
+    port."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    try:
+        B, Sq, H, hd = q.shape
+        L = k.shape[1]
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def softcap(score, b, h, q_idx, kv_idx):
+            return cap * torch.tanh(score / cap)
+
+        if causal:
+            def mask(b, h, q_idx, kv_idx):
+                return kv_idx <= q_idx
+            block_mask = create_block_mask(mask, None, None, Sq, L, device=q.device)
+        else:
+            def mask(b, h, q_idx, kv_idx):
+                return kv_idx < kv_len[b]
+            block_mask = create_block_mask(mask, B, None, Sq, L, device=q.device)
+        flex = torch.compile(flex_attention, dynamic=False)
+
+        def run():
+            return flex(qt, kt, vt, score_mod=softcap, block_mask=block_mask,
+                        enable_gqa=True).transpose(1, 2)
+
+        run()
+        torch.cuda.synchronize()
+        return run, None
+    except Exception as exc:  # noqa: BLE001 - the yardstick may not build; say why
+        return None, f"{type(exc).__name__}: {str(exc).splitlines()[0][:300]}"
+
+
+def _profiler_check(device, power_note: str) -> None:
+    """Both attention kernels at their 8-lane serving shapes (softcap 50) by
+    ``torch.profiler``, the instrument of the serving phases' device times,
+    beside CUDA events and graph replay on the same calls. It runs early:
+    late in this script's process the profiler missed a fixed number of
+    kernel records per session (10 of 20 prefill launches, 10 of 50 decode
+    launches), which halves a per-launch time taken as the sum over the
+    calls made; the serving replays' profiles count every launch the
+    launch counters count."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+
+    cap = 50.0
+    gen = torch.Generator(device=device).manual_seed(37)
+    B, S, H, KV, hd = FA_SERVE_PREFILL
+    q, k, v = _fa_inputs(gen, (B, S, H, hd), (B, S, KV, hd), torch.bfloat16, device)
+    run = lambda: ops.flash_attention(q, k, v, softcap=cap, impl="cuda")  # noqa: E731
+    log(f"[kernels] flash_attention_fwd at (B {B}, S {S}, causal, bf16): "
+        f"{_profiled_ms(run, 'fa_prefill', 20)} by torch.profiler, {time_ms(run, reps=20):.4f} "
+        f"ms by CUDA events, {_graph_ms(run, 20):.4f} ms by graph replay  [{power_note}]")
+    B, L, H, KV, hd = FA_SERVE_DECODE
+    q, k, v = _fa_inputs(gen, (B, 1, H, hd), (B, L, KV, hd), torch.bfloat16, device)
+    kv_len = torch.full((B,), L, dtype=torch.int32, device=device)
+    run = lambda: ops.flash_attention_decode(q, k, v, kv_len, softcap=cap,  # noqa: E731
+                                             impl="cuda")
+    log(f"[kernels] flash_attention_decode at (B {B}, L {L}, bf16): "
+        f"{_profiled_ms(run, 'fa_decode', 50)} by torch.profiler, {time_ms(run, reps=50):.4f} "
+        f"ms by CUDA events, {_graph_ms(run, 50):.4f} ms by graph replay  [{power_note}]")
 
 
 def phase_fa_slice(device, power_note: str) -> list:
     """Both attention entry points at the serving shapes (gemma2-9b, both
     replicas admitted: 8 lanes x 16 heads / 8 kv heads x 256, bf16, softcap
-    50), against their plain version, timed, with their bounds."""
+    50), against their plain version, timed, with their bounds. ``ms``,
+    ``plain_ms`` and ``library_ms`` are the CUDA-event time per call of
+    back-to-back eager calls (:func:`time_ms`), as for every other row of the
+    ``kernels`` line; where a wrapper's host cost exceeds its kernel's (the
+    decode's), that is the host's time per call. ``graph_ms`` is the device
+    time per call from CUDA-graph replays (:func:`_graph_ms`), the kernel
+    alone, reported beside."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention import ref
 
     gen = torch.Generator(device=device).manual_seed(29)
     rows = []
 
-    def record(name, err, ms, plain, flops, nbytes, sdpa, shape):
-        op_ms, byte_ms = flops / F32_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    def record(name, err, ms, graph, plain, flops, nbytes, lib, lib_note, sdpa, shape):
+        op_ms, byte_ms = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(op_ms, byte_ms)
-        log(f"[kernels] {name} at {shape}: {ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_ms / ms:.1%}; {flops / 1e9:.3f} GFLOP -> {op_ms:.4f} ms at 67 TFLOP/s "
-            f"f32, {nbytes / 1e6:.2f} MB -> {byte_ms:.4f} ms at 3.35 TB/s), plain "
-            f"{plain:.3f} ms, library null (sdpa without softcap, not the same function: "
-            f"{sdpa:.4f} ms), max_abs_err {err:.3g}  [{power_note}]")
+        log(f"[kernels] {name} at {shape}: {ms:.4f} ms by CUDA events ({graph:.4f} ms device "
+            f"by graph replay), bound {bound_ms:.4f} ms ({bound_ms / ms:.1%}; {flops / 1e9:.3f} "
+            f"GFLOP -> {op_ms:.4f} ms at 989 TFLOP/s bf16, {nbytes / 1e6:.2f} MB -> "
+            f"{byte_ms:.4f} ms at 3.35 TB/s), plain {plain:.3f} ms, library "
+            f"(flex_attention, torch.compile) {lib_note}, sdpa without softcap (not the same "
+            f"function) {sdpa}, max_abs_err {err:.3g}  [{power_note}]")
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES["flash_attention"],
             "replaces": REPLACES[name], "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "bound_ms": bound_ms,
-            "bound_by": "operations" if op_ms >= byte_ms else "bytes", "library_ms": None,
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes", "library_ms": lib,
+            "graph_ms": graph,
         })
+
+    def library(run, note, want):
+        if run is None:
+            return None, f"null ({note})"
+        ok, err = ref.fa_close(run(), want)
+        ms = time_ms(run, reps=20)
+        try:
+            how = f"{_graph_ms(run, 20):.4f} ms device by graph replay"
+        except Exception as exc:  # noqa: BLE001 - a compiled call may refuse capture
+            how = f"CUDA-graph capture failed: {type(exc).__name__}"
+        return ms, (f"{ms:.4f} ms by CUDA events ({how}; {'within' if ok else 'outside'} "
+                    f"fa_tolerance of the plain version, max |diff| {err:.3g})")
 
     cap = 50.0
     for B in (FA_SERVE_PREFILL[0], SERVE_BATCH):
         _, S, H, KV, hd = FA_SERVE_PREFILL
         q, k, v = _fa_inputs(gen, (B, S, H, hd), (B, S, KV, hd), torch.bfloat16, device)
-        err = _fa_vs_plain(ops.flash_attention(q, k, v, softcap=cap, impl="cuda"),
-                           ops.flash_attention(q, k, v, softcap=cap, impl="ref"),
+        want = ops.flash_attention(q, k, v, softcap=cap, impl="ref")
+        err = _fa_vs_plain(ops.flash_attention(q, k, v, softcap=cap, impl="cuda"), want,
                            f"flash_attention_fwd at the serving shape, {B} lanes")
-        ms = time_ms(lambda: ops.flash_attention(q, k, v, softcap=cap, impl="cuda"), reps=20)
+        kernel = lambda: ops.flash_attention(q, k, v, softcap=cap, impl="cuda")  # noqa: E731
+        ms, graph = time_ms(kernel, reps=20), _graph_ms(kernel, 20)
         plain = time_ms(lambda: ops.flash_attention(q, k, v, softcap=cap, impl="ref"), reps=3)
         flops = B * H * (S * (S + 1) // 2) * 4 * hd       # the causal triangle, QK and PV
         nbytes = 2 * B * S * H * hd * 2 + 2 * B * S * KV * hd * 2
         shape = f"(B {B}, S {S}, H {H}, KV {KV}, hd {hd}, causal, bf16)"
+        lib, note = library(*_flex(q, k, v, cap, True), want)
         if B == FA_SERVE_PREFILL[0]:
-            record("flash_attention_fwd", err, ms, plain, flops, nbytes,
+            record("flash_attention_fwd", err, ms, graph, plain, flops, nbytes, lib, note,
                    _sdpa_ms(q, k, v, True), shape)
         else:
+            bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
             log(f"[kernels] flash_attention_fwd at the served 4-lane shape {shape}: "
-                f"{ms:.4f} ms, plain {plain:.3f} ms, sdpa without softcap "
-                f"{_sdpa_ms(q, k, v, True):.4f} ms  [{power_note}]")
-        del q, k, v
-    B, L, H, KV, hd = FA_SERVE_DECODE
-    q, k, v = _fa_inputs(gen, (B, 1, H, hd), (B, L, KV, hd), torch.bfloat16, device)
-    kv_len = torch.full((B,), L, dtype=torch.int32, device=device)
-    err = _fa_vs_plain(ops.flash_attention_decode(q, k, v, kv_len, softcap=cap, impl="cuda"),
-                       ops.flash_attention_decode(q, k, v, kv_len, softcap=cap, impl="ref"),
-                       "flash_attention_decode at the serving shape")
-    ms = time_ms(lambda: ops.flash_attention_decode(q, k, v, kv_len, softcap=cap,
-                                                    impl="cuda"), reps=50)
-    plain = time_ms(lambda: ops.flash_attention_decode(q, k, v, kv_len, softcap=cap,
-                                                       impl="ref"), reps=10)
-    flops = B * H * L * 4 * hd
-    nbytes = 2 * B * L * KV * hd * 2 + 2 * B * H * hd * 2 + B * 4
-    record("flash_attention_decode", err, ms, plain, flops, nbytes, _sdpa_ms(q, k, v, False),
-           f"(B {B}, Sq 1, L {L}, kv_len {L}, H {H}, KV {KV}, hd {hd}, bf16)")
+                f"{ms:.4f} ms by CUDA events ({graph:.4f} ms device by graph replay), bound "
+                f"{bound:.4f} ms, "
+                f"plain {plain:.3f} ms, library {note}, sdpa without softcap "
+                f"{_sdpa_ms(q, k, v, True)}  [{power_note}]")
+        del q, k, v, want
+    for B in (FA_SERVE_DECODE[0], SERVE_BATCH):
+        _, L, H, KV, hd = FA_SERVE_DECODE
+        q, k, v = _fa_inputs(gen, (B, 1, H, hd), (B, L, KV, hd), torch.bfloat16, device)
+        kv_len = torch.full((B,), L, dtype=torch.int32, device=device)
+        want = ops.flash_attention_decode(q, k, v, kv_len, softcap=cap, impl="ref")
+        err = _fa_vs_plain(ops.flash_attention_decode(q, k, v, kv_len, softcap=cap,
+                                                      impl="cuda"), want,
+                           f"flash_attention_decode at the serving shape, {B} lanes")
+        kernel = lambda: ops.flash_attention_decode(q, k, v, kv_len,  # noqa: E731
+                                                    softcap=cap, impl="cuda")
+        ms, graph = time_ms(kernel, reps=50), _graph_ms(kernel, 50)
+        plain = time_ms(lambda: ops.flash_attention_decode(q, k, v, kv_len, softcap=cap,
+                                                           impl="ref"), reps=10)
+        flops = B * H * L * 4 * hd
+        nbytes = 2 * B * L * KV * hd * 2 + 2 * B * H * hd * 2 + B * 4
+        shape = f"(B {B}, Sq 1, L {L}, kv_len {L}, H {H}, KV {KV}, hd {hd}, bf16)"
+        lib, note = library(*_flex(q, k, v, cap, False, kv_len), want)
+        if B == FA_SERVE_DECODE[0]:
+            record("flash_attention_decode", err, ms, graph, plain, flops, nbytes, lib, note,
+                   _sdpa_ms(q, k, v, False), shape)
+        else:
+            bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+            log(f"[kernels] flash_attention_decode at the served 4-lane shape {shape}: "
+                f"{ms:.4f} ms by CUDA events ({graph:.4f} ms device by graph replay), bound "
+                f"{bound:.4f} ms, "
+                f"plain {plain:.3f} ms, library {note}, sdpa without softcap "
+                f"{_sdpa_ms(q, k, v, False)}  [{power_note}]")
+        del q, k, v, want
     return rows
 
 
@@ -1682,7 +1987,10 @@ def main() -> int:
     phase_kernels_small(device)
     phase_ssd_small(device)
     phase_fa_small(device)
+    _profiler_check(device, dev["card"])
     mark("small kernel cases")
+    phase_dense_edges(device)
+    mark("gemma2-9b smoke edges")
     serve_launches = phase_serving(device)
     mark("serving, mamba2-780m")
     dense_launches = phase_serving_dense(device, dev["card"])

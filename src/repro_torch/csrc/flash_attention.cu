@@ -8,57 +8,122 @@
 //           sequential, carrying the online-softmax state (m, l and a
 //           (block_q, head_dim) float32 accumulator) in VMEM scratch, GQA by
 //           its BlockSpec index maps (head h reads kv head h // G), and the
-//           causal/window blocks out of range skipped with pl.when.
+//           causal/window blocks out of range skipped with pl.when. Both
+//           entry points below compute that function: the prefill with
+//           q_offset 0, the decode with a per-row kv_len in place of the
+//           causal mask (models/attention.py flash_attention_decode).
 //
 // What they compute (kernels/flash_attention/ref.py attention_ref):
 //   s[q, t] = scale * q . k_t, scale = hd^-0.5
 //   s       = cap * tanh(s / cap)                        (when cap > 0)
 //   s       = -1e30 where masked
 //   out[q]  = sum_t softmax(s[q])_t v_t
-// in float32 throughout (inputs upcast as they are loaded; p is never
-// rounded to the inputs' type), the output in the inputs' type.
+// in float32 (scores, softmax and sums), the output in the inputs' type.
 //
 // - flash_attention_fwd (prefill, q_offset 0, Sq = Skv = S): causal
 //   (t <= q) and/or window (t > q - window) masks; any S, the ragged last
-//   tiles masked here (keys t >= S) and not written (queries q >= S).
+//   tiles masked here (keys t >= S, zero-filled on load) and not written
+//   (queries q >= S).
 // - flash_attention_decode (serving decode): no causal or window mask, a
-//   per-row kv_len (B,) int32 device tensor, keys t >= kv_len[b] masked
-//   (kv_len must be in [1, L]; tiles past it are skipped). kv_len is read on
-//   the card only, so a decode step never waits for the host.
+//   per-row kv_len (B,) int32 device tensor, keys t >= kv_len[b] masked and
+//   never read (kv_len must be in [1, L]). kv_len is read on the card only,
+//   so a decode step never waits for the host.
 //
 // Layout: the model's own. q and out (B, S, H, hd), k and v (B, L, KV, hd),
 // all contiguous; kv head g = h / (H / KV) serves G = H / KV query heads, so
 // K and V are never repeated in memory. head_dim is a template parameter
 // (16, 32, 64, 128 or 256), so every per-thread array lives in registers.
 //
-// Bound on this card: float32 arithmetic for the prefill. At the serving
-// prefill's shape (8 lanes x 16 heads, S 512, hd 256, causal) the causal
-// triangle is 17.2 GFLOP against 100.7 MB, i.e. 0.257 ms at the 67 TFLOP/s
-// float32 (non-tensor-core) peak against 0.030 ms of HBM time. The decode is
-// bytes: at 8 lanes and a 529-token cache it reads 34.7 MB of K and V for
-// 69 MFLOP, 10.4 us at 3.35 TB/s.
+// Bounds at gemma2-9b's serving shapes (16 heads / 8 kv heads x 256, bf16,
+// softcap 50), H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense):
+// - prefill, 8 lanes x S 512, causal: 100.7 MB of q, k, v and out, 0.030 ms
+//   of HBM time, against 17.2 GFLOP of the causal triangle, 0.017 ms at the
+//   bf16 tensor-core rate: bytes bound it (4 lanes: 0.015 ms).
+// - decode, 8 lanes, one query token against a 529-slot cache: 34.8 MB of K
+//   and V for 69 MFLOP, 10.4 us at 3.35 TB/s (4 lanes: 5.2 us): bytes.
 //
-// Design, prefill: one block of 256 threads per (lane*head, 64-query tile).
-// The q tile (64 x hd) sits in shared memory as float32; the key loop walks
-// 32-key tiles of K and V (float32 in shared memory, rows padded by one
-// float so column walks hit distinct banks) over the tile range that the
-// causal/window masks leave (the Pallas kernel's pl.when skip): for each,
-// S = Q K^T as 4x2 register tiles per thread, the scale, softcap and masks
-// applied and written to shared memory; one warp per 8 rows then does the
-// online softmax with a lane per key (warp shuffles for the row max and
-// sum); and the (64 x hd) float32 accumulator, 4 rows x hd/16 columns per
-// thread in registers, is rescaled and gets P V. At hd 256 the tiles take
-// 137 KB of shared memory (dynamic, above 48 KB by cudaFuncSetAttribute),
-// so one block runs per SM. No tensor cores in this first version.
+// Design, decode (fa_decode_split_kernel, both dtypes): a split-KV pass.
+// The grid is (B * KV, n_split): each block takes one contiguous chunk of
+// cache slots of one (lane, kv head), the same chunk bounds for every lane
+// (the wrapper picks n_split from L and B * KV so that there are at least
+// two waves of blocks over the 132 SMs), and serves that kv head's G * Sq
+// query rows. In a block of 4 warps a team of TPK lanes owns one key row at
+// a time, each lane holding DPL contiguous dims (at hd 256 bf16 a key row is
+// one 16-byte load per lane of a full warp, coalesced); the dot for each
+// query row is a shuffle reduction inside the team. Each team walks its keys
+// U at a time, loading the next U keys' K and V into registers while it
+// computes the current ones, and keeps its own online-softmax state (m, l,
+// acc) per row; teams merge by shuffles, warps through shared memory, in a
+// fixed order. A chunk that starts past kv_len[b] loads nothing and yields
+// an empty partial (m = -1e30, l = 0). The n_split partials of a (lane, kv
+// head) are merged by the last block of it to finish: each block writes its
+// partial (f32, scratch allocated by the wrapper), fences, and bumps a
+// per-(lane, kv head) counter; the block that sees n_split - 1 merges the
+// partials in split order (so the result is bit-identical from run to run,
+// whichever block finishes last) and resets the counter to 0 for the next
+// call. The wrapper keeps the scratch and the counters per (device,
+// stream), so calls on one stream find the counters at 0 by stream order
+// and calls on two streams never share one. This keeps the decode at one
+// launch per layer: a second, combining launch would add its host-side
+// launch cost to every layer of every decode tick, and the decode is
+// host-bound. The design attacks the latency that
+// bounded the one-block-per-(lane, kv head) kernel before it (64 blocks,
+// two of eight warps scoring, scalar loads, two barriers per 32 keys).
 //
-// Design, decode: one block per (lane, kv head), serving its G query heads
-// (G * Sq <= 16 rows): the rows in shared memory, 32-key tiles of K and V as
-// above, one warp per row computing its 32 scores (a lane per key) and the
-// online softmax, then every thread updating hd/16 accumulator entries.
+// Design, prefill in bf16 (fa_prefill_tc_kernel): QK^T and PV on tensor
+// cores with wgmma (bf16 in, f32 accumulate). One warpgroup owns 64 query
+// rows of one head; a block holds NWG = 2 warpgroups when G is even, the two
+// query heads h0, h0 + 1 of one kv group, so both consume the same K/V
+// tiles (half the K/V traffic of one head per block), else NWG = 1. Per
+// 64-key tile: S = Q K^T as hd/16 m64n64k16 steps with Q and K both read
+// from shared memory (K-major, no transpose); the scale, the softcap (tanhf,
+// not an approximation: at softcap 50 tanh.approx moves a score by ~0.02)
+// and the causal / window / ragged masks (-1e30; only tiles that cross a
+// mask boundary test each entry) applied to the f32 accumulator in
+// registers; the online softmax (in log2 units, 2^x on the SFU, O rescaled
+// only when a row max grows by more than 2^8) with its row max and sum by
+// shuffles among the four threads that share a row of the fragment; then
+// O += P V with P taken from registers and V read from shared memory
+// (MN-major, trans-b). The O accumulator (64 x hd f32) stays in registers,
+// 128 per thread at hd 256.
+// K/V tiles flow through a two-stage ring in shared memory, loaded with
+// cp.async (16 bytes per thread, zero-filled past S; with two warpgroups
+// the first copies K and the second V) a tile ahead of their use. Each
+// stage has two mbarriers: `full`, which the copies arrive on as they land
+// (cp.async.mbarrier.arrive.noinc), and `empty`, which every warp arrives
+// on once its products have read the tile; a warpgroup refills the stage
+// of tile i - 1 with tile i + 1 while its S product for tile i runs, and a
+// fence.proxy.async orders the cp.async writes (generic proxy) before
+// wgmma's reads (async proxy). No block-wide barrier sits in the loop, so
+// the two warpgroups drift apart and one's softmax overlaps the other's
+// products on the tensor cores. Tiles are stored in the no-swizzle
+// wgmma layout (8-row x 16-byte core matrices, 128 contiguous bytes each),
+// which serves every hd from 16 to 256 with one layout. Tiles wholly
+// outside the causal / window range are skipped (the Pallas kernel's
+// pl.when), and the grid runs the query tiles with the most key tiles
+// first, so the last wave is not all long rows. At hd 256: Q 2 x 32 KB, two
+// stages of K and V 4 x 32 KB, 192 KB of shared memory, one block per SM.
+//
+// Precision of p before PV. The reference computes PV with p in f32. A bf16
+// operand holds 8 significant bits, and rounding p once to bf16 moves a
+// gemma2-9b-shaped prefill (S 64 and 512, hd 256, G 2, softcap 50) outside
+// fa_tolerance (tests/test_torch_fa_design.py emulates the kernel's
+// arithmetic on the CPU). So P goes in as two bf16 operands, hi = bf16(p)
+// and lo = bf16(p - hi), whose products are summed in f32: hi + lo keeps 16
+// significant bits of p, and the emulation stays within fa_tolerance. It
+// costs one more PV product per key tile. QK^T needs no such split: the
+// products of two bf16 values are exact and are summed in f32.
+//
+// The f32 prefill entry (flash_attention_fwd_f32) keeps the CUDA-core
+// kernel (fa_prefill_kernel below): wgmma takes no f32 operands, and f32
+// attention lies on no serving path (gemma2-9b serves in bf16); it serves
+// f32-compute models, which the tests run. This is a dispatch by dtype in
+// the entry points, not a fallback.
 //
 // Entry points take device pointers, sizes as int64_t, the scale and softcap
 // as double and the CUDA stream, launch, and return cudaGetLastError() as
-// an int (0 = success).
+// an int (0 = success). flash_attention_fwd_launched() then says which
+// prefill kernel the call launched, for the wrapper's launch counters.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,12 +132,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBQ = 64;             // query rows per prefill block
-constexpr int kBK = 32;             // keys per tile: one per lane of a warp
-constexpr int kLdP = kBK + 1;       // padded row of the score tile
-constexpr int kMaxDecodeRows = 16;  // G * Sq rows of one decode block
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -106,6 +165,24 @@ __device__ __forceinline__ float cap_score(float x, float scale, float softcap) 
   if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
   return x;
 }
+
+// ---------------------------------------------------------------------------
+// f32 prefill on CUDA cores
+// ---------------------------------------------------------------------------
+//
+// One block of 256 threads per (lane*head, 64-query tile). The q tile (64 x
+// hd) sits in shared memory; the key loop walks 32-key tiles of K and V
+// (rows padded by one float so column walks hit distinct banks) over the
+// tile range the causal/window masks leave: S = Q K^T as 4x2 register tiles
+// per thread, scale, softcap and masks written to shared memory; one warp
+// per 8 rows does the online softmax with a lane per key; the (64 x hd)
+// accumulator, 4 rows x hd/16 columns per thread, is rescaled and gets P V.
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBQ = 64;             // query rows per prefill block
+constexpr int kBK = 32;             // keys per tile: one per lane of a warp
+constexpr int kLdP = kBK + 1;       // padded row of the score tile
 
 // Load `rows` rows (of `rows_max`) of a (positions, heads, HD) slab, row r
 // at src + r * stride, into a float32 tile with leading dimension `ld`,
@@ -143,12 +220,6 @@ template <int HD>
 constexpr size_t prefill_smem_bytes() {
   return sizeof(float) *
          (kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD + kBQ * kLdP + 3 * kBQ);
-}
-
-template <int HD>
-constexpr size_t decode_smem_bytes() {
-  return sizeof(float) * (kMaxDecodeRows * (HD + 1) + kBK * (HD + 1) +
-                          kBK * HD + kMaxDecodeRows * kLdP + 3 * kMaxDecodeRows);
 }
 
 template <typename T, int HD>
@@ -282,174 +353,868 @@ fa_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 1)
-fa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ kv_len,
-                 T* __restrict__ out, int Sq, int L, int H, int KV,
-                 float scale, float softcap) {
-  constexpr int LD = HD + 1;
-  constexpr int kAcc = (kMaxDecodeRows * HD + kThreads - 1) / kThreads;
-  extern __shared__ float smem[];
-  float* sQ = smem;                         // (kMaxDecodeRows, LD)
-  float* sK = sQ + kMaxDecodeRows * LD;     // (kBK, LD)
-  float* sV = sK + kBK * LD;                // (kBK, HD)
-  float* sP = sV + kBK * HD;                // (kMaxDecodeRows, kLdP)
-  float* sM = sP + kMaxDecodeRows * kLdP;
-  float* sL = sM + kMaxDecodeRows;
-  float* sA = sL + kMaxDecodeRows;
+// ---------------------------------------------------------------------------
+// bf16 prefill on tensor cores (wgmma)
+// ---------------------------------------------------------------------------
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int b = blockIdx.x / KV, g = blockIdx.x - (blockIdx.x / KV) * KV;
-  const int G = H / KV;
-  const int R = G * Sq;                     // row r: query s = r / G, head g*G + r % G
-  const int len = min(max(kv_len[b], 0), L);
+constexpr int kTcRows = 64;    // query rows per warpgroup (wgmma's M)
+constexpr int kTcKeys = 64;    // keys per K/V tile (N of the S product)
+constexpr int kTcStages = 2;   // K/V ring depth
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wgmma matrix descriptor, no swizzle: start address, leading and stride
+// byte offsets, each in 16-byte units (layout type 0, base offset 0).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// arrive once this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// wait for the completion of the barrier's phase of this parity
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pin registers that an asynchronous wgmma reads or writes to this point of
+// the program, so the compiler neither reads them early nor reuses them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// S (64 x 64) = A B^T from shared memory, both K-major (trans-a = trans-b
+// = 0); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N) += A B, A (64 x 16) from registers, B (16 x N) from shared
+// memory, MN-major (trans-b = 1).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x by the SFU (ex2.approx, about 2 ulp, as exp2f computes it) with
+// results below 2^-126 flushed to 0: weights that small move no sum
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
+  __nv_bfloat162 x = __floats2bfloat162_rn(lo_col, hi_col);
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// Shared-memory layout of a (64 rows x HD) bf16 tile, no swizzle: the
+// 16-byte chunk c (dims 8c .. 8c + 7) of row r sits at
+//   (r / 8) * HD * 16 + c * 128 + (r % 8) * 16 bytes,
+// so each 8-row x 16-byte core matrix is 128 contiguous bytes. Read as
+// K-major (Q and K: the contracted dim is hd), adjacent k-chunks are 128
+// bytes apart (LBO) and 8-row groups HD * 16 (SBO). Read as MN-major (V:
+// N is hd, K is the keys), adjacent 8-column chunks along N are 128 bytes
+// apart and 8-key groups along K HD * 16.
+template <int HD>
+__device__ __forceinline__ uint32_t tile_offset(int r, int c) {
+  return static_cast<uint32_t>((r >> 3) * HD * 16 + c * 128 + (r & 7) * 16);
+}
+
+// Issue the cp.async copies of one 64-row tile by the 128 threads of a
+// warpgroup (t = thread within it): row r from src + r * stride (rows at or
+// past `rows` are zero-filled). Each group of 8 consecutive threads copies
+// one 16-byte chunk of 8 consecutive rows (distinct banks), and a warp
+// covers CW consecutive chunks of its rows (whole sectors).
+template <int HD>
+__device__ __forceinline__ void load_tile_async(uint32_t dst,
+                                                const __nv_bfloat16* src,
+                                                int64_t stride, int rows, int t) {
+  constexpr int C = HD / 8;
+  constexpr int CW = C < 4 ? C : 4;
+  constexpr int RPW = 32 / CW;           // rows per warp-wide pass
+  constexpr int NRB = kTcRows / RPW;
+#pragma unroll
+  for (int e = t; e < kTcRows * C; e += 128) {
+    const int ln = e & 31, w = e >> 5;
+    const int r = (w % NRB) * RPW + (ln / (8 * CW)) * 8 + (ln & 7);
+    const int c = (w / NRB) * CW + ((ln >> 3) % CW);
+    const bool ok = r < rows;
+    cp_async16(dst + tile_offset<HD>(r, c), ok ? src + r * stride + c * 8 : src,
+               ok);
+  }
+}
+
+template <int HD, int NWG>
+constexpr size_t prefill_tc_smem_bytes() {
+  return static_cast<size_t>(NWG + 2 * kTcStages) * kTcRows * HD *
+         sizeof(__nv_bfloat16);
+}
+
+// Grid (B * H / NWG, ceil(S / 64)); block NWG warpgroups; warpgroup w serves
+// query head h0 + w of kv head g, rows q_lo .. q_lo + 63.
+template <int HD, int NWG>
+__global__ void __launch_bounds__(NWG * 128, 1)
+fa_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                     const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v,
+                     __nv_bfloat16* __restrict__ out, int S, int H, int KV,
+                     int causal, int window, float scale, float softcap) {
+  constexpr int NT = NWG * 128;
+  constexpr uint32_t kTile = kTcRows * HD * 2;     // bytes of one tile
+  constexpr uint32_t kRows8 = HD * 16;              // bytes of 8 rows
+  constexpr int NS = HD < 64 ? HD : 64;             // N of one PV product
+  constexpr int NSL = HD / NS;                      // PV products per k-step
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  const uint32_t sQ = smem_addr(tc_smem);
+  const uint32_t sKV = sQ + NWG * kTile;            // stage s: K at
+                                                    // sKV + 2s * kTile, V next
+
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int wq = (tid >> 5) & 3;                    // warp within warpgroup
+  const int n_qt = gridDim.y;
+  const int q_lo = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kTcRows;
+  const int hpb = H / NWG;
+  const int b = blockIdx.x / hpb;
+  const int h0 = (blockIdx.x - b * hpb) * NWG;
+  const int g = h0 / (H / KV);
   const int64_t q_stride = static_cast<int64_t>(H) * HD;
   const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
-  const T* kb = k + static_cast<int64_t>(b) * L * kv_stride + static_cast<int64_t>(g) * HD;
-  const T* vb = v + static_cast<int64_t>(b) * L * kv_stride + static_cast<int64_t>(g) * HD;
+  const __nv_bfloat16* qb = q + (static_cast<int64_t>(b) * S + q_lo) * q_stride +
+                            static_cast<int64_t>(h0) * HD;
+  const __nv_bfloat16* kb = k + static_cast<int64_t>(b) * S * kv_stride +
+                            static_cast<int64_t>(g) * HD;
+  const __nv_bfloat16* vb = v + static_cast<int64_t>(b) * S * kv_stride +
+                            static_cast<int64_t>(g) * HD;
 
-  for (int i = tid; i < kMaxDecodeRows * HD; i += kThreads) {
-    const int r = i / HD, c = i - r * HD;
-    float x = 0.0f;
-    if (r < R) {
-      const int s = r / G, h = g * G + (r - s * G);
-      x = to_f32(q[(static_cast<int64_t>(b) * Sq + s) * q_stride +
-                   static_cast<int64_t>(h) * HD + c]);
+  // the key tiles any row of this query tile may see (_kv_block_range)
+  int lo = 0, hi = S;
+  if (causal) hi = min(hi, q_lo + kTcRows);
+  if (window > 0) lo = max(lo, q_lo - window + 1);
+  const int t_begin = lo / kTcKeys;
+  const int n_tiles = (hi + kTcKeys - 1) / kTcKeys - t_begin;
+
+  // the ring's barriers: full[s] completes when every thread's copies of
+  // the tile in stage s have landed (NT cp.async arrivals), empty[s] when
+  // every warp is done reading it (4 * NWG arrivals)
+  __shared__ __align__(8) uint64_t ring[2 * kTcStages];
+  const uint32_t full0 = smem_addr(ring), empty0 = full0 + 8 * kTcStages;
+  if (tid == 0) {
+    for (int st = 0; st < kTcStages; ++st) {
+      mbar_init(full0 + 8 * st, NT);
+      mbar_init(empty0 + 8 * st, 4 * NWG);
     }
-    sQ[r * LD + c] = x;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int r = tid; r < kMaxDecodeRows; r += kThreads) {
-    sM[r] = kNegInf;
-    sL[r] = 0.0f;
-  }
+  __syncthreads();
+  const int t = tid & 127;
+  // tile i into its stage: with two warpgroups the first copies K and the
+  // second V; one warpgroup copies both
+  auto load_kv = [&](int i) {
+    const int k_lo = (t_begin + i) * kTcKeys;
+    const uint32_t st = sKV + 2 * (i % kTcStages) * kTile;
+    if (NWG == 1 || wg == 0)
+      load_tile_async<HD>(st, kb + k_lo * kv_stride, kv_stride, S - k_lo, t);
+    if (NWG == 1 || wg == 1)
+      load_tile_async<HD>(st + kTile, vb + k_lo * kv_stride, kv_stride, S - k_lo, t);
+    mbar_arrive_cp_async(full0 + 8 * (i % kTcStages));
+  };
+  load_tile_async<HD>(sQ + wg * kTile, qb + wg * HD, q_stride, S - q_lo, t);
+  load_kv(0);                      // full[0] covers this warpgroup's Q too
+  if (n_tiles > 1) load_kv(1);
 
-  float acc[kAcc];
+  // this thread's fragment rows: r0 and r0 + 8 of the warpgroup's 64
+  const int r0 = wq * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);                    // column within 8
+  float o[NSL][NS / 2];
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;
+  for (int s = 0; s < NSL; ++s)
+#pragma unroll
+    for (int i = 0; i < NS / 2; ++i) o[s][i] = 0.0f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.0f, 0.0f};
+  const uint32_t qdesc_base = sQ + wg * kTile;
+  // scores in log2 units (times log2 e), so the softmax takes 2^x:
+  // cap * tanh(s * scale / cap) * log2 e as (cap log2 e) tanh(s (scale /
+  // cap)), or s (scale log2 e) without a softcap; the folded constants move
+  // a score by an ulp or so, far inside fa_tolerance
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float arg_mul = softcap > 0.0f ? scale / softcap : scale * kLog2e;
+  const float cap_mul = softcap * kLog2e;
 
-  for (int k_lo = 0; k_lo < len; k_lo += kBK) {
-    const int k_rows = min(kBK, L - k_lo);
-    __syncthreads();
-    load_rows<T, HD>(sK, LD, kb + k_lo * kv_stride, kv_stride, k_rows, kBK);
-    load_rows<T, HD>(sV, HD, vb + k_lo * kv_stride, kv_stride, k_rows, kBK);
-    __syncthreads();
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k_lo = (t_begin + i) * kTcKeys;
+    const uint32_t sK = sKV + 2 * (i % kTcStages) * kTile, sV = sK + kTile;
+    mbar_wait(full0 + 8 * (i % kTcStages), (i / kTcStages) & 1);
+    fence_proxy_async();           // cp.async wrote it; wgmma reads it
 
-    for (int r = warp; r < R; r += kWarps) {
-      float s = 0.0f;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) s = fmaf(sQ[r * LD + d], sK[lane * LD + d], s);
-      sP[r * kLdP + lane] = k_lo + lane < len ? cap_score(s, scale, softcap) : kNegInf;
-      __syncwarp();
-      softmax_row(sP + r * kLdP, sM, sL, sA, r, lane);
+    // S = Q K^T over hd / 16 steps
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss_m64n64k16(s, gmma_desc(qdesc_base + kk * 256, 128, kRows8),
+                         gmma_desc(sK + kk * 256, 128, kRows8), kk > 0);
+    wgmma_commit();
+    // while it runs: refill the stage of tile i - 1 with tile i + 1 once
+    // every warp is done with tile i - 1
+    if (i >= 1 && i + 1 < n_tiles) {
+      mbar_wait(empty0 + 8 * ((i + 1) % kTcStages), ((i - 1) / kTcStages) & 1);
+      load_kv(i + 1);
     }
-    __syncthreads();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // scale, softcap, masks, log2 units; entry 4j + 2i + e is (row r0 + 8i,
+    // key k_lo + 8j + cq + e)
+    const bool full = k_lo + kTcKeys <= S &&
+                      (!causal || k_lo + kTcKeys - 1 <= q_lo) &&
+                      (window <= 0 || k_lo > q_lo + kTcRows - 1 - window);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) {
+      float sc = s[x] * arg_mul;
+      if (softcap > 0.0f) sc = cap_mul * tanhf(sc);
+      if (!full) {
+        const int qpos = q_lo + r0 + 8 * ((x >> 1) & 1);
+        const int kpos = k_lo + 8 * (x >> 2) + cq + (x & 1);
+        bool ok = kpos < S;
+        if (causal) ok = ok && kpos <= qpos;
+        if (window > 0) ok = ok && kpos > qpos - window;
+        if (!ok) sc = kNegInf;
+      }
+      s[x] = sc;
+    }
+
+    // online softmax; a row's 64 entries lie on the 4 threads of a quad.
+    // The running max (and with it the scale of O and l) moves only when a
+    // row of the warp has grown by more than 8 (log2 units): until then
+    // p <= 2^8, and the rescale of O's 128 registers per thread is skipped
+    // (the algebra is the same either way)
+    float mx[2];
+    bool grow = false;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float m = m_run[hr];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        m = fmaxf(m, fmaxf(s[4 * j + 2 * hr], s[4 * j + 2 * hr + 1]));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      mx[hr] = m;
+      grow = grow || m > m_run[hr] + 8.0f;
+    }
+    if (__any_sync(0xffffffffu, grow)) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const float alpha = exp2_ftz(m_run[hr] - mx[hr]);
+        l_run[hr] *= alpha;
+        m_run[hr] = mx[hr];
+#pragma unroll
+        for (int sl = 0; sl < NSL; ++sl)
+#pragma unroll
+          for (int j = 0; j < NS / 8; ++j) {
+            o[sl][4 * j + 2 * hr] *= alpha;
+            o[sl][4 * j + 2 * hr + 1] *= alpha;
+          }
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float m_use = m_run[hr] == kNegInf ? 0.0f : m_run[hr];   // no valid key yet
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2_ftz(s[4 * j + 2 * hr + e] - m_use);
+          s[4 * j + 2 * hr + e] = p;
+          sum += p;
+        }
+      l_run[hr] += sum;                        // this thread's columns only
+    }
+
+    // P as wgmma A fragments, two bf16 terms: key step kk covers keys
+    // 16kk .. 16kk + 15, register r = (entries 8kk + 2r, 8kk + 2r + 1)
+    uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float p0 = s[8 * kk + 2 * r], p1 = s[8 * kk + 2 * r + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+        ph[kk][r] = *reinterpret_cast<const uint32_t*>(&hi);
+        pl[kk][r] = pack_bf16(p0 - __low2float(hi), p1 - __high2float(hi));
+      }
+
+    // O += P_hi V + P_lo V; V MN-major: 8-column chunks along N 128 bytes
+    // apart (SBO), 8-key groups along K kRows8 apart (LBO)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int sl = 0; sl < NSL; ++sl) {
+        const uint64_t dv = gmma_desc(sV + kk * 2 * kRows8 + sl * (NS / 8) * 128,
+                                      kRows8, 128);
+        wgmma_rs<NS>(o[sl], ph[kk], dv);
+        wgmma_rs<NS>(o[sl], pl[kk], dv);
+      }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int sl = 0; sl < NSL; ++sl) fence_regs(o[sl]);
+    fence_regs(ph);
+    fence_regs(pl);
+    if (lane == 0) mbar_arrive(empty0 + 8 * (i % kTcStages));
+  }
+
+  // finish: quad-sum l, scale by 1 / l (one IEEE division per row, not
+  // one per entry: the entries move by an f32 ulp, far inside
+  // fa_tolerance), store the rows below S
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float l = l_run[hr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.0f / fmaxf(l, 1e-30f);
+    const int row = r0 + 8 * hr;
+    if (q_lo + row < S) {
+      __nv_bfloat16* orow = out + (static_cast<int64_t>(b) * S + q_lo + row) * q_stride +
+                            static_cast<int64_t>(h0 + wg) * HD;
+#pragma unroll
+      for (int sl = 0; sl < NSL; ++sl)
+#pragma unroll
+        for (int j = 0; j < NS / 8; ++j) {
+          const int col = sl * NS + 8 * j + cq;
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+              o[sl][4 * j + 2 * hr] * inv, o[sl][4 * j + 2 * hr + 1] * inv);
+        }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// decode: split-KV pass
+// ---------------------------------------------------------------------------
+
+constexpr int kDecThreads = 128;
+constexpr int kDecWarps = kDecThreads / 32;
+constexpr int kMaxDecodeRows = 16;  // G * Sq rows of one block
+
+// 16 bytes of T as floats
+__device__ __forceinline__ void unpack16(const uint4& r, float (&f)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void unpack16(const uint4& r, float (&f)[4]) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+
+template <typename T, int HD>
+struct DecodeGeom {
+  static constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // per 16 B
+  static constexpr int DPL = HD / 32 > VEC ? HD / 32 : VEC;     // dims per lane
+  static constexpr int TPK = HD / DPL;                          // lanes per key
+  static constexpr int KPW = 32 / TPK;                          // teams per warp
+  static constexpr int NLD = DPL / VEC;                         // loads per row
+  static constexpr int U = sizeof(T) == 2 ? 4 : 2;              // keys per step
+  static constexpr int TEAMS = kDecWarps * KPW;
+};
+
+// K and V of keys base + TEAMS * u (u < U) for this lane's dims; zeros for
+// keys at or past `end` (never read).
+template <typename T, int HD>
+__device__ __forceinline__ void load_keys(
+    uint4 (&kr)[DecodeGeom<T, HD>::U][DecodeGeom<T, HD>::NLD],
+    uint4 (&vr)[DecodeGeom<T, HD>::U][DecodeGeom<T, HD>::NLD], const T* kb,
+    const T* vb, int64_t stride, int base, int end) {
+  using Geo = DecodeGeom<T, HD>;
+#pragma unroll
+  for (int u = 0; u < Geo::U; ++u) {
+    const int t = base + Geo::TEAMS * u;
+#pragma unroll
+    for (int n = 0; n < Geo::NLD; ++n) {
+      if (t < end) {
+        kr[u][n] = __ldg(reinterpret_cast<const uint4*>(kb + t * stride) + n);
+        vr[u][n] = __ldg(reinterpret_cast<const uint4*>(vb + t * stride) + n);
+      } else {
+        kr[u][n] = make_uint4(0u, 0u, 0u, 0u);
+        vr[u][n] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+  }
+}
+
+template <int HD, int RB>
+constexpr size_t decode_smem_bytes() {
+  return sizeof(float) * (RB * HD + kDecWarps * RB * HD + kDecWarps * RB * 2);
+}
+
+// Grid (B * KV, n_split), kDecThreads threads. Rows r < R = G * Sq of kv
+// head g: query s = r / G, head g * G + r % G. RB >= R bounds the rows at
+// compile time (2 or kMaxDecodeRows). With n_split > 1, part_acc (B * KV,
+// n_split, R, HD) and part_ml (B * KV, n_split, R, 2) hold the partials and
+// counters (B * KV,) must be 0 on entry; they are 0 again on exit.
+template <typename T, int HD, int RB>
+__global__ void __launch_bounds__(kDecThreads)
+fa_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const int* __restrict__ kv_len,
+                       T* __restrict__ out, float* __restrict__ part_acc,
+                       float* __restrict__ part_ml, int* __restrict__ counters,
+                       int Sq, int L, int H, int KV, int chunk, int n_split,
+                       float scale, float softcap) {
+  using Geo = DecodeGeom<T, HD>;
+  constexpr int DPL = Geo::DPL, TPK = Geo::TPK, KPW = Geo::KPW;
+  constexpr int U = Geo::U, NLD = Geo::NLD, VEC = Geo::VEC;
+  constexpr bool kQInRegs = RB * DPL <= 32;
+  extern __shared__ float dsm[];
+  float* sQ = dsm;                            // (RB, DPL, TPK): lane-major dims
+  float* sAcc = sQ + RB * HD;                 // (kDecWarps, RB, HD)
+  float* sML = sAcc + kDecWarps * RB * HD;    // (kDecWarps, RB, 2)
+  __shared__ int s_last;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bg = blockIdx.x, split = blockIdx.y;
+  const int b = bg / KV, g = bg - b * KV;
+  const int G = H / KV, R = G * Sq;
+  const int len = min(max(kv_len[b], 0), L);
+  const int c0 = split * chunk, c1 = min(c0 + chunk, len);
+  const int64_t q_stride = static_cast<int64_t>(H) * HD;
+  const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
+
+  for (int i = tid; i < R * HD; i += kDecThreads) {
+    const int r = i / HD, dim = i - r * HD;
+    const int s = r / G, h = g * G + (r - s * G);
+    sQ[(r * DPL + dim % DPL) * TPK + dim / DPL] =
+        to_f32(q[(static_cast<int64_t>(b) * Sq + s) * q_stride +
+                 static_cast<int64_t>(h) * HD + dim]);
+  }
+  __syncthreads();
+
+  const int tw = lane / TPK;                  // team within the warp
+  const int j = lane - tw * TPK;              // dims j * DPL .. + DPL
+  const T* kb = k + static_cast<int64_t>(b) * L * kv_stride +
+                static_cast<int64_t>(g) * HD + j * DPL;
+  const T* vb = v + static_cast<int64_t>(b) * L * kv_stride +
+                static_cast<int64_t>(g) * HD + j * DPL;
+
+  float qr[kQInRegs ? RB : 1][kQInRegs ? DPL : 1];
+  if (kQInRegs) {
+#pragma unroll
+    for (int r = 0; r < (kQInRegs ? RB : 1); ++r)
+#pragma unroll
+      for (int e = 0; e < (kQInRegs ? DPL : 1); ++e)
+        qr[r][e] = r < R ? sQ[(r * DPL + e) * TPK + j] : 0.0f;
+  }
+  float m[RB], l[RB], acc[RB][DPL];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[r][e] = 0.0f;
+  }
+
+  // team tw of this warp takes keys first + TEAMS * (U * step + u)
+  const int warp_first = c0 + warp * KPW;     // warp-uniform loop bound
+  int base = warp_first + tw;
+  uint4 kr[U][NLD], vr[U][NLD];
+  load_keys<T, HD>(kr, vr, kb, vb, kv_stride, base, c1);
+  for (int wb = warp_first; wb < c1; wb += Geo::TEAMS * U, base += Geo::TEAMS * U) {
+    uint4 kn[U][NLD], vn[U][NLD];
+    load_keys<T, HD>(kn, vn, kb, vb, kv_stride, base + Geo::TEAMS * U, c1);
+
+    float sc[RB][U];
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int u = 0; u < U; ++u) sc[r][u] = 0.0f;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int n = 0; n < NLD; ++n) {
+        float kf[VEC];
+        unpack16(kr[u][n], kf);
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          if (r < R) {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+              const int d = n * VEC + e;
+              const float qv = kQInRegs ? qr[kQInRegs ? r : 0][kQInRegs ? d : 0]
+                                        : sQ[(r * DPL + d) * TPK + j];
+              sc[r][u] = fmaf(qv, kf[e], sc[r][u]);
+            }
+          }
+        }
+      }
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int o = TPK / 2; o > 0; o >>= 1)
+          sc[r][u] += __shfl_xor_sync(0xffffffffu, sc[r][u], o);
 
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) {
-      const int e = tid + i * kThreads;
-      if (e < R * HD) {
-        const int r = e / HD, c = e - r * HD;
-        float x = acc[i] * sA[r];
-#pragma unroll 4
-        for (int t = 0; t < kBK; ++t) x = fmaf(sP[r * kLdP + t], sV[t * HD + c], x);
-        acc[i] = x;
+    for (int r = 0; r < RB; ++r) {
+      if (r < R) {
+        float mx = m[r];
+        float x[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          x[u] = cap_score(sc[r][u], scale, softcap);
+          if (base + Geo::TEAMS * u < c1) mx = fmaxf(mx, x[u]);
+        }
+        const float alpha = expf(m[r] - mx);
+        float lr = l[r] * alpha;
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) acc[r][e] *= alpha;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float p = base + Geo::TEAMS * u < c1 ? expf(x[u] - mx) : 0.0f;
+          lr += p;
+#pragma unroll
+          for (int n = 0; n < NLD; ++n) {
+            float vf[VEC];
+            unpack16(vr[u][n], vf);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              acc[r][n * VEC + e] = fmaf(p, vf[e], acc[r][n * VEC + e]);
+          }
+        }
+        l[r] = lr;
+        m[r] = mx;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int n = 0; n < NLD; ++n) {
+        kr[u][n] = kn[u][n];
+        vr[u][n] = vn[u][n];
+      }
+  }
+
+  // merge the teams of a warp (lanes with the same dims, xor over teams)
+#pragma unroll
+  for (int o = TPK; o < 32; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      if (r < R) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[r], o);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[r], o);
+        const float mx = fmaxf(m[r], mo);
+        const float a = expf(m[r] - mx), c = expf(mo - mx);
+        l[r] = l[r] * a + lo * c;
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) {
+          const float ao = __shfl_xor_sync(0xffffffffu, acc[r][e], o);
+          acc[r][e] = acc[r][e] * a + ao * c;
+        }
+        m[r] = mx;
+      }
+    }
+  }
+  if (tw == 0) {
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      if (r < R) {
+#pragma unroll
+        for (int e = 0; e < DPL; ++e)
+          sAcc[(warp * RB + r) * HD + j * DPL + e] = acc[r][e];
+        if (j == 0) {
+          sML[(warp * RB + r) * 2] = m[r];
+          sML[(warp * RB + r) * 2 + 1] = l[r];
+        }
       }
     }
   }
   __syncthreads();
 
+  // merge the warps in warp order: this block's partial for its chunk
+  T* ob = out + static_cast<int64_t>(b) * Sq * q_stride;
+  const int64_t part = static_cast<int64_t>(bg) * n_split + split;
+  for (int i = tid; i < R * HD; i += kDecThreads) {
+    const int r = i / HD, dim = i - r * HD;
+    float mx = kNegInf;
 #pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    const int e = tid + i * kThreads;
-    if (e < R * HD) {
-      const int r = e / HD, c = e - r * HD;
+    for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, sML[(w * RB + r) * 2]);
+    float a = 0.0f, ls = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float f = expf(sML[(w * RB + r) * 2] - mx);
+      a += f * sAcc[(w * RB + r) * HD + dim];
+      ls += f * sML[(w * RB + r) * 2 + 1];
+    }
+    if (n_split == 1) {
       const int s = r / G, h = g * G + (r - s * G);
-      out[(static_cast<int64_t>(b) * Sq + s) * q_stride + static_cast<int64_t>(h) * HD + c] =
-          from_f32<T>(acc[i] / fmaxf(sL[r], 1e-30f));
+      ob[s * q_stride + static_cast<int64_t>(h) * HD + dim] =
+          from_f32<T>(a / fmaxf(ls, 1e-30f));
+    } else {
+      part_acc[(part * R + r) * HD + dim] = a;
+      if (dim == 0) {
+        part_ml[(part * R + r) * 2] = mx;
+        part_ml[(part * R + r) * 2 + 1] = ls;
+      }
     }
   }
+  if (n_split == 1) return;
+
+  // the last block of this (lane, kv head) to finish merges all n_split
+  // partials, in split order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(counters + bg, 1) == n_split - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const int64_t first = static_cast<int64_t>(bg) * n_split;
+  for (int i = tid; i < R * HD; i += kDecThreads) {
+    const int r = i / HD, dim = i - r * HD;
+    float mx = kNegInf;
+    for (int p = 0; p < n_split; ++p)
+      mx = fmaxf(mx, __ldcg(part_ml + ((first + p) * R + r) * 2));
+    float a = 0.0f, ls = 0.0f;
+    for (int p = 0; p < n_split; ++p) {
+      const float f = expf(__ldcg(part_ml + ((first + p) * R + r) * 2) - mx);
+      a += f * __ldcg(part_acc + ((first + p) * R + r) * HD + dim);
+      ls += f * __ldcg(part_ml + ((first + p) * R + r) * 2 + 1);
+    }
+    const int s = r / G, h = g * G + (r - s * G);
+    ob[s * q_stride + static_cast<int64_t>(h) * HD + dim] =
+        from_f32<T>(a / fmaxf(ls, 1e-30f));
+  }
+  if (tid == 0) counters[bg] = 0;
 }
 
-template <typename T, int HD>
-int launch_prefill(const void* q, const void* k, const void* v, void* out,
-                   int64_t B, int64_t S, int64_t H, int64_t KV, int64_t causal,
-                   int64_t window, double scale, double softcap,
-                   cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+// Which prefill kernel the last flash_attention_fwd_* call on this thread
+// launched (flash_attention_fwd_launched below), so that the wrapper counts
+// the tensor-core launches by what ran, not by the dtype it passed.
+constexpr int kFwdNone = 0, kFwdTensorCores = 1, kFwdCudaCores = 2;
+thread_local int g_fwd_launched = kFwdNone;
+
+// Opt the kernel in to `bytes` of dynamic shared memory (needed above 48 KB
+// of dynamic and static shared memory together).
+template <typename K>
+int allow_smem(K* kernel, size_t bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+}
+
+template <int HD>
+int launch_prefill_f32(const void* q, const void* k, const void* v, void* out,
+                       int64_t B, int64_t S, int64_t H, int64_t KV,
+                       int64_t causal, int64_t window, double scale,
+                       double softcap, cudaStream_t stream) {
   constexpr size_t smem = prefill_smem_bytes<HD>();
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fa_prefill_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+  static int configured = allow_smem(fa_prefill_kernel<float, HD>, smem);
+  if (configured != 0) return configured;
   const dim3 grid(static_cast<unsigned>((S + kBQ - 1) / kBQ),
                   static_cast<unsigned>(B * H));
-  fa_prefill_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+  fa_prefill_kernel<float, HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
+      static_cast<int>(S), static_cast<int>(H), static_cast<int>(KV),
+      static_cast<int>(causal), static_cast<int>(window),
+      static_cast<float>(scale), static_cast<float>(softcap));
+  g_fwd_launched = kFwdCudaCores;
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD, int NWG>
+int launch_prefill_tc(const void* q, const void* k, const void* v, void* out,
+                      int64_t B, int64_t S, int64_t H, int64_t KV,
+                      int64_t causal, int64_t window, double scale,
+                      double softcap, cudaStream_t stream) {
+  constexpr size_t smem = prefill_tc_smem_bytes<HD, NWG>();
+  static int configured = allow_smem(fa_prefill_tc_kernel<HD, NWG>, smem);
+  if (configured != 0) return configured;
+  const dim3 grid(static_cast<unsigned>(B * H / NWG),
+                  static_cast<unsigned>((S + kTcRows - 1) / kTcRows));
+  fa_prefill_tc_kernel<HD, NWG><<<grid, NWG * 128, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<int>(S), static_cast<int>(H), static_cast<int>(KV),
+      static_cast<int>(causal), static_cast<int>(window),
+      static_cast<float>(scale), static_cast<float>(softcap));
+  g_fwd_launched = kFwdTensorCores;
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int prefill_tc_by_groups(const void* q, const void* k, const void* v, void* out,
+                         int64_t B, int64_t S, int64_t H, int64_t KV,
+                         int64_t causal, int64_t window, double scale,
+                         double softcap, cudaStream_t stream) {
+  if ((H / KV) % 2 == 0)
+    return launch_prefill_tc<HD, 2>(q, k, v, out, B, S, H, KV, causal, window,
+                                    scale, softcap, stream);
+  return launch_prefill_tc<HD, 1>(q, k, v, out, B, S, H, KV, causal, window,
+                                  scale, softcap, stream);
+}
+
+template <typename T, int HD, int RB>
+int launch_decode(const void* q, const void* k, const void* v,
+                  const void* kv_len, void* out, void* part_acc, void* part_ml,
+                  void* counters, int64_t B, int64_t Sq, int64_t L, int64_t H,
+                  int64_t KV, int64_t chunk, int64_t n_split, double scale,
+                  double softcap, cudaStream_t stream) {
+  constexpr size_t smem = decode_smem_bytes<HD, RB>();
+  static int configured = allow_smem(fa_decode_split_kernel<T, HD, RB>, smem);
+  if (configured != 0) return configured;
+  const dim3 grid(static_cast<unsigned>(B * KV), static_cast<unsigned>(n_split));
+  fa_decode_split_kernel<T, HD, RB><<<grid, kDecThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), static_cast<int>(S),
-      static_cast<int>(H), static_cast<int>(KV), static_cast<int>(causal),
-      static_cast<int>(window), static_cast<float>(scale),
-      static_cast<float>(softcap));
+      static_cast<const T*>(v), static_cast<const int*>(kv_len),
+      static_cast<T*>(out), static_cast<float*>(part_acc),
+      static_cast<float*>(part_ml), static_cast<int*>(counters),
+      static_cast<int>(Sq), static_cast<int>(L), static_cast<int>(H),
+      static_cast<int>(KV), static_cast<int>(chunk), static_cast<int>(n_split),
+      static_cast<float>(scale), static_cast<float>(softcap));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
-int launch_decode(const void* q, const void* k, const void* v,
-                  const void* kv_len, void* out, int64_t B, int64_t Sq,
-                  int64_t L, int64_t H, int64_t KV, double scale,
-                  double softcap, cudaStream_t stream) {
-  constexpr size_t smem = decode_smem_bytes<HD>();
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fa_decode_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  fa_decode_kernel<T, HD><<<static_cast<unsigned>(B * KV), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(kv_len),
-      static_cast<T*>(out), static_cast<int>(Sq), static_cast<int>(L),
-      static_cast<int>(H), static_cast<int>(KV), static_cast<float>(scale),
-      static_cast<float>(softcap));
-  return static_cast<int>(cudaGetLastError());
+int decode_by_rows(const void* q, const void* k, const void* v,
+                   const void* kv_len, void* out, void* part_acc, void* part_ml,
+                   void* counters, int64_t B, int64_t Sq, int64_t L, int64_t H,
+                   int64_t KV, int64_t chunk, int64_t n_split, double scale,
+                   double softcap, cudaStream_t stream) {
+  const int64_t rows = (H / KV) * Sq;
+  if (rows > kMaxDecodeRows) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 2)
+    return launch_decode<T, HD, 2>(q, k, v, kv_len, out, part_acc, part_ml, counters,
+                                   B, Sq, L, H, KV, chunk, n_split, scale, softcap,
+                                   stream);
+  return launch_decode<T, HD, kMaxDecodeRows>(q, k, v, kv_len, out, part_acc, part_ml,
+                                              counters, B, Sq, L, H, KV, chunk, n_split,
+                                              scale, softcap, stream);
 }
 
-template <typename T>
-int prefill_by_hd(const void* q, const void* k, const void* v, void* out,
-                  int64_t B, int64_t S, int64_t H, int64_t KV, int64_t hd,
-                  int64_t causal, int64_t window, double scale, double softcap,
-                  void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch_prefill<T, 16>(q, k, v, out, B, S, H, KV, causal, window, scale, softcap, st);
-    case 32: return launch_prefill<T, 32>(q, k, v, out, B, S, H, KV, causal, window, scale, softcap, st);
-    case 64: return launch_prefill<T, 64>(q, k, v, out, B, S, H, KV, causal, window, scale, softcap, st);
-    case 128: return launch_prefill<T, 128>(q, k, v, out, B, S, H, KV, causal, window, scale, softcap, st);
-    case 256: return launch_prefill<T, 256>(q, k, v, out, B, S, H, KV, causal, window, scale, softcap, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+#define FA_BY_HD(hd, CALL)                                        \
+  switch (hd) {                                                   \
+    case 16: return CALL(16);                                     \
+    case 32: return CALL(32);                                     \
+    case 64: return CALL(64);                                     \
+    case 128: return CALL(128);                                   \
+    case 256: return CALL(256);                                   \
+    default: return static_cast<int>(cudaErrorInvalidValue);      \
   }
-}
-
-template <typename T>
-int decode_by_hd(const void* q, const void* k, const void* v,
-                 const void* kv_len, void* out, int64_t B, int64_t Sq,
-                 int64_t L, int64_t H, int64_t KV, int64_t hd, double scale,
-                 double softcap, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return launch_decode<T, 16>(q, k, v, kv_len, out, B, Sq, L, H, KV, scale, softcap, st);
-    case 32: return launch_decode<T, 32>(q, k, v, kv_len, out, B, Sq, L, H, KV, scale, softcap, st);
-    case 64: return launch_decode<T, 64>(q, k, v, kv_len, out, B, Sq, L, H, KV, scale, softcap, st);
-    case 128: return launch_decode<T, 128>(q, k, v, kv_len, out, B, Sq, L, H, KV, scale, softcap, st);
-    case 256: return launch_decode<T, 256>(q, k, v, kv_len, out, B, Sq, L, H, KV, scale, softcap, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
 
 }  // namespace
 
@@ -460,8 +1225,12 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
                                        int64_t hd, int64_t causal,
                                        int64_t window, double scale,
                                        double softcap, void* stream) {
-  return prefill_by_hd<float>(q, k, v, out, B, S, H, KV, hd, causal, window,
-                              scale, softcap, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  g_fwd_launched = kFwdNone;
+#define FA_CALL(HD) \
+  launch_prefill_f32<HD>(q, k, v, out, B, S, H, KV, causal, window, scale, softcap, st)
+  FA_BY_HD(hd, FA_CALL)
+#undef FA_CALL
 }
 
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
@@ -470,26 +1239,43 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
                                         int64_t hd, int64_t causal,
                                         int64_t window, double scale,
                                         double softcap, void* stream) {
-  return prefill_by_hd<__nv_bfloat16>(q, k, v, out, B, S, H, KV, hd, causal,
-                                      window, scale, softcap, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  g_fwd_launched = kFwdNone;
+#define FA_CALL(HD) \
+  prefill_tc_by_groups<HD>(q, k, v, out, B, S, H, KV, causal, window, scale, softcap, st)
+  FA_BY_HD(hd, FA_CALL)
+#undef FA_CALL
 }
 
-extern "C" int flash_attention_decode_f32(const void* q, const void* k,
-                                          const void* v, const void* kv_len,
-                                          void* out, int64_t B, int64_t Sq,
-                                          int64_t L, int64_t H, int64_t KV,
-                                          int64_t hd, double scale,
-                                          double softcap, void* stream) {
-  return decode_by_hd<float>(q, k, v, kv_len, out, B, Sq, L, H, KV, hd, scale,
-                             softcap, stream);
+// 1: the last flash_attention_fwd_* call on this thread launched the
+// tensor-core kernel; 2: the CUDA-core kernel; 0: none.
+extern "C" int flash_attention_fwd_launched() { return g_fwd_launched; }
+
+// part_acc, part_ml and counters: scratch of the split-KV merge (see
+// fa_decode_split_kernel); unused when n_split is 1.
+extern "C" int flash_attention_decode_f32(
+    const void* q, const void* k, const void* v, const void* kv_len, void* out,
+    void* part_acc, void* part_ml, void* counters, int64_t B, int64_t Sq,
+    int64_t L, int64_t H, int64_t KV, int64_t hd, int64_t chunk,
+    int64_t n_split, double scale, double softcap, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FA_CALL(HD)                                                             \
+  decode_by_rows<float, HD>(q, k, v, kv_len, out, part_acc, part_ml, counters, B, \
+                            Sq, L, H, KV, chunk, n_split, scale, softcap, st)
+  FA_BY_HD(hd, FA_CALL)
+#undef FA_CALL
 }
 
-extern "C" int flash_attention_decode_bf16(const void* q, const void* k,
-                                           const void* v, const void* kv_len,
-                                           void* out, int64_t B, int64_t Sq,
-                                           int64_t L, int64_t H, int64_t KV,
-                                           int64_t hd, double scale,
-                                           double softcap, void* stream) {
-  return decode_by_hd<__nv_bfloat16>(q, k, v, kv_len, out, B, Sq, L, H, KV,
-                                     hd, scale, softcap, stream);
+extern "C" int flash_attention_decode_bf16(
+    const void* q, const void* k, const void* v, const void* kv_len, void* out,
+    void* part_acc, void* part_ml, void* counters, int64_t B, int64_t Sq,
+    int64_t L, int64_t H, int64_t KV, int64_t hd, int64_t chunk,
+    int64_t n_split, double scale, double softcap, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FA_CALL(HD)                                                          \
+  decode_by_rows<__nv_bfloat16, HD>(q, k, v, kv_len, out, part_acc, part_ml, \
+                                    counters, B, Sq, L, H, KV, chunk, n_split, \
+                                    scale, softcap, st)
+  FA_BY_HD(hd, FA_CALL)
+#undef FA_CALL
 }

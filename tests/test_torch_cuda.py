@@ -22,8 +22,12 @@ finite, on ragged cases and on strong decay at chunk 256; and a
 (prefill and decode) against their plain version within
 ``flash_attention.ref.fa_tolerance`` (1e-5 of the output's scale, plus one
 bf16 ulp for bf16 outputs) on head dims 16 to 256, G 1 to 4, causal,
-window and softcap, ragged S and per-row kv_len; and a gemma2-9b smoke
-``ModelDecoder`` prefill and tick on the card.
+window and softcap, ragged S (up to 4608, past gemma2-9b's window 4096)
+and per-row kv_len (caches up to 8192 slots, split into many chunks), two
+launches bit-identical, bf16 prefills counted on the tensor-core kernel;
+and gemma2-9b smoke ``ModelDecoder`` runs on the card: a prefill and tick,
+and one prefill call admitting both replicas in a bucket-256 wave followed
+by ticks past the window (the local ring engaged).
 """
 
 from __future__ import annotations
@@ -370,6 +374,7 @@ FA_CASES = [
     (1, 64, 8, 2, 128, False, None, None),
     (2, 512, 16, 8, 256, True, None, 50.0),
     (1, 8, 4, 4, 256, False, 3, 50.0),
+    (1, 4608, 16, 8, 256, True, 4096, 50.0),     # gemma2-9b's local layer, S > window
 ]
 
 
@@ -417,6 +422,91 @@ def test_flash_attention_decode_against_plain(device, hd, G, Sq, dtype):
     assert ok, err
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("L", [4096, 8192])
+def test_flash_attention_decode_long_cache(device, L, dtype):
+    """gemma2-9b's window as a ring length, and twice it: the cache split
+    into many chunks; kv_len 1, one past the first chunk's edge, and L."""
+    from repro_torch.kernels.flash_attention import flash_attention as kern
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    B, H, KV, hd = 3, 16, 8, 256
+    q, k, v = _fa_inputs(device, (B, 1, H, hd), (B, L, KV, hd), dtype, L)
+    n_split, chunk, _, _ = kern.decode_plan(
+        B, KV, L, H // KV, hd, torch.cuda.get_device_properties(device).multi_processor_count)
+    assert n_split > 1
+    kv_len = torch.tensor([1, chunk + 1, L], dtype=torch.int32, device=device)
+    got = ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0)
+    want = ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0, impl="ref")
+    torch.cuda.synchronize()
+    ok, err = ref.fa_close(got, want)
+    assert ok, err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("entry", ["prefill", "decode"])
+def test_flash_attention_launches_are_bit_identical(device, entry, dtype):
+    """Two launches on the same input give the same bits (the decode merges
+    its cache chunks in chunk order, whichever block finishes last)."""
+    from repro_torch.kernels.flash_attention import ops
+
+    if entry == "prefill":
+        q, k, v = _fa_inputs(device, (2, 512, 16, 256), (2, 512, 8, 256), dtype, 1)
+        run = lambda: ops.flash_attention(q, k, v, softcap=50.0)  # noqa: E731
+    else:
+        q, k, v = _fa_inputs(device, (8, 1, 16, 256), (8, 529, 8, 256), dtype, 2)
+        kv_len = torch.tensor([1, 17, 100, 264, 265, 528, 529, 529], dtype=torch.int32,
+                              device=device)
+        run = lambda: ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0)  # noqa: E731
+    first = run()
+    for _ in range(3):
+        assert torch.equal(run(), first)
+
+
+def test_flash_attention_decode_on_two_streams_and_in_a_graph(device):
+    """The decode's scratch and arrival counters belong to a stream: launches
+    queued alternately on two streams, and launches captured in a CUDA graph
+    and replayed, equal one eager launch bit for bit."""
+    from repro_torch.kernels.flash_attention import ops
+
+    q, k, v = _fa_inputs(device, (8, 1, 16, 256), (8, 529, 8, 256), torch.bfloat16, 4)
+    kv_len = torch.tensor([1, 17, 100, 264, 265, 528, 529, 529], dtype=torch.int32,
+                          device=device)
+    run = lambda: ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0)  # noqa: E731
+    want = run()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for i in range(16):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(run())
+    for st in streams:
+        torch.cuda.current_stream().wait_stream(st)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [run() for _ in range(3)]
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, want) for o in captured)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_bf16_prefill_takes_the_tensor_core_kernel(device, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention as kern
+
+    q, k, v = _fa_inputs(device, (1, 64, 4, 64), (1, 64, 2, 64), dtype, 3)
+    before = kern.launch_counts()
+    kern.flash_attention_fwd(q, k, v)
+    after = kern.launch_counts()
+    assert after["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
+    assert (after["flash_attention_fwd_wgmma"] - before["flash_attention_fwd_wgmma"]
+            == (1 if dtype == torch.bfloat16 else 0))
+
+
 def test_dense_model_decoder_prefill_and_tick(device):
     """A two-replica ModelDecoder on the gemma2-9b smoke config on the card:
     the prefill launches the attention kernel once per layer and a tick the
@@ -447,3 +537,24 @@ def test_dense_model_decoder_prefill_and_tick(device):
     assert gpu.prefill_waves(second) == cpu.prefill_waves(second)
     both = np.array([True, True])
     assert (gpu.step(both) == cpu.step(both)).all()
+
+
+def test_dense_decoder_both_replicas_bucket_256_and_local_ring(device):
+    """The serving paths the full-size gemma2-9b cell does not reach, on its
+    smoke config (window 16), through ``serving.edge_check``: one
+    ``prefill_waves`` call admitting both replicas with prompts of 129-256
+    tokens (a bucket-256 wave), then 24 ticks of both, each local layer's
+    ring engaged. float32 compute: the tokens equal a CPU decoder's with the
+    same params. bf16 compute: one tensor-core prefill launch per layer and
+    one decode launch per layer per tick, and the first local and global
+    layers' attention, on the prompt and on the caches the ticks left,
+    within ``fa_tolerance`` of the plain version."""
+    from repro_torch.serving.edge_check import EDGE_TICKS, dense_edge_check
+
+    seen = dense_edge_check(device)
+    cfg = seen["config"]
+    assert seen["prompts"] == [129, 200, 256, 160] and seen["ticks"] == EDGE_TICKS == 24
+    assert seen["launches"] == {"flash_attention_fwd": cfg.n_layers,
+                                "flash_attention_fwd_wgmma": cfg.n_layers,
+                                "flash_attention_decode": cfg.n_layers * EDGE_TICKS}
+    assert len(seen["rings"]) == 2
