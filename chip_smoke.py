@@ -48,7 +48,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    alternately on two streams, and replayed from a CUDA graph, equals one
    launch bit for bit; both at their 8-lane serving shapes by
    ``torch.profiler`` (the serving phases' instrument), CUDA events and
-   CUDA-graph replay, logged side by side;
+   CUDA-graph replay, logged side by side, and the bf16 ``ssd_scan``'s
+   three launches at 8 and 4 lanes by the profiler, pass by pass;
 3b. gemma2-9b smoke edges (``repro_torch.serving.edge_check``, which the
    card tests run too): the smoke config (window 16) through
    ``ModelDecoder``, one prefill call admitting both replicas with prompts
@@ -118,9 +119,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    shared-memory scatter paths at TOPK_SELECT_MAX_K + 1, each checked
    against its plain version and timed beside its bound and library call;
    ``ssd_scan`` at the serving prefill's shape with both replicas admitted
-   (8 lanes x 48 heads, S 512, chunk 256, bf16), each beside its bound: the
-   larger of the bytes it must move over 3.35 TB/s and its float32
-   operations (the triangle s <= t only) over 67 TFLOP/s; both attention
+   (8 lanes x 48 heads, S 512, chunk 256, bf16; the ``kernels`` row) and at
+   the served 4 lanes, each beside its bound: the larger of the bytes it
+   must move over 3.35 TB/s and its operations (the triangle s <= t only)
+   over 989 TFLOP/s, the bf16 tensor-core rate (bytes; the float32 rate's
+   67 TFLOP/s, which bounded the first port's kernel, logged beside it),
+   and four launches on one input bit-identical; both attention
    entry points at gemma2-9b's serving shapes (prefill 8 lanes x 16 heads,
    S 512, hd 256, causal, softcap 50, bf16; decode 8 lanes against a
    529-slot cache; each also at the served 4 lanes), by the CUDA-event time
@@ -1237,45 +1241,69 @@ def _split_one_call(dec, report, device, tag: str, kernel_key: str) -> None:
 
 
 SSD_SLICE = (2 * SERVE_BATCH, 512, 48, 64, 1, 128, 256)   # (B, S, H, P, G, N, chunk)
+# the three launches of a bf16 call, by kernel name (csrc/ssd_scan.cu)
+SSD_PASSES = ("ssd_scan_chunk_state", "ssd_scan_state_pass", "ssd_scan_chunk_scan")
 
 
-def phase_ssd_slice(device, power_note: str) -> dict:
-    """``ssd_scan`` at the serving prefill's shape with both replicas
-    admitted (mamba2-780m: 48 heads x 64, one group of state 128, S 512 in
-    chunks of 256), against its plain version, timed, with its bound."""
-    import torch
-
-    from repro_torch.kernels.ssd_scan import ops
-
-    B_, S, H, P, G, N, Q = SSD_SLICE
-    case = (B_, S, H, P, G, N, Q, torch.bfloat16)
-    gen = torch.Generator(device=device).manual_seed(17)
-    inputs = _ssd_inputs(gen, case, device)
-    err = _ssd_vs_plain(inputs, Q, f"ssd_scan at the serving shape {case}")
-    ms = time_ms(lambda: ops.ssd_scan(*inputs, chunk=Q, impl="cuda"), reps=20)
-    plain = time_ms(lambda: ops.ssd_scan(*inputs, chunk=Q, impl="ref"), reps=5)
+def _ssd_bound(B_, S, H, P, G, N, Q):
+    """(bound ms at the bf16 tensor-core rate, its "bytes" or "operations",
+    bound ms at the float32 rate, GFLOP, MB) of one bf16 scan: the bytes it
+    must move (x, B, C, dt, A read once, y and the final state written once)
+    at 3.35 TB/s against its operations (the triangle s <= t only: C.B^T and
+    W.x on it, C.S_prev and the state update) at 989 TFLOP/s, the earlier
+    rows' float32 rate (67 TFLOP/s) beside it."""
     rows, chunks = B_ * H, S // Q
-    # float32 operations the inputs need, triangle s <= t only: C.B^T and
-    # W.x on the triangle, C.S_prev and the state update
     flops = rows * chunks * (N * Q * (Q + 1) + P * Q * (Q + 1) + 2 * Q * N * P + 2 * Q * P * N)
     nbytes = (2 * B_ * S * H * P * 2         # x in, y out (bf16)
               + 2 * B_ * S * G * N * 2       # B and C (bf16), the group's rows once
               + B_ * S * H * 4 + H * 4       # dt, A
               + B_ * H * P * N * 4)          # final state (f32)
-    op_ms, byte_ms = flops / F32_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(op_ms, byte_ms)
-    log(f"[kernels] ssd_scan at the serving prefill shape (B {B_}, S {S}, H {H}, P {P}, "
-        f"G {G}, N {N}, chunk {Q}, bf16): {ms:.3f} ms, bound {bound_ms:.3f} ms "
-        f"({bound_ms / ms:.1%}; {flops / 1e9:.2f} GFLOP -> {op_ms:.3f} ms at 67 TFLOP/s, "
-        f"{nbytes / 1e6:.1f} MB -> {byte_ms:.3f} ms at 3.35 TB/s), plain {plain:.3f} ms, "
-        f"library null (no single PyTorch call computes the chunked SSD scan), "
-        f"max_abs_err {err:.3g}  [{power_note}]")
-    return {
-        "name": "ssd_scan", "route": "cuda", "source": SOURCES["ssd_scan"],
-        "replaces": REPLACES["ssd_scan"], "launches": 0, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
-        "bound_by": "operations" if op_ms >= byte_ms else "bytes", "library_ms": None,
-    }
+    op_ms, byte_ms = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    f32_ms = max(flops / F32_FLOPS_PER_S * 1e3, byte_ms)
+    return (max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes", f32_ms,
+            flops / 1e9, nbytes / 1e6)
+
+
+def phase_ssd_slice(device, power_note: str) -> dict:
+    """``ssd_scan`` at the serving prefill's shape with both replicas
+    admitted (mamba2-780m: 48 heads x 64, one group of state 128, S 512 in
+    chunks of 256; the ``kernels`` line's row) and at the served 4 lanes
+    (every prefill call of the serving cell), against its plain version,
+    timed, with its bound; and four launches on one input, bit-identical."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops
+
+    row = None
+    for B_ in (SSD_SLICE[0], SERVE_BATCH):
+        _, S, H, P, G, N, Q = SSD_SLICE
+        case = (B_, S, H, P, G, N, Q, torch.bfloat16)
+        gen = torch.Generator(device=device).manual_seed(17)
+        inputs = _ssd_inputs(gen, case, device)
+        err = _ssd_vs_plain(inputs, Q, f"ssd_scan at the serving shape {case}")
+        first = ops.ssd_scan(*inputs, chunk=Q, impl="cuda")
+        for _ in range(3):
+            again = ops.ssd_scan(*inputs, chunk=Q, impl="cuda")
+            check(all(torch.equal(a, b) for a, b in zip(first, again)),
+                  f"ssd_scan {case}: a repeated launch differs")
+        ms = time_ms(lambda: ops.ssd_scan(*inputs, chunk=Q, impl="cuda"), reps=20)
+        plain = time_ms(lambda: ops.ssd_scan(*inputs, chunk=Q, impl="ref"), reps=5)
+        bound_ms, bound_by, f32_ms, gflop, mb = _ssd_bound(B_, S, H, P, G, N, Q)
+        log(f"[kernels] ssd_scan at the serving prefill shape, {B_} lanes (S {S}, H {H}, "
+            f"P {P}, G {G}, N {N}, chunk {Q}, bf16): {ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}; {bound_ms / ms:.1%}; {gflop:.2f} GFLOP at 989 TFLOP/s bf16, "
+            f"{mb:.1f} MB at 3.35 TB/s; at the float32 rate {f32_ms:.3f} ms), plain "
+            f"{plain:.3f} ms, library null (no single PyTorch call computes the chunked SSD "
+            f"scan), max_abs_err {err:.3g}, 4 launches bit-identical  [{power_note}]")
+        stats = {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+                 "bound_ms_f32_rate": f32_ms, "max_abs_err": err}
+        if row is None:
+            row = {"name": "ssd_scan", "route": "cuda", "source": SOURCES["ssd_scan"],
+                   "replaces": REPLACES["ssd_scan"], "launches": 0, "library_ms": None,
+                   **stats}
+        else:
+            row[f"served_{B_}_lanes"] = stats
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1827,7 +1855,9 @@ def _flex(q, k, v, cap: float, causal: bool, kv_len=None):
 def _profiler_check(device, power_note: str) -> None:
     """Both attention kernels at their 8-lane serving shapes (softcap 50) by
     ``torch.profiler``, the instrument of the serving phases' device times,
-    beside CUDA events and graph replay on the same calls. It runs early:
+    beside CUDA events and graph replay on the same calls; and the three
+    launches of one bf16 ``ssd_scan`` call at 8 and 4 lanes by the profiler,
+    pass by pass, beside CUDA events of the whole call. It runs early:
     late in this script's process the profiler missed a fixed number of
     kernel records per session (10 of 20 prefill launches, 10 of 50 decode
     launches), which halves a per-launch time taken as the sum over the
@@ -1853,6 +1883,16 @@ def _profiler_check(device, power_note: str) -> None:
     log(f"[kernels] flash_attention_decode at (B {B}, L {L}, bf16): "
         f"{_profiled_ms(run, 'fa_decode', 50)} by torch.profiler, {time_ms(run, reps=50):.4f} "
         f"ms by CUDA events, {_graph_ms(run, 50):.4f} ms by graph replay  [{power_note}]")
+
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    for B_ in (SSD_SLICE[0], SERVE_BATCH):
+        _, S, H, P, G, N, Q = SSD_SLICE
+        inputs = _ssd_inputs(gen, (B_, S, H, P, G, N, Q, torch.bfloat16), device)
+        run = lambda: ssd_ops.ssd_scan(*inputs, chunk=Q, impl="cuda")  # noqa: E731
+        passes = ", ".join(f"{key} {_profiled_ms(run, key, 20)}" for key in SSD_PASSES)
+        log(f"[kernels] ssd_scan at {B_} lanes (S {S}, chunk {Q}, bf16) by torch.profiler: "
+            f"{passes}; the call {time_ms(run, reps=20):.4f} ms by CUDA events  [{power_note}]")
 
 
 def phase_fa_slice(device, power_note: str) -> list:

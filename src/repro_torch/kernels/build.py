@@ -3,8 +3,9 @@
 One ``nvcc`` call per source (several sources build in parallel,
 :func:`build_many`), for ``sm_90a``, into ``build/repro_torch/`` at
 the repository root (listed in ``.gitignore``). The library's file name
-carries the source's hash, so an edited source rebuilds on first use and an
-unchanged one loads the library built before. ``-Xptxas -v`` is always on;
+carries the hash of the source and of the headers in ``csrc/``, so an edited
+source or header rebuilds on first use and an unchanged one loads the
+library built before. ``-Xptxas -v`` is always on;
 its report (registers, shared memory, spills per kernel) is kept beside the
 library as ``<name>.ptxas.txt``. No ``--use_fast_math``: the kernels rely on
 IEEE division and rounding.
@@ -50,10 +51,13 @@ def _nvcc() -> str:
 
 def _paths(name: str) -> Tuple[pathlib.Path, pathlib.Path, pathlib.Path]:
     """(source, library, ptxas report) of ``csrc/<name>.cu``; the library's
-    name carries the hash of the source and the flags."""
+    name carries the hash of the source, of every header in ``csrc/`` (a
+    source may include any of them) and of the flags."""
     src = CSRC_DIR / f"{name}.cu"
+    headers = b"".join(h.name.encode() + h.read_bytes()
+                       for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     return src, lib, BUILD_DIR / f"lib{name}-{digest}.ptxas.txt"

@@ -17,8 +17,9 @@ through the plain versions, and the int8 ground-segment exchange through the
 kernels equal to it through the plain versions bit for bit. The SSD-scan
 kernel against its plain version within ``ssd_scan.ref.ssd_tolerance`` (1e-4
 of the output's scale, plus one bf16 ulp for bf16 outputs), y and state
-finite, on ragged cases and on strong decay at chunk 256; and a
-``ModelDecoder`` prefill and decode tick on the card. The attention kernels
+finite, on ragged cases and on strong decay at chunk 256, four calls at
+the serving shape bit-identical; and a ``ModelDecoder`` prefill and decode
+tick on the card. The attention kernels
 (prefill and decode) against their plain version within
 ``flash_attention.ref.fa_tolerance`` (1e-5 of the output's scale, plus one
 bf16 ulp for bf16 outputs) on head dims 16 to 256, G 1 to 4, causal,
@@ -337,6 +338,20 @@ def test_ssd_scan_strong_decay_at_published_chunk(device, dtype):
     """A = -16, dt 0.05-0.1, chunk 256: exp before the mask would be inf
     above the diagonal; the kernel's y and state are finite and equal."""
     _ssd_check(_ssd_inputs(device, (2, 512, 4, 64, 1, 128, 256), dtype, strong=True), 256)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_ssd_scan_launches_are_bit_identical(device, dtype):
+    """Four calls on one input at the serving prefill's shape (4 lanes x 48
+    heads, S 512, chunk 256) give the same y and state bit for bit: every
+    pass sums in a fixed order, with no atomics."""
+    from repro_torch.kernels.ssd_scan import ops
+
+    inputs = _ssd_inputs(device, (4, 512, 48, 64, 1, 128, 256), dtype)
+    first = ops.ssd_scan(*inputs, chunk=256)
+    for _ in range(3):
+        y, s = ops.ssd_scan(*inputs, chunk=256)
+        assert _bits(y, first[0]) and _bits(s, first[1])
 
 
 def test_model_decoder_prefill_and_tick(device):
