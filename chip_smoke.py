@@ -113,6 +113,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    routing programs', and the gathers and reductions equal the oracle's
    (the FL loop checks every round). Then one int8 exchange on the trained
    params, through the kernels and through the plain versions: bit for bit;
+6b. slice 8, the rest of the paper's exchange layer, at the same widths and
+   depth: (a) two-level (pod x data) FL through
+   ``fl_train.build_hierarchical_fl_round`` on 2 orbital planes x 4
+   satellites (intra a clique of the plane's 4, inter the one link between
+   the planes, the reference worker's relations), 3 rounds each of none and
+   int8 from the same start, the counters zeroed around each: losses
+   finite, every round's gathers equal to
+   ``expected_hierarchical_collectives``, ``quantize`` and
+   ``dequant_accumulate`` launched under int8 and not under none; one
+   uncompressed mix of the none run's params buffer equal to per-leaf
+   ``hierarchical_gossip`` bit for bit and to the global node mean within
+   1e-5, the int8 mix through the kernels within 2% of it, and each int8
+   level through the kernels within the fused/unfused bound of the plain
+   versions on the same input; (b) one per-leaf compressed round
+   (``tdm_fla_round(fused=False)``) of each of int8 and top-k over the int8
+   run's params: finite, 2 gathers per matching per leaf, int8 within 2% of
+   the same algebra unquantized; (c) ``run_constellation_fl(optimize="rate")``
+   on slice 1's scenario, 3 rounds uncompressed: each round's relation a
+   matching of its step's visibility relation, losses finite, gathers equal
+   to the oracle. Prints round, local-step and exchange seconds, peak
+   memory, each per-leaf mode's seconds and the ``fl.build_schedule``
+   seconds;
 7. timing: the six exchange kernels at slice 1's shape (see 3; top-k and
    the scatter at the CHOCO round's k, on their select paths) and, logged
    beside them, the select path at k = TOPK_SELECT_MAX_K and the sort and
@@ -183,6 +205,11 @@ SLICE_SEQ = 256             # tokens per row; 4 rows per node and local step
 GS_CONFIGS = (("none", 1, 0), ("int8", 1, 0), ("int8", 2, 1))
 GS_ROUNDS = 3
 GS_KERNELS = {"none": (), "int8": ("quantize_scaled", "quantize", "dequant_accumulate")}
+# slice 8: two-level FL, pod = orbital plane of ShellSpec(planes=2, per_plane=4)
+HIER_PODS, HIER_DATA = 2, 4
+HIER_ROUNDS = 3
+HIER_KERNELS = {"none": (), "int8": ("quantize", "dequant_accumulate")}
+OPT_ROUNDS = 3
 # serving (slice 3): mamba2-780m at its published config, all 48 layers
 SERVE_ARCH = "mamba2-780m"
 SERVE_LAYERS = 48
@@ -849,6 +876,268 @@ def phase_groundseg(device) -> dict:
     _compare_groundseg_exchange(params, scn)
     del params
     torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# slice 8: the rest of the paper's exchange layer
+# ---------------------------------------------------------------------------
+
+def _hier_rels():
+    """The reference worker's relations: a clique of the 4 satellites of a
+    plane, and the one link between the 2 planes."""
+    from repro_torch.core.relation import Relation
+
+    return (Relation.clique(list(range(HIER_DATA))),
+            Relation.from_edges([(0, 1)], nodes=range(HIER_PODS)))
+
+
+def _fl_setup(device):
+    from repro_torch.launch import fl_train
+    from repro_torch.launch import train_fl_constellation as tfc
+
+    cfg, opt_cfg, shape, scn = tfc.setup(tfc.N_SATS, SLICE_ROUNDS, layers=SLICE_LAYERS,
+                                         seq=SLICE_SEQ, full_width=True)
+    state = fl_train._stack_init(0, cfg, opt_cfg, tfc.N_SATS, device=device)
+    return cfg, opt_cfg, shape, scn, state
+
+
+def _rel_err(got, want) -> float:
+    return float((got - want).norm() / want.norm())
+
+
+def _check_hier_mix(params) -> None:
+    """One two-level mix of the trained params' buffer: uncompressed equal to
+    per-leaf ``hierarchical_gossip`` bit for bit and to the global node mean
+    within 1e-5 (the clique and the one inter-plane link average exactly);
+    int8 through the kernels within 2% of it; and each int8 level through the
+    kernels within the fused/unfused bound of the plain versions on the same
+    input (a level's last-bit differences may flip a code of the next one,
+    so the levels are compared apart)."""
+    import torch
+
+    from repro_torch.core import fused, tdm
+    from repro_torch.core.relation import Relation
+    from repro_torch.pytree import tree_map
+
+    intra, inter = _hier_rels()
+    none_intra = Relation.from_edges([], nodes=range(HIER_DATA))
+    none_inter = Relation.from_edges([], nodes=range(HIER_PODS))
+    spec = fused.cached_spec(params)
+    (bucket,) = spec.buckets
+    buf = fused.flatten_pytree(spec, params)[bucket]
+    none = fused.hierarchical_buffer_mix(buf, intra, inter, HIER_DATA, HIER_PODS)
+    per_leaf = tree_map(lambda x: tdm.hierarchical_gossip(x, intra, inter, HIER_DATA, HIER_PODS),
+                        params)
+    leaf_buf = fused.flatten_pytree(spec, per_leaf)[bucket]
+    del per_leaf
+    _assert_bits(none, leaf_buf, "two-level none mix vs per-leaf hierarchical_gossip")
+    del leaf_buf
+    mean = buf.mean(dim=0, keepdim=True)
+    mean_err = float((none - mean).abs().max() / mean.abs().max())
+    check(mean_err <= 1e-5, f"two-level none mix vs global mean: {mean_err:.3g} > 1e-5")
+    del mean
+    int8 = fused.hierarchical_buffer_mix(buf, intra, inter, HIER_DATA, HIER_PODS,
+                                         compression="int8", quant_impl="cuda")
+    err8 = _rel_err(int8, none)
+    check(err8 < 0.02, f"two-level int8 mix vs none: {err8:.4f} >= 2%")
+    whole = float((int8 - fused.hierarchical_buffer_mix(
+        buf, intra, inter, HIER_DATA, HIER_PODS, compression="int8", quant_impl="ref")
+    ).abs().max())
+    del int8, none
+    gaps = []
+    x = buf
+    for a, b, m in ((intra, none_inter, len(tdm.edge_coloring(intra))),
+                    (none_intra, inter, len(tdm.edge_coloring(inter)))):
+        got = fused.hierarchical_buffer_mix(x, a, b, HIER_DATA, HIER_PODS,
+                                            compression="int8", quant_impl="cuda")
+        want = fused.hierarchical_buffer_mix(x, a, b, HIER_DATA, HIER_PODS,
+                                             compression="int8", quant_impl="ref")
+        check(_mix_bound_ok(got, want, x, m), "two-level int8 level, kernels vs plain, "
+              "outside the bound")
+        gaps.append(float((got - want).abs().max()))
+        del got
+        x = want
+    del x, want, buf
+    torch.cuda.empty_cache()
+    log(f"[slice8] two-level mix of the trained params: none == per-leaf "
+        f"hierarchical_gossip bit for bit, vs the global mean {mean_err:.3g} (<= 1e-5); "
+        f"int8 vs none {err8:.4f} (< 2%); int8 kernels vs plain per level max |diff| "
+        f"{gaps[0]:.3g} / {gaps[1]:.3g} (within the bound), whole round {whole:.3g}")
+
+
+def _hier_fl(device) -> tuple:
+    """Two-level FL through ``build_hierarchical_fl_round``: 3 rounds each of
+    none and int8 from the same start, the counters zeroed around each.
+    Returns (launches per kernel, the int8 run's params)."""
+    import math
+
+    import torch
+
+    from repro_torch import telemetry
+    from repro_torch.core import tdm
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+    from repro_torch.launch import fl_train
+    from repro_torch.launch import train_fl_constellation as tfc
+
+    intra, inter = _hier_rels()
+    launches = {name: 0 for name in kern.LAUNCHES}
+    params = None
+    for mode in ("none", "int8"):
+        params = None
+        torch.cuda.empty_cache()
+        cfg, opt_cfg, shape, _, state = _fl_setup(device)
+        batch_fn = tfc.make_batch_fn(cfg, shape, tfc.N_SATS)
+        fn = fl_train.build_hierarchical_fl_round(
+            cfg, opt_cfg, HIER_PODS, HIER_DATA,
+            fl_train.FLConfig(mode="tdm", local_steps=tfc.LOCAL_STEPS, compression=mode),
+            intra, inter)
+        oracle = telemetry.expected_hierarchical_collectives(
+            intra, inter, 1, compression=mode)["collective-permute"]
+        with telemetry.record_scope(tracing=True) as rec:
+            kern.reset_launch_counts()
+            for rnd in range(HIER_ROUNDS):
+                batch = fl_train.batch_to_device(batch_fn(rnd), device)
+                torch.cuda.reset_peak_memory_stats(device)
+                before = tdm.gather_count()
+                with rec.span("fl.round", cat="slot", round=rnd):
+                    state, losses = fn(state, batch)
+                    torch.cuda.synchronize(device)
+                gathers = tdm.gather_count() - before
+                loss = float(losses.mean())
+                span = {sp.name: sp.dur_us / 1e6 for sp in rec.spans[-3:]}
+                log(f"[slice8] two-level {mode:<4} round {rnd}  loss {loss:.4f}  round "
+                    f"{span['fl.round']:.3f} s (local steps {span['fl.local_steps']:.3f} s, "
+                    f"exchange {span['fl.exchange']:.3f} s)  gathers {gathers} (oracle "
+                    f"{oracle})  max mem {torch.cuda.max_memory_allocated(device) / 2**30:.1f} GiB")
+                check(math.isfinite(loss) and bool(torch.isfinite(losses).all()),
+                      f"two-level {mode} round {rnd}: non-finite loss")
+                check(gathers == oracle, f"two-level {mode} round {rnd}: {gathers} gathers, "
+                      f"the oracle expects {oracle}")
+            counts = kern.launch_counts()
+        log(f"[slice8] two-level {mode}: launches {counts}")
+        for name in kern.LAUNCHES:
+            if name in HIER_KERNELS[mode]:
+                check(counts[name] > 0, f"two-level {mode}: kernel {name} never launched")
+            else:
+                check(counts[name] == 0, f"two-level {mode}: kernel {name} launched unexpectedly")
+            launches[name] += counts[name]
+        params = state["params"]
+        del state, fn
+        torch.cuda.empty_cache()
+        if mode == "none":
+            _check_hier_mix(params)
+    return launches, params
+
+
+def _per_leaf_exchange(params, rel) -> None:
+    """One per-leaf compressed round (``tdm_fla_round(fused=False)``) of each
+    of int8 and top-k over the trained params: finite, 2 gathers per
+    matching per leaf (int8: codes and scale; CHOCO: values and indices), and
+    per-leaf int8 within 2% of the same algebra unquantized."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import fl, tdm
+    from repro_torch.pytree import tree_leaves
+
+    leaves = tree_leaves(params)
+    m = len(tdm.edge_coloring(rel))
+    k = min(64, min(leaf[0].numel() for leaf in leaves))
+    for comp in ("int8", "topk"):
+        cfg = fl.TDMFLAConfig(compression=comp, topk_k=k, fused=False)
+        torch.cuda.synchronize()
+        before = tdm.gather_count()
+        t0 = time.perf_counter()
+        mixed, _ = fl.tdm_fla_round(params, rel, SLICE_NODES, cfg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        gathers = tdm.gather_count() - before
+        out = tree_leaves(mixed)
+        finite = all(bool(torch.isfinite(t).all()) for t in out)
+        check(finite, f"per-leaf {comp}: non-finite result")
+        check(gathers == 2 * m * len(leaves), f"per-leaf {comp}: {gathers} gathers, the "
+              f"reference's code issues {2 * m * len(leaves)} (2 per matching per leaf)")
+        note = ""
+        if comp == "int8":
+            w = float(np.float32(1.0 / (1.0 + rel.max_degree())))
+            num = den = 0.0
+            for x, got in zip(leaves, out):
+                deg = tdm.node_scalars([rel.degree(v) for v in range(SLICE_NODES)], x)
+                want = x + w * (tdm.neighbor_sum(x, rel) - deg * x)
+                num += float((got - want).double().norm()) ** 2
+                den += float(want.double().norm()) ** 2
+            err = (num / den) ** 0.5
+            check(err < 0.02, f"per-leaf int8 vs the unquantized algebra: {err:.4f} >= 2%")
+            note = f", vs the same algebra unquantized {err:.4f} (< 2%)"
+        del mixed, out
+        torch.cuda.empty_cache()
+        log(f"[slice8] per-leaf {comp} round over {len(leaves)} leaves ({m} matchings"
+            f"{', k ' + str(k) if comp == 'topk' else ''}): {secs:.3f} s, gathers {gathers} "
+            f"(2 x {m} x {len(leaves)}), finite{note}")
+
+
+def _optimized_fl(device) -> None:
+    """``run_constellation_fl(optimize="rate")`` on slice 1's scenario, 3
+    rounds uncompressed: one round per sub-slot of the optimizer's schedule
+    (one antenna per satellite), each a matching of its step's visibility
+    relation; the driver holds every round's gathers to the oracle."""
+    import math
+
+    import torch
+
+    from repro_torch import telemetry
+    from repro_torch.launch import fl_train
+    from repro_torch.launch import train_fl_constellation as tfc
+
+    cfg, opt_cfg, shape, scn, state = _fl_setup(device)
+    sched = scn.plan.schedule(payload_bytes=tfc.PAYLOAD_BYTES, optimize="rate")
+    with telemetry.record_scope(tracing=True) as rec:
+        t0 = time.perf_counter()
+        state, logs = fl_train.run_constellation_fl(
+            cfg, opt_cfg, tfc.N_SATS, fl_train.FLConfig(mode="tdm", local_steps=tfc.LOCAL_STEPS),
+            scn.plan, state, tfc.make_batch_fn(cfg, shape, tfc.N_SATS), rounds=OPT_ROUNDS,
+            optimize="rate", payload_bytes=tfc.PAYLOAD_BYTES)
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+    build = [sp.dur_us / 1e6 for sp in rec.spans if sp.name == "fl.build_schedule"]
+    rounds = [sp.dur_us / 1e6 for sp in rec.spans if sp.name == "fl.round"]
+    gathers = rec.get_counter("fl.exchange.gathers")
+    oracle = rec.get_counter("fl.collectives.collective-permute")
+    slots = list(sched.slots)[:OPT_ROUNDS]
+    check(len(logs) == OPT_ROUNDS == len(slots) and len(build) == 1,
+          f"optimized FL: {len(logs)} rounds, {len(build)} schedule builds")
+    for lg, slot in zip(logs, slots):
+        rel = slot.relation
+        check(rel.is_matching() and rel.pairs <= scn.plan.relation(slot.t_index).pairs
+              and lg.n_links == len(rel) // 2,
+              f"optimized FL round {lg.round}: not a matching of step {slot.t_index}'s "
+              "visibility relation")
+        check(math.isfinite(lg.loss), f"optimized FL round {lg.round}: non-finite loss")
+    check(gathers == oracle, f"optimized FL: {gathers:g} gathers, oracle {oracle:g}")
+    log(f"[slice8] optimize=rate: schedule built in {build[0]:.3f} s (fl.build_schedule), "
+        f"{len(sched)} sub-slots over {len(scn.plan.times)} steps; rounds "
+        + ", ".join(f"{lg.round}: step {s.t_index}, {lg.n_links} links, loss {lg.loss:.4f}, "
+                    f"{r:.3f} s" for lg, s, r in zip(logs, slots, rounds))
+        + f"; gathers {gathers:g} (oracle {oracle:g}); {wall:.1f} s in all")
+    del state
+    torch.cuda.empty_cache()
+
+
+def phase_paper_exchange(device) -> dict:
+    """Slice 8: two-level FL, the per-leaf compressed exchange on its
+    params, and FL on the optimizer's schedule. Returns the launches per
+    kernel of the two-level runs."""
+    import torch
+
+    from repro_torch.launch import train_fl_constellation as tfc
+
+    launches, params = _hier_fl(device)
+    scn = tfc.setup(tfc.N_SATS, SLICE_ROUNDS)[3]
+    _per_leaf_exchange(params, scn.plan.relations()[0])
+    del params
+    torch.cuda.empty_cache()
+    _optimized_fl(device)
     return launches
 
 
@@ -2039,9 +2328,12 @@ def main() -> int:
     mark("slice 1")
     gs_launches = phase_groundseg(device)
     mark("slice 2")
+    hier_launches = phase_paper_exchange(device)
+    mark("slice 8")
     kernels = phase_kernels_slice(device, buf, k_b, dev["card"])
     for row in kernels:
-        row["launches"] = launches[row["name"]] + gs_launches[row["name"]]
+        row["launches"] = (launches[row["name"]] + gs_launches[row["name"]]
+                           + hier_launches[row["name"]])
     del buf
     torch.cuda.empty_cache()
     ssd_row = phase_ssd_slice(device, dev["card"])

@@ -212,12 +212,27 @@ def int8_gossip(
     """
     if len(rel) == 0:
         return x
-    impl = _resolve_impl(impl, x)
     diag, per_matching = tdm.matching_weight_vectors(rel, n)
+    return int8_gossip_matchings(
+        x, diag, tdm.edge_coloring(rel), per_matching, block=block, impl=impl
+    )
+
+
+def int8_gossip_matchings(
+    x: torch.Tensor,
+    diag,
+    matchings,
+    per_matching,
+    *,
+    block: int = DEFAULT_BLOCK,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """:func:`int8_gossip` over given matchings and per-row weight vectors."""
+    impl = _resolve_impl(impl, x)
     x32 = x.to(torch.float32)
     q, scales = ops.quantize(x32, block=block, impl=impl)
     acc = torch.zeros_like(x32)
-    for m, w_m in zip(tdm.edge_coloring(rel), per_matching):
+    for m, w_m in zip(matchings, per_matching):
         q_r = tdm.exchange_matching(q, m)
         s_r = tdm.exchange_matching(scales, m)
         acc = ops.dequant_accumulate(
@@ -376,3 +391,84 @@ def fused_tdm_fla_round(
         )
         del buf
     return unflatten_pytree(spec, mixed), res_out
+
+
+# ---------------------------------------------------------------------------
+# Two-level (pod x data) gossip on fused buffers
+# ---------------------------------------------------------------------------
+
+_HIERARCHICAL_COMPRESSIONS = ("none", "int8")
+
+
+def hierarchical_buffer_mix(
+    buf: torch.Tensor,
+    intra_rel: Relation,
+    inter_rel: Relation,
+    n_data: int,
+    n_pods: int,
+    *,
+    compression: str = "none",
+    block: int = DEFAULT_BLOCK,
+    quant_impl: str = "auto",
+) -> torch.Tensor:
+    """Two-level TDM mixing of one ``(n_pods * n_data, padded)`` buffer:
+    gossip within each pod over ``intra_rel``, then between pods over
+    ``inter_rel`` (:func:`repro_torch.core.tdm.hierarchical_gossip` on the
+    fused engine). Row ``pod * n_data + data`` is a node; each level's
+    matchings are coloured at the level's size and lifted onto the rows
+    (:func:`repro_torch.core.tdm.level_weight_vectors`), so one gather
+    serves every pod at once. Under int8 each level quantizes once and each
+    of its matchings ships codes and scales through one dequant-accumulate
+    pass.
+
+    ``compression`` is ``"none"`` or ``"int8"``: top-k/CHOCO state is tied
+    to one fixed relation and does not fit a two-level schedule.
+    """
+    if compression not in _HIERARCHICAL_COMPRESSIONS:
+        raise ValueError(
+            "hierarchical gossip compression must be one of "
+            f"{_HIERARCHICAL_COMPRESSIONS}, got {compression!r} (topk/CHOCO "
+            "state is tied to one fixed relation, not a two-level schedule)"
+        )
+    for rel, level in ((intra_rel, "data"), (inter_rel, "pod")):
+        if len(rel) == 0:
+            continue
+        diag, matchings, per_matching = tdm.level_weight_vectors(rel, level, n_data, n_pods)
+        if compression == "int8":
+            buf = int8_gossip_matchings(
+                buf, diag, matchings, per_matching, block=block, impl=quant_impl
+            )
+        else:
+            buf = tdm.gossip_matchings(buf, diag, matchings, per_matching)
+    return buf
+
+
+def fused_hierarchical_round(
+    params: Any,
+    intra_rel: Relation,
+    inter_rel: Relation,
+    n_data: int,
+    n_pods: int,
+    *,
+    compression: str = "none",
+    block: int = DEFAULT_BLOCK,
+    quant_impl: str = "auto",
+) -> Any:
+    """Two-level (pod x data) TDM round over a whole stacked pytree: flatten
+    once, mix each dtype bucket at both levels, unflatten. ``"none"`` is
+    bit-identical to per-leaf :func:`repro_torch.core.tdm.hierarchical_gossip`;
+    a round issues ``(M_intra + M_inter) x per x n_buckets`` gathers with
+    ``per = 2`` for int8
+    (:func:`repro_torch.telemetry.expected_hierarchical_collectives`).
+    """
+    spec = cached_spec(params, block=block)
+    buffers = flatten_pytree(spec, params)
+    mixed = {}
+    for bucket in spec.buckets:
+        buf = buffers.pop(bucket)
+        mixed[bucket] = hierarchical_buffer_mix(
+            buf, intra_rel, inter_rel, n_data, n_pods,
+            compression=compression, block=block, quant_impl=quant_impl,
+        )
+        del buf
+    return unflatten_pytree(spec, mixed)

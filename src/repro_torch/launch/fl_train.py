@@ -23,6 +23,9 @@ returns, so CHOCO restarts from zeros every round.
 Each round checks that the row gathers it issued equal the static oracle
 :func:`repro_torch.telemetry.expected_tdm_collectives` (the reference checks
 its compiled HLO's collective-permutes against the same oracle).
+:func:`build_hierarchical_fl_round` is the two-level (pod x data) round, and
+``run_constellation_fl(optimize=...)`` runs on the schedule optimizer's
+antenna-constrained schedule instead of the raw visibility relations.
 
 The ground-segment half (:func:`run_groundseg_fl`) drives sink-based FL:
 satellites train, their params relay to ground sinks along contact-graph
@@ -161,6 +164,52 @@ def build_fl_round(
     return fl_round
 
 
+def build_hierarchical_fl_round(
+    cfg: ModelConfig,
+    opt_cfg: adamw.OptConfig,
+    n_pods: int,
+    n_data: int,
+    fl_cfg: FLConfig,
+    intra_rel: Relation,
+    inter_rel: Relation,
+) -> Callable:
+    """One two-level (pod x data) FL round: ``local_steps`` AdamW steps per
+    node, then one fused two-level mix
+    (:func:`repro_torch.core.fused.fused_hierarchical_round`): ``intra_rel``
+    over the ``n_data`` nodes of each pod, then ``inter_rel`` across the
+    ``n_pods`` pods. Node row ``pod * n_data + data`` (pod-major, the
+    reference's ``P(("pod", "data"))``). ``fl_cfg.compression`` is ``"none"``
+    or ``"int8"`` (the ``tdm_compress`` kernels on CUDA tensors; 2 gathers per
+    matching per bucket, the
+    :func:`repro_torch.telemetry.expected_hierarchical_collectives` oracle).
+    The contract is :func:`build_fl_round`'s: ``(stacked_state,
+    stacked_batch) -> (stacked_state, losses (n,))``, the state updated in
+    place."""
+    b = registry.bundle(cfg)
+    if fl_cfg.compression not in ("none", "int8"):
+        raise ValueError(
+            f"hierarchical FL supports compression 'none'/'int8', "
+            f"got {fl_cfg.compression!r}"
+        )
+
+    def fl_round(state, batch):
+        rec = telemetry.get_recorder()
+        params = state["params"]
+        with rec.span("fl.local_steps", cat="compute"):
+            local_loss = local_train(b, opt_cfg, state, batch, fl_cfg.local_steps)
+            _sync_if_tracing(rec, params)
+        with rec.span("fl.exchange", cat="exchange"), torch.no_grad():
+            mixed = fused.fused_hierarchical_round(
+                params, intra_rel, inter_rel, n_data, n_pods,
+                compression=fl_cfg.compression,
+            )
+            tree_map(lambda dst, src: dst.copy_(src), params, mixed)
+            _sync_if_tracing(rec, params)
+        return state, local_loss
+
+    return fl_round
+
+
 def _rel_key(rel: Relation):
     return tuple(sorted(rel.pairs))
 
@@ -286,17 +335,40 @@ def run_constellation_fl(
     alive: Optional[set] = None,
     on_round: Optional[Callable[[RoundLog], None]] = None,
     optimize: Optional[str] = None,
+    antennas=None,
+    payload_bytes: int = 1 << 20,
+    acquisition_s: float = 0.0,
     log_every: int = 1,
 ):
     """Constellation-driven FL: one round per contact-plan time step; the
-    plan repeats when ``rounds`` exceeds its horizon. Only the raw per-step
-    visibility relations (``optimize=None``) are ported."""
-    if optimize is not None:
-        raise NotImplementedError(
-            f"optimize={optimize!r}: antenna-constrained schedule optimization "
-            "is not ported yet (ROADMAP queue 1, constellation optimizer)"
-        )
-    relations = plan.relations()
+    plan repeats when ``rounds`` exceeds its horizon.
+
+    ``optimize`` switches the rounds from the raw per-step visibility
+    relations to a materialized antenna-constrained ``ContactSchedule``:
+    ``"greedy"`` for the first legal colouring, ``"rate"`` for the cheapest
+    schedule of the optimizer's portfolio
+    (:mod:`repro_torch.constellation.optimizer`), built under the
+    ``fl.build_schedule`` span; one round then runs per sub-slot.
+    ``antennas``, ``payload_bytes`` and ``acquisition_s`` size and price the
+    schedule. With zero slew penalty and an antenna budget that covers each
+    step's degree, greedy and rate emit the same relations, so training is
+    bit for bit the same. A plan with no feasible contacts falls back to the
+    per-step relations (all empty): local training continues."""
+    if optimize is None:
+        relations = plan.relations()
+    else:
+        with telemetry.get_recorder().span(
+            "fl.build_schedule", cat="schedule", optimize=optimize
+        ):
+            sched = plan.schedule(
+                antennas=antennas,
+                payload_bytes=payload_bytes,
+                optimize=optimize,
+                acquisition_s=acquisition_s,
+            )
+        relations = list(sched.tdm)
+        if not relations:
+            relations = plan.relations()
     if rounds is not None:
         reps = -(-rounds // max(len(relations), 1))
         relations = (relations * reps)[:rounds]
@@ -546,13 +618,10 @@ def run_groundseg_fl(
     functions per (alive set, pool flag). Every round's gathers and
     reductions are held against :func:`aggregation.expected_collectives`.
     When ``gs_cfg.pipelined`` the multi-window engine drives the loop.
-    Only the greedy schedule (``optimize`` None or "greedy") is ported.
+    ``optimize`` picks the schedule as :meth:`ContactPlan.schedule` does
+    (None or "greedy": the first legal colouring; "rate" or a strategy
+    name: :mod:`repro_torch.constellation.optimizer`).
     Returns ``(state, [GroundSegRoundLog, ...])``."""
-    if optimize not in (None, "greedy"):
-        raise NotImplementedError(
-            f"optimize={optimize!r}: the schedule optimizer is not ported yet "
-            "(ROADMAP queue 1)"
-        )
     sinks_s = frozenset(int(s) for s in sinks)
     if not sinks_s:
         raise ValueError("run_groundseg_fl needs at least one sink node id")
@@ -806,6 +875,9 @@ class ConstellationRun:
     alive: Optional[set] = None
     on_round: Optional[Callable[[RoundLog], None]] = None
     optimize: Optional[str] = None
+    antennas: Any = None
+    payload_bytes: int = 1 << 20
+    acquisition_s: float = 0.0
     log_every: int = 1
 
 
@@ -867,7 +939,8 @@ def run(run_cfg) -> RunResult:
             run_cfg.plan, run_cfg.state, run_cfg.batch_fn,
             rounds=run_cfg.rounds, alive=run_cfg.alive,
             on_round=run_cfg.on_round, optimize=run_cfg.optimize,
-            log_every=run_cfg.log_every,
+            antennas=run_cfg.antennas, payload_bytes=run_cfg.payload_bytes,
+            acquisition_s=run_cfg.acquisition_s, log_every=run_cfg.log_every,
         )
         return RunResult("constellation", state, logs)
     if isinstance(run_cfg, GroundSegRun):

@@ -9,7 +9,7 @@ insertion order, hence the explicit sort.)
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 
 class TreeDef:
@@ -39,17 +39,21 @@ def _is_namedtuple(x) -> bool:
     return isinstance(x, tuple) and hasattr(x, "_fields")
 
 
-def _flatten_into(t: Any, leaves: List[Any]) -> TreeDef:
+def _flatten_into(t: Any, leaves: List[Any], is_leaf=None) -> TreeDef:
+    if is_leaf is not None and is_leaf(t):
+        leaves.append(t)
+        return TreeDef("leaf")
     if t is None:
         return TreeDef("none")
     if isinstance(t, dict):
         keys = tuple(sorted(t))
-        return TreeDef("dict", keys, tuple(_flatten_into(t[k], leaves) for k in keys))
+        return TreeDef("dict", keys, tuple(_flatten_into(t[k], leaves, is_leaf) for k in keys))
     if _is_namedtuple(t):
-        return TreeDef("namedtuple", type(t), tuple(_flatten_into(c, leaves) for c in t))
+        return TreeDef("namedtuple", type(t),
+                       tuple(_flatten_into(c, leaves, is_leaf) for c in t))
     if isinstance(t, (list, tuple)):
         kind = "list" if isinstance(t, list) else "tuple"
-        return TreeDef(kind, len(t), tuple(_flatten_into(c, leaves) for c in t))
+        return TreeDef(kind, len(t), tuple(_flatten_into(c, leaves, is_leaf) for c in t))
     leaves.append(t)
     return TreeDef("leaf")
 
@@ -70,9 +74,12 @@ def _build(td: TreeDef, it) -> Any:
 # Module-level recursion on purpose: a recursive closure is a reference
 # cycle that would keep every leaf it saw (multi-GB tensors) alive until the
 # cyclic garbage collector happens to run.
-def tree_flatten(tree: Any) -> Tuple[List[Any], TreeDef]:
+def tree_flatten(tree: Any, is_leaf: Optional[Callable[[Any], bool]] = None
+                 ) -> Tuple[List[Any], TreeDef]:
+    """Leaves and structure; ``is_leaf(node)`` true stops the descent there
+    (``jax.tree.flatten``'s ``is_leaf``)."""
     leaves: List[Any] = []
-    treedef = _flatten_into(tree, leaves)
+    treedef = _flatten_into(tree, leaves, is_leaf)
     return leaves, treedef
 
 

@@ -1,5 +1,5 @@
 """Flight-recorder telemetry (counters, spans, events, histograms), the
-exchange-count oracle, and the route-provenance auditor
+exchange-count oracles, and the route-provenance auditor
 (:func:`audit_window_programs`). Stdlib and numpy only."""
 
 from repro_torch.telemetry.audit import (
@@ -19,7 +19,10 @@ from repro_torch.telemetry.metrics import (
     ratio_gauge,
     set_gauge,
 )
-from repro_torch.telemetry.reconcile import expected_tdm_collectives
+from repro_torch.telemetry.reconcile import (
+    expected_hierarchical_collectives,
+    expected_tdm_collectives,
+)
 from repro_torch.telemetry.recorder import (
     Event,
     Recorder,
@@ -43,6 +46,7 @@ __all__ = [
     "audit_recorder",
     "audit_window_programs",
     "counters_snapshot",
+    "expected_hierarchical_collectives",
     "expected_sink_weights",
     "expected_tdm_collectives",
     "get_gauge",

@@ -177,30 +177,53 @@ def test_get_meas_bitwise(ref, name):
 
 @pytest.mark.parametrize("name", sorted(EDGES))
 def test_get_meas_matches_paper_simulator(name):
-    """getMeas against the paper-faithful message-passing simulator, and
-    get1meas slot by slot over the relation's matchings."""
-    from repro.core.ptbfla_sim import run_schedule_get1meas, run_schedule_getmeas
-    from repro.core.relation import Relation as JRel
-    from repro.core.schedule import TDMSchedule
+    """getMeas against the port's paper-faithful message-passing simulator,
+    and get1meas slot by slot over the relation's matchings."""
     from repro_torch.core import tdm
+    from repro_torch.core.ptbfla_sim import run_schedule_get1meas, run_schedule_getmeas
+    from repro_torch.core.schedule import TDMSchedule
 
     x, _ = _inputs()
     rel = _rel(name)
-    jrel = JRel.from_edges(EDGES[name], nodes=range(N))
-    got, _ = run_schedule_getmeas(TDMSchedule((jrel,)), {i: x[i] for i in range(N)}, N)
+    got, _ = run_schedule_getmeas(TDMSchedule((rel,)), {i: x[i] for i in range(N)}, N)
     pd, mask = tdm.get_meas(_t(x), rel, N)
     for i in range(N):
         for p, j in enumerate(rel.peers_of(i)):
             assert bool(mask[i, p])
             np.testing.assert_array_equal(pd[i, p].numpy(), got[i][0][j])
     matchings = tdm.edge_coloring(rel)
-    sched = TDMSchedule(tuple(JRel.from_pairs(m.pairs, nodes=range(N)) for m in matchings))
+    sched = TDMSchedule(tuple(matchings))
     got1, _ = run_schedule_get1meas(sched, {i: x[i] for i in range(N)}, N)
     for t, m in enumerate(matchings):
         pd, _ = tdm.get1_meas(_t(x), m, N)
         for i in range(N):
             for j in m.peers_of(i):
                 np.testing.assert_array_equal(pd[i, 0].numpy(), got1[i][t][j])
+
+
+@pytest.mark.parametrize("name", sorted(EDGES))
+def test_simulator_copy_matches_reference_simulator(name):
+    """The port's simulator delivers what the reference's delivers, on the
+    same relation, data and seed, bit for bit."""
+    from repro.core.ptbfla_sim import run_schedule_getmeas as j_run
+    from repro.core.relation import Relation as JRel
+    from repro.core.schedule import TDMSchedule as JSched
+    from repro_torch.core.ptbfla_sim import run_schedule_getmeas
+    from repro_torch.core.schedule import TDMSchedule
+
+    x, _ = _inputs()
+    data = {i: x[i] for i in range(N)}
+    got, sim = run_schedule_getmeas(TDMSchedule((_rel(name),)), data, N, seed=3)
+    want, j_sim = j_run(JSched((JRel.from_edges(EDGES[name], nodes=range(N)),)), data, N, seed=3)
+    assert sorted(got) == sorted(want)
+    for i in want:
+        assert sorted(got[i]) == sorted(want[i])
+        for t in want[i]:
+            assert list(got[i][t]) == list(want[i][t])
+            for j in want[i][t]:
+                np.testing.assert_array_equal(got[i][t][j], want[i][t][j])
+    assert [(n.n_sent, n.n_received, n.n_buffered) for n in sim.nodes] == [
+        (n.n_sent, n.n_received, n.n_buffered) for n in j_sim.nodes]
 
 
 @pytest.mark.slow
