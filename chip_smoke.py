@@ -135,6 +135,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    to the oracle. Prints round, local-step and exchange seconds, peak
    memory, each per-leaf mode's seconds and the ``fl.build_schedule``
    seconds;
+6c. slice 9, dense training (after the exchange kernels' timings, so the
+   FL buffer is freed): (a) ``flash_attention_bwd`` and the forward's lse
+   against their plain versions (``kernels/flash_attention/cases.py``, f32
+   and bf16, windows with edges inside tiles, one biting at S 1024, G 1-4
+   and MQA, head dims 16-256, ragged S), each case twice and
+   bit-identical; (b) gemma2-9b at its published widths with 8 of 42
+   layers through ``launch/steps.build_train_step`` on ``SyntheticStream``
+   at S 4096 (train_4k's sequence), batch 2, 4 steps with
+   ``launch/train.py``'s ``OptConfig``, the launch counters zeroed just
+   before and read just after: per step the loss, grad norm, host step
+   time and tokens/s, the peak memory, the attention launches against
+   their oracle (remat: 2 forward and 1 backward per attention layer and
+   step), every loss finite and the loss of step 0's batch lower after the
+   4 steps than before, then one more step under ``torch.profiler`` (device
+   time by kind); (c) on the smoke config a micro-2 step on the card
+   against the CPU and a checkpoint round trip on the card, bit for bit;
+   then ``flash_attention_bwd`` at the cell's shape against its plain
+   version, timed beside its bound and flex_attention's backward;
 7. timing: the six exchange kernels at slice 1's shape (see 3; top-k and
    the scatter at the CHOCO round's k, on their select paths) and, logged
    beside them, the select path at k = TOPK_SELECT_MAX_K and the sort and
@@ -196,6 +214,8 @@ REPLACES = {
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:80",
     "flash_attention_fwd": "src/repro/kernels/flash_attention/flash_attention.py:100",
     "flash_attention_decode": "src/repro/kernels/flash_attention/flash_attention.py:100",
+    # no Pallas kernel: the reference's backward is pure JAX under a custom_vjp
+    "flash_attention_bwd": "src/repro/models/attention.py:211",
 }
 SLICE_NODES = 8
 SLICE_LAYERS = 8            # mamba2-780m has 48; cut for memory (8 stacked nodes)
@@ -1990,6 +2010,7 @@ def phase_serving_dense(device, power_note: str) -> dict:
           f"{counts['flash_attention_fwd_wgmma']} of {fwd} prefill launches on tensor cores")
     others = {k: v for k, v in counts.items() if not k.startswith("flash_attention") and v}
     check(not others, f"other kernels on the gemma2 serving path: {others}")
+    check(counts["flash_attention_bwd"] == 0, "serving launched the attention backward")
     summ = res.report.summary()
     log(f"[{DENSE_TAG}] {summ['delivered']}/{summ['n_requests']} delivered x {SERVE_MAX_NEW} "
         f"tokens, audit OK ({res.verdict.n_hops} hops), {summ['retries']} retries; "
@@ -2287,6 +2308,340 @@ def phase_fa_slice(device, power_note: str) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# dense training (slice 9): gemma2-9b through launch/steps.py
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "gemma2-9b"
+TRAIN_LAYERS = 8            # gemma2-9b has 42; cut for memory (f32 params, grads, AdamW mu, nu)
+TRAIN_SEQ = 4096            # the published train_4k shape's sequence
+TRAIN_BATCH = 2             # train_4k's global batch of 256, cut to one card
+TRAIN_STEPS = 4
+TRAIN_TAG = "dense-train"
+FA_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 16, 8, 256)            # (B, S, H, KV, hd)
+
+
+def _train_kernel_cases(device) -> None:
+    """(a) ``flash_attention_bwd`` and the forward's lse against their plain
+    versions (``kernels/flash_attention/cases.py``, which the card tests
+    run too), f32 and bf16, each case launched twice and bit-identical."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import cases
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in cases.BWD_CASES:
+            try:
+                errs = cases.check_bwd_case(case, dtype, device)
+            except AssertionError as exc:
+                raise SmokeFailure(f"training attention: {exc}") from exc
+            for k, v in errs.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+    log(f"[{TRAIN_TAG}] {2 * len(cases.BWD_CASES)} training attention cases (hd 16-256, "
+        f"G 1-4 and MQA, causal, windows 5-256 with edges inside tiles and one biting at S "
+        f"1024, softcap 50 and none, ragged S 33-300, f32 and bf16): each launched twice "
+        f"bit-identical; lse within 1e-5 of max(|lse|, 1) of the plain lse, the output within "
+        f"fa_tolerance, dq / dk / dv within bwd_tolerance (1e-4 of each tensor's scale, plus "
+        f"one bf16 ulp in bf16) of ref.attention_bwd_ref; max |diff| " + ", ".join(
+            f"{k} {v:.3g}" for k, v in worst.items()))
+
+
+def _train_cell(device, power_note: str) -> dict:
+    """(b) gemma2-9b at its published widths, 8 of 42 layers, through
+    ``launch/steps.build_train_step`` on ``SyntheticStream`` at S 4096,
+    batch 2, 4 steps with ``launch/train.py``'s OptConfig defaults. Returns
+    the launch counts of the 4 steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import archs
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kern
+    from repro_torch.launch import steps
+    from repro_torch.launch.fl_train import batch_to_device
+    from repro_torch.models import registry, transformer
+    from repro_torch.models.config import SHAPES, ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.pytree import tree_leaves
+
+    cfg = archs.get(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS)
+    base = SHAPES["train_4k"]
+    check(base.seq_len == TRAIN_SEQ, f"train_4k's sequence is {base.seq_len}")
+    shape = ShapeConfig(base.name, base.kind, TRAIN_SEQ, TRAIN_BATCH)
+    opt_cfg = adamw.OptConfig(peak_lr=3e-3, warmup_steps=5, decay_steps=max(TRAIN_STEPS, 10))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = steps.init_state(0, cfg, opt_cfg, device)
+    torch.cuda.synchronize(device)
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    log(f"[{TRAIN_TAG}] {TRAIN_ARCH} at its published widths (d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, window {cfg.sliding_window}, softcaps {cfg.attn_softcap} / "
+        f"{cfg.final_softcap}), {cfg.n_layers} of 42 layers, remat {cfg.remat}: "
+        f"{n_params / 1e9:.3f} B params, state {_gib(torch.cuda.memory_allocated(device))} "
+        f"GiB, init {time.perf_counter() - t0:.1f} s")
+    train_step = steps.build_train_step(cfg, opt_cfg)
+    stream = pipeline.SyntheticStream(cfg, shape, seed=0)
+    batches = [batch_to_device(stream.batch(i), device) for i in range(TRAIN_STEPS + 1)]
+    attn_layers = sum(d.mixer == "attn" for d in transformer.scan_unit(cfg)) * \
+        transformer.n_units(cfg)
+    fa_kern.reset_launch_counts()
+    losses = []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batches[i])
+        torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        losses.append(loss)
+        log(f"[{TRAIN_TAG}] step {i}: loss {loss:.4f}, grad norm {gnorm:.4f}, lr "
+            f"{float(metrics['lr']):.2e}, host step time {dt:.3f} s (ends in "
+            f"torch.cuda.synchronize()), {TRAIN_BATCH * TRAIN_SEQ / dt:.0f} tokens/s  "
+            f"[{power_note}]")
+    counts = fa_kern.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    per_step = 2 if cfg.remat == "full" else 1
+    want = {"flash_attention_fwd": per_step * attn_layers * TRAIN_STEPS,
+            "flash_attention_fwd_wgmma": per_step * attn_layers * TRAIN_STEPS,
+            "flash_attention_bwd": attn_layers * TRAIN_STEPS, "flash_attention_decode": 0}
+    log(f"[{TRAIN_TAG}] launches in {TRAIN_STEPS} steps: " + ", ".join(
+        f"{k} {counts[k]} (oracle {want[k]})" for k in want) +
+        f"; peak {_gib(peak)} GiB of device memory")
+    check(counts == want, f"training launches {counts} != oracle {want}")
+    # the loss of step 0's batch again, after the 4 steps: each step's loss
+    # is on a fresh batch, and at random init the final softcap saturates the
+    # logits (a loss of ~40), so batch-to-batch spread (~0.5) hides 4 steps
+    # of progress; the same batch does not
+    loss_fn = registry.bundle(cfg).loss_fn
+    with torch.no_grad():
+        again = float(loss_fn(state["params"], batches[0])[0])
+        unseen = float(loss_fn(state["params"], batches[TRAIN_STEPS])[0])
+    log(f"[{TRAIN_TAG}] step 0's batch after {TRAIN_STEPS} steps: loss {again:.4f} "
+        f"(step 0: {losses[0]:.4f}); step {TRAIN_STEPS}'s batch, unseen: {unseen:.4f}")
+    check(all(l == l and abs(l) != float("inf") for l in losses + [again]),
+          f"non-finite training loss: {losses}, {again}")
+    check(again < losses[0], f"training loss did not fall on step 0's batch: {losses[0]} "
+          f"at init, {again} after {TRAIN_STEPS} steps")
+
+    # one more step under torch.profiler: device busy time by kind
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batches[TRAIN_STEPS])
+        torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+    busy, by_name = _device_busy(prof)
+    kinds = {"attention forward (fa_prefill)": 0.0, "attention backward (fa_bwd)": 0.0,
+             "GEMMs": 0.0, "casts and copies": 0.0, "elementwise and reductions": 0.0}
+    for name, (ms, _) in by_name.items():
+        low = name.lower()
+        if "fa_prefill" in name:
+            kinds["attention forward (fa_prefill)"] += ms
+        elif "fa_bwd" in name:
+            kinds["attention backward (fa_bwd)"] += ms
+        elif any(t in low for t in ("gemm", "xmma", "nvjet", "cutlass", "cublas")):
+            kinds["GEMMs"] += ms
+        elif "copy" in low or "memcpy" in low:
+            kinds["casts and copies"] += ms
+        else:
+            kinds["elementwise and reductions"] += ms
+    log(f"[{TRAIN_TAG}] profiled step {TRAIN_STEPS}: host {dt:.3f} s, device busy "
+        f"{busy / 1e3:.3f} s ({busy / 1e3 / dt:.1%}), by kind: " + ", ".join(
+            f"{k} {ms:.1f} ms" for k, ms in kinds.items()) + f"  [{power_note}]")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        short = name.replace("(anonymous namespace)::", "").split("(")[0][-70:]
+        log(f"[{TRAIN_TAG}]   {short}: {ms:.1f} ms in {n} launches")
+    del state, metrics, batches, prof
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _gib(nbytes: int) -> str:
+    return f"{nbytes / 2 ** 30:.2f}"
+
+
+def _train_smoke_paths(device) -> None:
+    """(c) on the gemma2-9b smoke config, f32 compute: one microbatched step
+    (micro 2) on the card against the same step on the CPU (the plain
+    path; ``cases.check_first_step``), and a checkpoint round trip on the
+    card (bf16 leaves and int8 AdamW moments included), restored equal bit
+    for bit."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.configs import archs
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.flash_attention import cases
+    from repro_torch.launch import steps
+    from repro_torch.launch.fl_train import batch_to_device
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.pytree import tree_leaves, tree_map
+
+    cfg = archs.smoke_cfg(archs.get(TRAIN_ARCH)).replace(compute_dtype="float32",
+                                                          micro_steps=2)
+    opt_cfg = adamw.OptConfig(peak_lr=3e-3, warmup_steps=5, decay_steps=10)
+    cpu = steps.init_state(0, cfg, opt_cfg, "cpu")
+    card = tree_map(lambda t: t.to(device), cpu)
+    batch = pipeline.SyntheticStream(cfg, ShapeConfig("c", "train", 40, 4), seed=3).batch(0)
+    step = steps.build_train_step(cfg, opt_cfg)
+    cpu, m_cpu = step(cpu, batch_to_device(batch, "cpu"))
+    card, m_card = step(card, batch_to_device(batch, device))
+    torch.cuda.synchronize(device)
+    total = sum(t.numel() for t in tree_leaves(cpu["params"]))
+    # f32 on both sides, sums in another order: the loss and the grad norm
+    # within 1e-5, each leaf's mu (0.1 * the clipped gradient) within 1e-5
+    # of its scale (as tests/test_torch_train.py holds the first step to
+    # the reference; measured on an H100: 9.0e-8, 1.5e-7 and 6.0e-7), each
+    # param entry within what that lets Adam's first step move it, and at
+    # most 1e-4 of the entries more than 1e-6 apart (a gradient entry
+    # within the tolerance of zero may flip its sign; measured 3)
+    try:
+        read = cases.check_first_step(card, m_card, cpu, m_cpu, opt_cfg, loss_rtol=1e-5,
+                                      gnorm_rtol=1e-5, mu_rtol=1e-5)
+    except AssertionError as exc:
+        raise SmokeFailure(f"micro-2 step card vs CPU: {exc}") from exc
+    log(f"[{TRAIN_TAG}] smoke config, micro 2 (S 40: the card's kernels on a ragged S, the "
+        f"CPU's naive path): loss {float(m_card['loss']):.6f} on the card, "
+        f"{float(m_cpu['loss']):.6f} on the CPU (rel {read['loss_rel']:.2e}); grad norm "
+        f"{float(m_card['grad_norm']):.6f} (rel {read['gnorm_rel']:.2e}); mu max |diff| "
+        f"{read['mu_frac']:.2e} of its leaf's scale; params max |diff| "
+        f"{read['param_gap']:.2e}, smallest slack to the bound {read['param_slack']:.2e}, "
+        f"{read['flips']} of {total} entries off by more than 1e-6")
+    check(read["flips"] <= 1e-4 * total, f"micro-2 step card vs CPU: {read['flips']} param "
+          f"entries of {total} off by more than 1e-6")
+
+    q_opt = adamw.OptConfig(dtype="int8")
+    tree = {"state": steps.init_state(1, cfg, q_opt, device),
+            "bf16": tree_map(lambda t: t.to(torch.bfloat16), card["params"])}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        ckpt_lib.save(d, 7, tree)
+        ckpt_lib.wait_all()
+        step_no, back = ckpt_lib.restore(d, target=tree, device=device)
+    same = all(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+               for a, b in zip(tree_leaves(back), tree_leaves(tree)))
+    log(f"[{TRAIN_TAG}] checkpoint round trip on the card (step {step_no}, "
+        f"{len(tree_leaves(tree))} leaves: f32 params, int8 AdamW moments with f32 scales, "
+        f"bf16 params, int32 counters): restored equal bit for bit: {same}")
+    check(step_no == 7 and same, "checkpoint round trip on the card differs")
+
+
+def _flex_bwd(q, k, v, g, cap: float):
+    """The library yardstick of the backward: ``flex_attention`` under
+    ``torch.compile`` (softcap ``score_mod``, causal ``block_mask``), its
+    autograd backward timed alone. Not the same function to the bit: flex
+    rounds p to bf16 before PV. Returns (a function running the backward,
+    None) or (None, the error). Never called by the port."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    try:
+        B, S, H, hd = q.shape
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+        gt = g.transpose(1, 2).contiguous()
+
+        def softcap(score, b, h, q_idx, kv_idx):
+            return cap * torch.tanh(score / cap)
+
+        def mask(b, h, q_idx, kv_idx):
+            return kv_idx <= q_idx
+
+        block_mask = create_block_mask(mask, None, None, S, S, device=q.device)
+        flex = torch.compile(flex_attention, dynamic=False)
+        out = flex(qt, kt, vt, score_mod=softcap, block_mask=block_mask, enable_gqa=True)
+
+        def run():
+            return torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+
+        run()
+        torch.cuda.synchronize()
+        return run, None
+    except Exception as exc:  # noqa: BLE001 - the yardstick may not build; say why
+        return None, f"{type(exc).__name__}: {str(exc).splitlines()[0][:300]}"
+
+
+def _train_bwd_row(device, power_note: str) -> dict:
+    """The ``flash_attention_bwd`` row at the cell's shape (B 2, S 4096, 16
+    heads / 8 kv heads x 256, causal, softcap 50, bf16): the kernel against
+    its plain version on the kernels' own (out, lse), once those are held
+    to ``ref.attention_ref`` and ``ref.attention_lse_ref``; CUDA-event
+    times of both and of the library call, the bound."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    B, S, H, KV, hd = FA_TRAIN
+    cap = 50.0
+    gen = torch.Generator(device=device).manual_seed(41)
+    q, k, v = _fa_inputs(gen, (B, S, H, hd), (B, S, KV, hd), torch.bfloat16, device)
+    g = torch.randn(B, S, H, hd, generator=gen, device=device).to(torch.bfloat16)
+    out, lse = ops.flash_attention(q, k, v, softcap=cap, impl="cuda", lse=True)
+    torch.cuda.synchronize()
+    # the forward's out and lse at this shape first: the backward below is
+    # compared on them, so a wrong lse would pass into both sides unseen
+    ok, out_err = ref.fa_close(out, ref.attention_ref(q, k, v, softcap=cap))
+    check(ok, f"flash_attention_fwd at the training shape: out outside fa_tolerance "
+              f"({out_err})")
+    ok, lse_err = ref.lse_close(lse, ref.attention_lse_ref(q, k, softcap=cap))
+    check(ok, f"flash_attention_fwd at the training shape: lse outside F32_RTOL of its "
+              f"scale ({lse_err})")
+    torch.cuda.empty_cache()
+    kernel = lambda: ops.flash_attention_bwd(q, k, v, out, lse, g, softcap=cap,  # noqa: E731
+                                             impl="cuda")
+    got = kernel()
+    want = ops.flash_attention_bwd(q, k, v, out, lse, g, softcap=cap, impl="ref")
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        ok, e = ref.bwd_close(a, w)
+        check(ok, f"flash_attention_bwd at the training shape: {name} outside "
+                  f"bwd_tolerance ({e})")
+        err = max(err, e)
+    del got, want
+    ms = time_ms(kernel, reps=5)
+    plain = time_ms(lambda: ops.flash_attention_bwd(q, k, v, out, lse, g, softcap=cap,
+                                                    impl="ref"), reps=2)
+    torch.cuda.empty_cache()
+    run, note = _flex_bwd(q, k, v, g, cap)
+    lib = None
+    if run is not None:
+        lib = time_ms(run, reps=5)
+        note = (f"{lib:.3f} ms by CUDA events (flex_attention's backward under torch.compile, "
+                f"softcap score_mod; it rounds p to bf16, so not the same function to the bit)")
+    flops = 5 * 2 * B * H * (S * (S + 1) // 2) * hd      # the causal triangle, five products
+    nbytes = 4 * B * S * H * hd * 2 + 4 * B * S * KV * hd * 2 + B * H * S * 4
+    op_ms, byte_ms = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(op_ms, byte_ms)
+    log(f"[kernels] flash_attention_bwd at (B {B}, S {S}, H {H}, KV {KV}, hd {hd}, causal, "
+        f"softcap {cap}, bf16): {ms:.3f} ms by CUDA events, bound {bound:.4f} ms "
+        f"({bound / ms:.2%}; {flops / 1e9:.1f} GFLOP -> {op_ms:.4f} ms at 989 TFLOP/s bf16, "
+        f"{nbytes / 1e6:.1f} MB -> {byte_ms:.4f} ms at 3.35 TB/s), plain {plain:.3f} ms, "
+        f"library {note if lib is None else note}, max_abs_err {err:.3g}; the forward's out "
+        f"within fa_tolerance (max |diff| {out_err:.3g}), its lse within 1e-5 of its scale "
+        f"(max |diff| {lse_err:.3g})  [{power_note}]")
+    return {"name": "flash_attention_bwd", "route": "cuda", "source": SOURCES["flash_attention"],
+            "replaces": REPLACES["flash_attention_bwd"], "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": "operations" if op_ms >= byte_ms else "bytes", "library_ms": lib}
+
+
+def phase_dense_train(device, power_note: str) -> tuple:
+    """Slice 9: (a) the training attention kernels' small cases, (b) the
+    gemma2-9b training cell, (c) a microbatched step and a checkpoint round
+    trip on the smoke config, then the backward's row. Returns (the cell's
+    launch counts, the ``flash_attention_bwd`` row)."""
+    t0 = time.perf_counter()
+    _train_kernel_cases(device)
+    counts = _train_cell(device, power_note)
+    _train_smoke_paths(device)
+    row = _train_bwd_row(device, power_note)
+    log(f"[{TRAIN_TAG}] phase {time.perf_counter() - t0:.1f} s")
+    return counts, row
+
+
 def main() -> int:
     try:
         import torch
@@ -2336,12 +2691,16 @@ def main() -> int:
                            + hier_launches[row["name"]])
     del buf
     torch.cuda.empty_cache()
+    train_launches, bwd_row = phase_dense_train(device, dev["card"])
+    mark("slice 9, dense training")
     ssd_row = phase_ssd_slice(device, dev["card"])
     ssd_row["launches"] = serve_launches["ssd_scan"]
     kernels.append(ssd_row)
     for row in phase_fa_slice(device, dev["card"]):
-        row["launches"] = dense_launches[row["name"]]
+        row["launches"] = dense_launches[row["name"]] + train_launches[row["name"]]
         kernels.append(row)
+    bwd_row["launches"] = train_launches["flash_attention_bwd"]
+    kernels.append(bwd_row)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(dev["card"])

@@ -24,6 +24,14 @@
 //   (t <= q) and/or window (t > q - window) masks; any S, the ragged last
 //   tiles masked here (keys t >= S, zero-filled on load) and not written
 //   (queries q >= S).
+//   Asked for it (a non-null lse), the prefill also writes each row's
+//   log-sum-exp m + log(max(l, 1e-30)), (B, H, S) f32: the training
+//   forward's residual. Serving passes null and launches what it did.
+// - flash_attention_bwd (training backward, q_offset 0): the gradients of
+//   the prefill from its output and lse. It replaces no Pallas kernel: the
+//   reference's backward is pure JAX under a custom_vjp
+//   (src/repro/models/attention.py _flash_backward); its design is at
+//   fa_bwd_dkdv_kernel below.
 // - flash_attention_decode (serving decode): no causal or window mask, a
 //   per-row kv_len (B,) int32 device tensor, keys t >= kv_len[b] masked and
 //   never read (kv_len must be in [1, L]). kv_len is read on the card only,
@@ -227,8 +235,9 @@ constexpr size_t prefill_smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ out, int S, int H,
-                  int KV, int causal, int window, float scale, float softcap) {
+                  const T* __restrict__ v, T* __restrict__ out,
+                  float* __restrict__ lse, int S, int H, int KV, int causal,
+                  int window, float scale, float softcap) {
   constexpr int LD = HD + 1;
   constexpr int kCols = HD / 16;       // accumulator columns per thread
   extern __shared__ float smem[];
@@ -351,6 +360,9 @@ fa_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < kCols; ++j)
         ob[r * q_stride + tx + 16 * j] = from_f32<T>(acc[i][j] / l);
+      // the row's log-sum-exp for the backward: m + log(max(l, 1e-30))
+      if (lse != nullptr && tx == 0)
+        lse[static_cast<int64_t>(bh) * S + q_lo + r] = sM[r] + logf(l);
     }
   }
 }
@@ -384,8 +396,9 @@ __global__ void __launch_bounds__(NWG * 128, 1)
 fa_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ out, int S, int H, int KV,
-                     int causal, int window, float scale, float softcap) {
+                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                     int S, int H, int KV, int causal, int window, float scale,
+                     float softcap) {
   constexpr int NT = NWG * 128;
   constexpr uint32_t kTile = kTcRows * HD * 2;     // bytes of one tile
   constexpr uint32_t kRows8 = HD * 16;              // bytes of 8 rows
@@ -602,6 +615,11 @@ fa_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.0f / fmaxf(l, 1e-30f);
     const int row = r0 + 8 * hr;
+    // the row's log-sum-exp for the backward, back in natural units:
+    // m_run ln 2 + log(max(l, 1e-30)), written once by the quad's first thread
+    if (lse != nullptr && (lane & 3) == 0 && q_lo + row < S)
+      lse[(static_cast<int64_t>(b) * H + h0 + wg) * S + q_lo + row] =
+          m_run[hr] * 0.6931471805599453f + logf(fmaxf(l, 1e-30f));
     if (q_lo + row < S) {
       __nv_bfloat16* orow = out + (static_cast<int64_t>(b) * S + q_lo + row) * q_stride +
                             static_cast<int64_t>(h0 + wg) * HD;
@@ -920,6 +938,631 @@ fa_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// backward (flash_attention_bwd): f32 on CUDA cores
+// ---------------------------------------------------------------------------
+//
+// Three passes, launched one after the other by one entry point (the bf16
+// entry runs the same passes on tensor cores, below):
+// - fa_bwd_delta_kernel: delta[b, h, q] = sum_d g[b, q, h, d] out[b, q, h, d]
+//   in f32, one warp per row;
+// - fa_bwd_dkdv_kernel: one block per (lane, kv head, 32-key tile). dK and
+//   dV of the tile (32 x hd f32 each) stay in registers while the block
+//   walks the G query heads of its kv head and, for each, the 32-row query
+//   tiles that see the key tile (causal: from the tile's first key; window:
+//   up to its last key + window - 1): S = Q K^T and dP = dO V^T recomputed
+//   (4 entries a thread), p = exp(s - lse), ds = p (dp - delta), then
+//   (1 - tanh^2) under a softcap, then the scale, both tiles to shared
+//   memory, then dV += P^T dO and dK += dS^T Q. Each key row is written by
+//   its block alone, so no atomics: a call's gradients are the same bits
+//   every time.
+// - fa_bwd_dq_kernel: one block per (lane, head, 32-row query tile). dQ (32
+//   x hd f32) stays in registers while the block walks the key tiles of
+//   _kv_block_range, recomputing S, dP and dS as above: dQ += dS K.
+// Masked entries (causal, window, keys or queries at or past S) get s =
+// -1e30, so p = 0 and ds = 0; the ragged tiles are zero-filled on load.
+//
+// Bound at gemma2-9b's training shape (B 2, S 4096, 16 heads / 8 kv heads x
+// 256, causal, bf16): the five products of the causal triangle, 5 x 2 x
+// S^2/2 x hd x B x H = 687 GFLOP, are 0.69 ms at 989 TFLOP/s (bf16 tensor
+// cores); the bytes (q, k, v, out, g, lse in; dq, dk, dv out), 403 MB,
+// 0.12 ms at 3.35 TB/s: operations bound it. Both versions recompute S and dP in both
+// passes (seven products) and stage every operand through shared memory
+// behind block-wide barriers; their times against the bound are in
+// PERF.md. Shared memory of the f32 passes at hd 256: four 32 x (hd + 1)
+// f32 tiles and the two 32 x 33 score tiles, 140 KB (opted in above 48
+// KB), one block of 256 threads per SM.
+
+constexpr int kBwdThreads = 256;
+constexpr int kBwdRows = 32;          // query rows and keys per tile
+constexpr int kLdS = kBwdRows + 1;    // padded row of a score tile
+
+template <int HD>
+constexpr size_t bwd_smem_bytes() {
+  return sizeof(float) * (4 * kBwdRows * (HD + 1) + 2 * kBwdRows * kLdS + 2 * kBwdRows);
+}
+
+template <typename T, int HD>
+__device__ __forceinline__ void load_rows_bwd(float* dst, const T* src,
+                                              int64_t stride, int rows) {
+  constexpr int LD = HD + 1;
+  for (int i = threadIdx.x; i < kBwdRows * HD; i += kBwdThreads) {
+    const int r = i / HD, c = i - r * HD;
+    dst[r * LD + c] = r < rows ? to_f32(src[r * stride + c]) : 0.0f;
+  }
+}
+
+// p and ds of the (query r, key c) entries of one tile pair that this
+// thread owns (r = ty + 16 i, c = tx + 16 j), from the query tile's Q, dO,
+// lse and delta and the key tile's K and V in shared memory; written to
+// sP (p) and sDS (ds) at [r * kLdS + c]. sP may be null (the dq pass).
+template <int HD>
+__device__ __forceinline__ void bwd_scores(
+    const float* sQ, const float* sG, const float* sK, const float* sV,
+    const float* sLse, const float* sDelta, float* sP, float* sDS, int q_lo,
+    int k_lo, int S, int causal, int window, float scale, float softcap) {
+  constexpr int LD = HD + 1;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float s[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  float dp[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll 8
+  for (int d = 0; d < HD; ++d) {
+    float qv[2], gv[2], kv[2], vv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      qv[i] = sQ[(ty + 16 * i) * LD + d];
+      gv[i] = sG[(ty + 16 * i) * LD + d];
+      kv[i] = sK[(tx + 16 * i) * LD + d];
+      vv[i] = sV[(tx + 16 * i) * LD + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = ty + 16 * i, c = tx + 16 * j;
+      const int qpos = q_lo + r, kpos = k_lo + c;
+      bool ok = kpos < S && qpos < S;
+      if (causal) ok = ok && kpos <= qpos;
+      if (window > 0) ok = ok && kpos > qpos - window;
+      // the reference's order: s = scale qk; t = tanh(s / cap); s = cap t;
+      // mask; p = exp(s - lse); ds = p (dp - delta) (1 - t^2) scale
+      float sc = s[i][j] * scale, dcap = 1.0f;
+      if (softcap > 0.0f) {
+        const float t = tanhf(sc / softcap);
+        sc = softcap * t;
+        dcap = 1.0f - t * t;
+      }
+      if (!ok) sc = kNegInf;
+      const float p = expf(sc - sLse[r]);
+      float ds = p * (dp[i][j] - sDelta[r]);
+      if (softcap > 0.0f) ds = ds * dcap;
+      ds = ds * scale;
+      if (sP != nullptr) sP[r * kLdS + c] = p;
+      sDS[r * kLdS + c] = ds;
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+fa_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ g,
+                    float* __restrict__ delta, int64_t rows, int S, int H,
+                    int HD) {
+  const int64_t row = (static_cast<int64_t>(blockIdx.x) * kBwdThreads + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const T* o = out + row * HD;
+  const T* gg = g + row * HD;
+  float acc = 0.0f;
+  for (int d = lane; d < HD; d += 32) acc = fmaf(to_f32(gg[d]), to_f32(o[d]), acc);
+  acc = warp_sum(acc);
+  // row = (b * S + q) * H + h  ->  delta[(b * H + h) * S + q]
+  const int64_t h = row % H, bq = row / H;
+  const int64_t b = bq / S, qq = bq - b * S;
+  if (lane == 0) delta[(b * H + h) * S + qq] = acc;
+}
+
+// Grid (ceil(S / 32), B * KV).
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ g,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KV,
+                   int causal, int window, float scale, float softcap) {
+  constexpr int LD = HD + 1;
+  constexpr int kCols = HD / 16;
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + kBwdRows * LD;
+  float* sQ = sV + kBwdRows * LD;
+  float* sG = sQ + kBwdRows * LD;
+  float* sP = sG + kBwdRows * LD;
+  float* sDS = sP + kBwdRows * kLdS;
+  float* sLse = sDS + kBwdRows * kLdS;
+  float* sDelta = sLse + kBwdRows;
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int k_lo = blockIdx.x * kBwdRows;
+  const int k_rows = min(kBwdRows, S - k_lo);
+  const int b = blockIdx.y / KV, kvh = blockIdx.y - b * KV;
+  const int G = H / KV;
+  const int64_t q_stride = static_cast<int64_t>(H) * HD;
+  const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
+  const int64_t kv_off = (static_cast<int64_t>(b) * S + k_lo) * kv_stride +
+                         static_cast<int64_t>(kvh) * HD;
+  load_rows_bwd<T, HD>(sK, k + kv_off, kv_stride, k_rows);
+  load_rows_bwd<T, HD>(sV, v + kv_off, kv_stride, k_rows);
+
+  // the queries that see a key of this tile: causal q >= k_lo; window
+  // q <= last key + window - 1
+  int q_first = causal ? k_lo : 0, q_last = S - 1;
+  if (window > 0) q_last = min(q_last, k_lo + k_rows - 1 + window - 1);
+  const int qt_begin = q_first / kBwdRows, qt_end = q_last / kBwdRows + 1;
+
+  float ak[2][kCols], av[2][kCols];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) ak[i][j] = av[i][j] = 0.0f;
+
+  for (int hh = 0; hh < G; ++hh) {
+    const int h = kvh * G + hh;
+    const float* lse_h = lse + (static_cast<int64_t>(b) * H + h) * S;
+    const float* delta_h = delta + (static_cast<int64_t>(b) * H + h) * S;
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int q_lo = qt * kBwdRows;
+      const int q_rows = min(kBwdRows, S - q_lo);
+      const int64_t q_off = (static_cast<int64_t>(b) * S + q_lo) * q_stride +
+                            static_cast<int64_t>(h) * HD;
+      __syncthreads();  // the previous tile's sQ, sG, sP and sDS are consumed
+      load_rows_bwd<T, HD>(sQ, q + q_off, q_stride, q_rows);
+      load_rows_bwd<T, HD>(sG, g + q_off, q_stride, q_rows);
+      if (tid < kBwdRows) {
+        sLse[tid] = tid < q_rows ? lse_h[q_lo + tid] : 0.0f;
+        sDelta[tid] = tid < q_rows ? delta_h[q_lo + tid] : 0.0f;
+      }
+      __syncthreads();
+      bwd_scores<HD>(sQ, sG, sK, sV, sLse, sDelta, sP, sDS, q_lo, k_lo, S, causal,
+                     window, scale, softcap);
+      __syncthreads();
+      // dV[c] += sum_r P[r, c] dO[r]; dK[c] += sum_r dS[r, c] Q[r]
+#pragma unroll 4
+      for (int r = 0; r < kBwdRows; ++r) {
+        float pr[2], dr[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          pr[i] = sP[r * kLdS + ty + 16 * i];
+          dr[i] = sDS[r * kLdS + ty + 16 * i];
+        }
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const float gv = sG[r * LD + tx + 16 * j];
+          const float qv = sQ[r * LD + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            av[i][j] = fmaf(pr[i], gv, av[i][j]);
+            ak[i][j] = fmaf(dr[i], qv, ak[i][j]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = ty + 16 * i;
+    if (c < k_rows) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        dk[kv_off + c * kv_stride + tx + 16 * j] = from_f32<T>(ak[i][j]);
+        dv[kv_off + c * kv_stride + tx + 16 * j] = from_f32<T>(av[i][j]);
+      }
+    }
+  }
+}
+
+// Grid (ceil(S / 32), B * H).
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ g,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 T* __restrict__ dq, int S, int H, int KV, int causal,
+                 int window, float scale, float softcap) {
+  constexpr int LD = HD + 1;
+  constexpr int kCols = HD / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sG = sQ + kBwdRows * LD;
+  float* sK = sG + kBwdRows * LD;
+  float* sV = sK + kBwdRows * LD;
+  float* sDS = sV + kBwdRows * LD;
+  float* sLse = sDS + kBwdRows * kLdS;
+  float* sDelta = sLse + kBwdRows;
+
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int q_lo = blockIdx.x * kBwdRows;
+  const int q_rows = min(kBwdRows, S - q_lo);
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh - b * H;
+  const int kvh = h / (H / KV);
+  const int64_t q_stride = static_cast<int64_t>(H) * HD;
+  const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
+  const int64_t q_off = (static_cast<int64_t>(b) * S + q_lo) * q_stride +
+                        static_cast<int64_t>(h) * HD;
+  load_rows_bwd<T, HD>(sQ, q + q_off, q_stride, q_rows);
+  load_rows_bwd<T, HD>(sG, g + q_off, q_stride, q_rows);
+  if (tid < kBwdRows) {
+    sLse[tid] = tid < q_rows ? lse[static_cast<int64_t>(bh) * S + q_lo + tid] : 0.0f;
+    sDelta[tid] = tid < q_rows ? delta[static_cast<int64_t>(bh) * S + q_lo + tid] : 0.0f;
+  }
+
+  // the keys any row of this tile may see (_kv_block_range)
+  int lo = 0, hi = S;
+  if (causal) hi = min(hi, q_lo + q_rows);
+  if (window > 0) lo = max(lo, q_lo - window + 1);
+  const int t_begin = lo / kBwdRows, t_end = (hi + kBwdRows - 1) / kBwdRows;
+
+  float aq[2][kCols];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) aq[i][j] = 0.0f;
+
+  const T* kb = k + static_cast<int64_t>(b) * S * kv_stride + static_cast<int64_t>(kvh) * HD;
+  const T* vb = v + static_cast<int64_t>(b) * S * kv_stride + static_cast<int64_t>(kvh) * HD;
+  for (int kt = t_begin; kt < t_end; ++kt) {
+    const int k_lo = kt * kBwdRows;
+    __syncthreads();  // the previous tile's sK and sDS are consumed
+    load_rows_bwd<T, HD>(sK, kb + k_lo * kv_stride, kv_stride, min(kBwdRows, S - k_lo));
+    load_rows_bwd<T, HD>(sV, vb + k_lo * kv_stride, kv_stride, min(kBwdRows, S - k_lo));
+    __syncthreads();
+    bwd_scores<HD>(sQ, sG, sK, sV, sLse, sDelta, nullptr, sDS, q_lo, k_lo, S, causal,
+                   window, scale, softcap);
+    __syncthreads();
+    // dQ[r] += sum_c dS[r, c] K[c]
+#pragma unroll 4
+    for (int c = 0; c < kBwdRows; ++c) {
+      float dr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) dr[i] = sDS[(ty + 16 * i) * kLdS + c];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const float kv = sK[c * LD + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) aq[i][j] = fmaf(dr[i], kv, aq[i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = ty + 16 * i;
+    if (r < q_rows) {
+#pragma unroll
+      for (int j = 0; j < kCols; ++j)
+        dq[q_off + r * q_stride + tx + 16 * j] = from_f32<T>(aq[i][j]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward in bf16 on tensor cores (mma.sync)
+// ---------------------------------------------------------------------------
+//
+// The bf16 entry runs the same three passes with the five products on the
+// tensor cores: mma.sync m16n8k16, bf16 operands, f32 accumulators. Q, dO,
+// K and V are bf16 already, so S = Q K^T and dP = dO V^T are exact products
+// summed in f32, as on CUDA cores. p and ds are f32: they enter dV += P^T dO,
+// dK += dS^T Q and dQ += dS K as two bf16 operands, hi = bf16(x) and lo =
+// bf16(x - hi), two products each (16 significant bits of x, as the
+// forward's PV takes p). A block of 8 warps owns a 32-key tile (dk/dv pass)
+// or a 32-row query tile (dq pass): each warp computes one 16 x 8 tile of S
+// and of dP (hd / 16 steps), writes its p / ds entries to shared memory as
+// hi and lo (transposed in the dk/dv pass, so that P^T and dS^T are
+// row-major A operands), and accumulates a 16 x (hd / 4) slab of dK and dV
+// (or dQ) in registers, 32 f32 each at hd 256. The B operands of those
+// products (dO, Q, K with the query or key index contiguous) are staged
+// transposed as they are loaded. Rows are padded by 8 bf16 (16 bytes), so
+// a warp's 32-bit fragment loads hit 32 distinct banks. Shared memory at hd
+// 256: 119 KB (dk/dv) and 93 KB (dq).
+
+constexpr int kTbRows = 32;           // query rows and keys per tile
+constexpr int kTbPadT = kTbRows + 8;  // row of a transposed (hd x 32) tile
+
+template <int HD>
+struct BwdTc {
+  static constexpr int LDR = HD + 8;                 // row of a (32 x hd) tile
+  static constexpr int NTW = HD / 32 > 0 ? HD / 32 : 1;  // n8 tiles per warp
+  static constexpr size_t kRow = sizeof(__nv_bfloat16) * kTbRows * LDR;
+  static constexpr size_t kT = sizeof(__nv_bfloat16) * HD * kTbPadT;
+  static constexpr size_t kS = sizeof(__nv_bfloat16) * kTbRows * kTbPadT;
+  static constexpr size_t dkdv_smem = 4 * kRow + 2 * kT + 4 * kS + 2 * kTbRows * sizeof(float);
+  static constexpr size_t dq_smem = 4 * kRow + kT + 2 * kS + 2 * kTbRows * sizeof(float);
+};
+
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], uint32_t a0, uint32_t a1,
+                                               uint32_t a2, uint32_t a3, uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += A B for one 16 x 8 tile: A row-major (m, k) at a + m * lda + k, B
+// stored n-major (n, k) at b + n * ldb + k, k from 0 to K (a multiple of 16)
+template <int K>
+__device__ __forceinline__ void mma_tile(float (&d)[4], const __nv_bfloat16* a, int lda,
+                                         const __nv_bfloat16* b, int ldb) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = 2 * (lane & 3);
+#pragma unroll
+  for (int k = 0; k < K; k += 16) {
+    mma_bf16_16816(d, ld32(a + g * lda + k + t), ld32(a + (g + 8) * lda + k + t),
+                   ld32(a + g * lda + k + 8 + t), ld32(a + (g + 8) * lda + k + 8 + t),
+                   ld32(b + g * ldb + k + t), ld32(b + g * ldb + k + 8 + t));
+  }
+}
+
+// rows `rows` of a (32, HD) bf16 slab at src (row stride `stride`) into a
+// (32, LDR) tile at dst and, when dstT is not null, transposed into an (HD,
+// kTbPadT) tile at dstT; rows past `rows` zero-filled
+template <int HD>
+__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, __nv_bfloat16* dstT,
+                                               const __nv_bfloat16* src, int64_t stride,
+                                               int rows) {
+  constexpr int LDR = BwdTc<HD>::LDR, VEC = 8, PER_ROW = HD / VEC;
+  for (int i = threadIdx.x; i < kTbRows * PER_ROW; i += kBwdThreads) {
+    // transposing: neighbouring threads take neighbouring rows, so the
+    // 2-byte stores of a column land in neighbouring banks
+    const int r = dstT != nullptr ? i % kTbRows : i / PER_ROW;
+    const int c = (dstT != nullptr ? i / kTbRows : i % PER_ROW) * VEC;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows) v = *reinterpret_cast<const uint4*>(src + r * stride + c);
+    *reinterpret_cast<uint4*>(dst + r * LDR + c) = v;
+    if (dstT != nullptr) {
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) dstT[(c + j) * kTbPadT + r] = e[j];
+    }
+  }
+}
+
+__device__ __forceinline__ void split_bf16(float x, __nv_bfloat16& hi, __nv_bfloat16& lo) {
+  hi = __float2bfloat16_rn(x);
+  lo = __float2bfloat16_rn(x - __bfloat162float(hi));
+}
+
+// This warp's 16 x 8 tile of S and dP (query rows m0.., keys n0.. of the
+// tiles), then p and ds of its four entries per thread, as bwd_scores; the
+// entries go to (ph, pl) and (dh, dl) at [key * ld + q] when `transposed`,
+// else at [q * ld + key] (ph, pl may be null).
+template <int HD>
+__device__ __forceinline__ void tc_scores(
+    const __nv_bfloat16* sQ, const __nv_bfloat16* sG, const __nv_bfloat16* sK,
+    const __nv_bfloat16* sV, const float* sLse, const float* sDelta, __nv_bfloat16* ph,
+    __nv_bfloat16* pl, __nv_bfloat16* dh, __nv_bfloat16* dl, bool transposed, int q_lo,
+    int k_lo, int S, int causal, int window, float scale, float softcap) {
+  constexpr int LDR = BwdTc<HD>::LDR;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = 16 * (warp & 1), n0 = 8 * (warp >> 1);
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_tile<HD>(s, sQ + m0 * LDR, LDR, sK + n0 * LDR, LDR);
+  mma_tile<HD>(dp, sG + m0 * LDR, LDR, sV + n0 * LDR, LDR);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = m0 + (lane >> 2) + 8 * (e >> 1), c = n0 + 2 * (lane & 3) + (e & 1);
+    const int qpos = q_lo + r, kpos = k_lo + c;
+    bool ok = kpos < S && qpos < S;
+    if (causal) ok = ok && kpos <= qpos;
+    if (window > 0) ok = ok && kpos > qpos - window;
+    float sc = s[e] * scale, dcap = 1.0f;
+    if (softcap > 0.0f) {
+      const float th = tanhf(sc / softcap);
+      sc = softcap * th;
+      dcap = 1.0f - th * th;
+    }
+    if (!ok) sc = kNegInf;
+    const float p = expf(sc - sLse[r]);
+    float ds = p * (dp[e] - sDelta[r]);
+    if (softcap > 0.0f) ds = ds * dcap;
+    ds = ds * scale;
+    const int at = transposed ? c * kTbPadT + r : r * kTbPadT + c;
+    if (ph != nullptr) split_bf16(p, ph[at], pl[at]);
+    split_bf16(ds, dh[at], dl[at]);
+  }
+}
+
+// acc[j] += A B over k = 32 for this warp's n8 tiles j: A = hi + lo, (32,
+// kTbPadT) row-major; B stored n-major as (HD, kTbPadT)
+template <int HD>
+__device__ __forceinline__ void tc_accumulate(float (&acc)[BwdTc<HD>::NTW][4],
+                                              const __nv_bfloat16* ah,
+                                              const __nv_bfloat16* al,
+                                              const __nv_bfloat16* bT) {
+  const int warp = threadIdx.x >> 5;
+  const int m0 = 16 * (warp & 1);
+#pragma unroll
+  for (int j = 0; j < BwdTc<HD>::NTW; ++j) {
+    const int n0 = ((warp >> 1) * BwdTc<HD>::NTW + j) * 8;
+    if (n0 < HD) {
+      mma_tile<kTbRows>(acc[j], ah + m0 * kTbPadT, kTbPadT, bT + n0 * kTbPadT, kTbPadT);
+      mma_tile<kTbRows>(acc[j], al + m0 * kTbPadT, kTbPadT, bT + n0 * kTbPadT, kTbPadT);
+    }
+  }
+}
+
+// this warp's accumulator tiles (rows m0.. of the block's 32) to `out`, the
+// block's first row at out, rows `rows` of them, row stride `stride`
+template <int HD>
+__device__ __forceinline__ void tc_store(const float (&acc)[BwdTc<HD>::NTW][4],
+                                         __nv_bfloat16* out, int64_t stride, int rows) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = 16 * (warp & 1);
+#pragma unroll
+  for (int j = 0; j < BwdTc<HD>::NTW; ++j) {
+    const int n0 = ((warp >> 1) * BwdTc<HD>::NTW + j) * 8;
+    if (n0 >= HD) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + (lane >> 2) + 8 * h, c = n0 + 2 * (lane & 3);
+      if (r < rows)
+        *reinterpret_cast<__nv_bfloat162*>(out + r * stride + c) =
+            __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
+    }
+  }
+}
+
+// Grid (ceil(S / 32), B * KV); kBwdThreads threads (8 warps).
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+fa_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S,
+                      int H, int KV, int causal, int window, float scale, float softcap) {
+  using Geo = BwdTc<HD>;
+  extern __shared__ __align__(16) unsigned char tb_smem[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(tb_smem);
+  __nv_bfloat16* sV = sK + kTbRows * Geo::LDR;
+  __nv_bfloat16* sQ = sV + kTbRows * Geo::LDR;
+  __nv_bfloat16* sG = sQ + kTbRows * Geo::LDR;
+  __nv_bfloat16* sQT = sG + kTbRows * Geo::LDR;
+  __nv_bfloat16* sGT = sQT + HD * kTbPadT;
+  __nv_bfloat16* sPh = sGT + HD * kTbPadT;        // P^T and dS^T, (key, query)
+  __nv_bfloat16* sPl = sPh + kTbRows * kTbPadT;
+  __nv_bfloat16* sDh = sPl + kTbRows * kTbPadT;
+  __nv_bfloat16* sDl = sDh + kTbRows * kTbPadT;
+  float* sLse = reinterpret_cast<float*>(sDl + kTbRows * kTbPadT);
+  float* sDelta = sLse + kTbRows;
+
+  const int tid = threadIdx.x;
+  const int k_lo = blockIdx.x * kTbRows;
+  const int k_rows = min(kTbRows, S - k_lo);
+  const int b = blockIdx.y / KV, kvh = blockIdx.y - b * KV;
+  const int G = H / KV;
+  const int64_t q_stride = static_cast<int64_t>(H) * HD;
+  const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
+  const int64_t kv_off = (static_cast<int64_t>(b) * S + k_lo) * kv_stride +
+                         static_cast<int64_t>(kvh) * HD;
+  load_tile_bf16<HD>(sK, nullptr, k + kv_off, kv_stride, k_rows);
+  load_tile_bf16<HD>(sV, nullptr, v + kv_off, kv_stride, k_rows);
+
+  int q_first = causal ? k_lo : 0, q_last = S - 1;
+  if (window > 0) q_last = min(q_last, k_lo + k_rows - 1 + window - 1);
+  const int qt_begin = q_first / kTbRows, qt_end = q_last / kTbRows + 1;
+
+  float ak[Geo::NTW][4], av[Geo::NTW][4];
+#pragma unroll
+  for (int j = 0; j < Geo::NTW; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ak[j][e] = av[j][e] = 0.0f;
+
+  for (int hh = 0; hh < G; ++hh) {
+    const int h = kvh * G + hh;
+    const float* lse_h = lse + (static_cast<int64_t>(b) * H + h) * S;
+    const float* delta_h = delta + (static_cast<int64_t>(b) * H + h) * S;
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int q_lo = qt * kTbRows;
+      const int q_rows = min(kTbRows, S - q_lo);
+      const int64_t q_off = (static_cast<int64_t>(b) * S + q_lo) * q_stride +
+                            static_cast<int64_t>(h) * HD;
+      __syncthreads();  // the previous tile's operands are consumed
+      load_tile_bf16<HD>(sQ, sQT, q + q_off, q_stride, q_rows);
+      load_tile_bf16<HD>(sG, sGT, g + q_off, q_stride, q_rows);
+      if (tid < kTbRows) {
+        sLse[tid] = tid < q_rows ? lse_h[q_lo + tid] : 0.0f;
+        sDelta[tid] = tid < q_rows ? delta_h[q_lo + tid] : 0.0f;
+      }
+      __syncthreads();
+      tc_scores<HD>(sQ, sG, sK, sV, sLse, sDelta, sPh, sPl, sDh, sDl, true, q_lo, k_lo, S,
+                    causal, window, scale, softcap);
+      __syncthreads();
+      tc_accumulate<HD>(av, sPh, sPl, sGT);   // dV += P^T dO
+      tc_accumulate<HD>(ak, sDh, sDl, sQT);   // dK += dS^T Q
+    }
+  }
+  tc_store<HD>(ak, dk + kv_off, kv_stride, k_rows);
+  tc_store<HD>(av, dv + kv_off, kv_stride, k_rows);
+}
+
+// Grid (ceil(S / 32), B * H); kBwdThreads threads (8 warps).
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+fa_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dq, int S, int H, int KV, int causal,
+                    int window, float scale, float softcap) {
+  using Geo = BwdTc<HD>;
+  extern __shared__ __align__(16) unsigned char tb_smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(tb_smem);
+  __nv_bfloat16* sG = sQ + kTbRows * Geo::LDR;
+  __nv_bfloat16* sK = sG + kTbRows * Geo::LDR;
+  __nv_bfloat16* sV = sK + kTbRows * Geo::LDR;
+  __nv_bfloat16* sKT = sV + kTbRows * Geo::LDR;
+  __nv_bfloat16* sDh = sKT + HD * kTbPadT;        // dS, (query, key)
+  __nv_bfloat16* sDl = sDh + kTbRows * kTbPadT;
+  float* sLse = reinterpret_cast<float*>(sDl + kTbRows * kTbPadT);
+  float* sDelta = sLse + kTbRows;
+
+  const int tid = threadIdx.x;
+  const int q_lo = blockIdx.x * kTbRows;
+  const int q_rows = min(kTbRows, S - q_lo);
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh - b * H;
+  const int kvh = h / (H / KV);
+  const int64_t q_stride = static_cast<int64_t>(H) * HD;
+  const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
+  const int64_t q_off = (static_cast<int64_t>(b) * S + q_lo) * q_stride +
+                        static_cast<int64_t>(h) * HD;
+  load_tile_bf16<HD>(sQ, nullptr, q + q_off, q_stride, q_rows);
+  load_tile_bf16<HD>(sG, nullptr, g + q_off, q_stride, q_rows);
+  if (tid < kTbRows) {
+    sLse[tid] = tid < q_rows ? lse[static_cast<int64_t>(bh) * S + q_lo + tid] : 0.0f;
+    sDelta[tid] = tid < q_rows ? delta[static_cast<int64_t>(bh) * S + q_lo + tid] : 0.0f;
+  }
+
+  int lo = 0, hi = S;
+  if (causal) hi = min(hi, q_lo + q_rows);
+  if (window > 0) lo = max(lo, q_lo - window + 1);
+  const int t_begin = lo / kTbRows, t_end = (hi + kTbRows - 1) / kTbRows;
+
+  float aq[Geo::NTW][4];
+#pragma unroll
+  for (int j = 0; j < Geo::NTW; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) aq[j][e] = 0.0f;
+
+  const __nv_bfloat16* kb = k + static_cast<int64_t>(b) * S * kv_stride +
+                            static_cast<int64_t>(kvh) * HD;
+  const __nv_bfloat16* vb = v + static_cast<int64_t>(b) * S * kv_stride +
+                            static_cast<int64_t>(kvh) * HD;
+  for (int kt = t_begin; kt < t_end; ++kt) {
+    const int k_lo = kt * kTbRows;
+    __syncthreads();  // the previous tile's operands are consumed
+    load_tile_bf16<HD>(sK, sKT, kb + k_lo * kv_stride, kv_stride, min(kTbRows, S - k_lo));
+    load_tile_bf16<HD>(sV, nullptr, vb + k_lo * kv_stride, kv_stride, min(kTbRows, S - k_lo));
+    __syncthreads();
+    tc_scores<HD>(sQ, sG, sK, sV, sLse, sDelta, nullptr, nullptr, sDh, sDl, false, q_lo,
+                  k_lo, S, causal, window, scale, softcap);
+    __syncthreads();
+    tc_accumulate<HD>(aq, sDh, sDl, sKT);     // dQ += dS K
+  }
+  tc_store<HD>(aq, dq + q_off, q_stride, q_rows);
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -939,7 +1582,7 @@ int allow_smem(K* kernel, size_t bytes) {
 
 template <int HD>
 int launch_prefill_f32(const void* q, const void* k, const void* v, void* out,
-                       int64_t B, int64_t S, int64_t H, int64_t KV,
+                       void* lse, int64_t B, int64_t S, int64_t H, int64_t KV,
                        int64_t causal, int64_t window, double scale,
                        double softcap, cudaStream_t stream) {
   constexpr size_t smem = prefill_smem_bytes<HD>();
@@ -950,7 +1593,8 @@ int launch_prefill_f32(const void* q, const void* k, const void* v, void* out,
   fa_prefill_kernel<float, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
-      static_cast<int>(S), static_cast<int>(H), static_cast<int>(KV),
+      static_cast<float*>(lse), static_cast<int>(S), static_cast<int>(H),
+      static_cast<int>(KV),
       static_cast<int>(causal), static_cast<int>(window),
       static_cast<float>(scale), static_cast<float>(softcap));
   g_fwd_launched = kFwdCudaCores;
@@ -959,7 +1603,7 @@ int launch_prefill_f32(const void* q, const void* k, const void* v, void* out,
 
 template <int HD, int NWG>
 int launch_prefill_tc(const void* q, const void* k, const void* v, void* out,
-                      int64_t B, int64_t S, int64_t H, int64_t KV,
+                      void* lse, int64_t B, int64_t S, int64_t H, int64_t KV,
                       int64_t causal, int64_t window, double scale,
                       double softcap, cudaStream_t stream) {
   constexpr size_t smem = prefill_tc_smem_bytes<HD, NWG>();
@@ -970,7 +1614,8 @@ int launch_prefill_tc(const void* q, const void* k, const void* v, void* out,
   fa_prefill_tc_kernel<HD, NWG><<<grid, NWG * 128, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<int>(S), static_cast<int>(H), static_cast<int>(KV),
+      static_cast<float*>(lse), static_cast<int>(S), static_cast<int>(H),
+      static_cast<int>(KV),
       static_cast<int>(causal), static_cast<int>(window),
       static_cast<float>(scale), static_cast<float>(softcap));
   g_fwd_launched = kFwdTensorCores;
@@ -979,14 +1624,94 @@ int launch_prefill_tc(const void* q, const void* k, const void* v, void* out,
 
 template <int HD>
 int prefill_tc_by_groups(const void* q, const void* k, const void* v, void* out,
-                         int64_t B, int64_t S, int64_t H, int64_t KV,
+                         void* lse, int64_t B, int64_t S, int64_t H, int64_t KV,
                          int64_t causal, int64_t window, double scale,
                          double softcap, cudaStream_t stream) {
   if ((H / KV) % 2 == 0)
-    return launch_prefill_tc<HD, 2>(q, k, v, out, B, S, H, KV, causal, window,
+    return launch_prefill_tc<HD, 2>(q, k, v, out, lse, B, S, H, KV, causal, window,
                                     scale, softcap, stream);
-  return launch_prefill_tc<HD, 1>(q, k, v, out, B, S, H, KV, causal, window,
+  return launch_prefill_tc<HD, 1>(q, k, v, out, lse, B, S, H, KV, causal, window,
                                   scale, softcap, stream);
+}
+
+template <typename T, int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* out,
+               const void* lse, const void* g, void* dq, void* dk, void* dv,
+               void* delta, int64_t B, int64_t S, int64_t H, int64_t KV,
+               int64_t causal, int64_t window, double scale, double softcap,
+               cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem_bytes<HD>();
+  static int configured_dkdv = allow_smem(fa_bwd_dkdv_kernel<T, HD>, smem);
+  static int configured_dq = allow_smem(fa_bwd_dq_kernel<T, HD>, smem);
+  if (configured_dkdv != 0) return configured_dkdv;
+  if (configured_dq != 0) return configured_dq;
+  const int64_t rows = B * S * H;
+  const unsigned rows_per_block = kBwdThreads / 32;
+  fa_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + rows_per_block - 1) / rows_per_block),
+                           kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(out), static_cast<const T*>(g), static_cast<float*>(delta),
+      rows, static_cast<int>(S), static_cast<int>(H), HD);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  const unsigned tiles = static_cast<unsigned>((S + kBwdRows - 1) / kBwdRows);
+  fa_bwd_dkdv_kernel<T, HD><<<dim3(tiles, static_cast<unsigned>(B * KV)), kBwdThreads,
+                              smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<int>(S), static_cast<int>(H), static_cast<int>(KV),
+      static_cast<int>(causal), static_cast<int>(window), static_cast<float>(scale),
+      static_cast<float>(softcap));
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  fa_bwd_dq_kernel<T, HD><<<dim3(tiles, static_cast<unsigned>(B * H)), kBwdThreads, smem,
+                            stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), static_cast<int>(S),
+      static_cast<int>(H), static_cast<int>(KV), static_cast<int>(causal),
+      static_cast<int>(window), static_cast<float>(scale), static_cast<float>(softcap));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_bwd_tc(const void* q, const void* k, const void* v, const void* out,
+                  const void* lse, const void* g, void* dq, void* dk, void* dv,
+                  void* delta, int64_t B, int64_t S, int64_t H, int64_t KV,
+                  int64_t causal, int64_t window, double scale, double softcap,
+                  cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  static int configured_dkdv = allow_smem(fa_bwd_dkdv_tc_kernel<HD>, BwdTc<HD>::dkdv_smem);
+  static int configured_dq = allow_smem(fa_bwd_dq_tc_kernel<HD>, BwdTc<HD>::dq_smem);
+  if (configured_dkdv != 0) return configured_dkdv;
+  if (configured_dq != 0) return configured_dq;
+  const int64_t rows = B * S * H;
+  const unsigned rows_per_block = kBwdThreads / 32;
+  fa_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + rows_per_block - 1) / rows_per_block),
+                           kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(out), static_cast<const T*>(g), static_cast<float*>(delta),
+      rows, static_cast<int>(S), static_cast<int>(H), HD);
+  int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  const unsigned tiles = static_cast<unsigned>((S + kTbRows - 1) / kTbRows);
+  fa_bwd_dkdv_tc_kernel<HD><<<dim3(tiles, static_cast<unsigned>(B * KV)), kBwdThreads,
+                              BwdTc<HD>::dkdv_smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<int>(S), static_cast<int>(H), static_cast<int>(KV),
+      static_cast<int>(causal), static_cast<int>(window), static_cast<float>(scale),
+      static_cast<float>(softcap));
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  fa_bwd_dq_tc_kernel<HD><<<dim3(tiles, static_cast<unsigned>(B * H)), kBwdThreads,
+                            BwdTc<HD>::dq_smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(g), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dq), static_cast<int>(S),
+      static_cast<int>(H), static_cast<int>(KV), static_cast<int>(causal),
+      static_cast<int>(window), static_cast<float>(scale), static_cast<float>(softcap));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD, int RB>
@@ -1041,7 +1766,8 @@ int decode_by_rows(const void* q, const void* k, const void* v,
 
 // softcap <= 0 means none; window <= 0 means none; causal is 0 or 1.
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
-                                       const void* v, void* out, int64_t B,
+                                       const void* v, void* out, void* lse,
+                                       int64_t B,
                                        int64_t S, int64_t H, int64_t KV,
                                        int64_t hd, int64_t causal,
                                        int64_t window, double scale,
@@ -1049,13 +1775,15 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   g_fwd_launched = kFwdNone;
 #define FA_CALL(HD) \
-  launch_prefill_f32<HD>(q, k, v, out, B, S, H, KV, causal, window, scale, softcap, st)
+  launch_prefill_f32<HD>(q, k, v, out, lse, B, S, H, KV, causal, window, scale, softcap, \
+                         st)
   FA_BY_HD(hd, FA_CALL)
 #undef FA_CALL
 }
 
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
-                                        const void* v, void* out, int64_t B,
+                                        const void* v, void* out, void* lse,
+                                        int64_t B,
                                         int64_t S, int64_t H, int64_t KV,
                                         int64_t hd, int64_t causal,
                                         int64_t window, double scale,
@@ -1063,7 +1791,8 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   g_fwd_launched = kFwdNone;
 #define FA_CALL(HD) \
-  prefill_tc_by_groups<HD>(q, k, v, out, B, S, H, KV, causal, window, scale, softcap, st)
+  prefill_tc_by_groups<HD>(q, k, v, out, lse, B, S, H, KV, causal, window, scale, \
+                           softcap, st)
   FA_BY_HD(hd, FA_CALL)
 #undef FA_CALL
 }
@@ -1097,6 +1826,36 @@ extern "C" int flash_attention_decode_bf16(
   decode_by_rows<__nv_bfloat16, HD>(q, k, v, kv_len, out, part_acc, part_ml, \
                                     counters, B, Sq, L, H, KV, chunk, n_split, \
                                     scale, softcap, st)
+  FA_BY_HD(hd, FA_CALL)
+#undef FA_CALL
+}
+
+// The backward of the prefill (flash_attention_bwd): q, k, v, out, g in the
+// inputs' type, lse (B, H, S) f32 from the forward; dq, dk, dv written in
+// the inputs' type; delta (B, H, S) f32 scratch. Three launches on
+// `stream`; returns the first error.
+extern "C" int flash_attention_bwd_f32(
+    const void* q, const void* k, const void* v, const void* out, const void* lse,
+    const void* g, void* dq, void* dk, void* dv, void* delta, int64_t B, int64_t S,
+    int64_t H, int64_t KV, int64_t hd, int64_t causal, int64_t window, double scale,
+    double softcap, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FA_CALL(HD)                                                                  \
+  launch_bwd<float, HD>(q, k, v, out, lse, g, dq, dk, dv, delta, B, S, H, KV, causal, \
+                        window, scale, softcap, st)
+  FA_BY_HD(hd, FA_CALL)
+#undef FA_CALL
+}
+
+extern "C" int flash_attention_bwd_bf16(
+    const void* q, const void* k, const void* v, const void* out, const void* lse,
+    const void* g, void* dq, void* dk, void* dv, void* delta, int64_t B, int64_t S,
+    int64_t H, int64_t KV, int64_t hd, int64_t causal, int64_t window, double scale,
+    double softcap, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FA_CALL(HD)                                                                   \
+  launch_bwd_tc<HD>(q, k, v, out, lse, g, dq, dk, dv, delta, B, S, H, KV, causal, window, \
+                    scale, softcap, st)
   FA_BY_HD(hd, FA_CALL)
 #undef FA_CALL
 }

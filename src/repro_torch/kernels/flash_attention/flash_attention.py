@@ -17,7 +17,17 @@ compensate; nothing here is padded).
 The prefill has two kernels, chosen by dtype in the C entry points: bf16 on
 tensor cores (``wgmma``), float32 on CUDA cores. The C side reports which
 one it launched, and the bf16 tensor-core launches count also under
-``flash_attention_fwd_wgmma``. The decode is a split-KV pass:
+``flash_attention_fwd_wgmma``. Asked for it (``lse=True``, the training
+forward), either also writes each row's log-sum-exp, (B, H, S) float32.
+
+The backward (:func:`flash_attention_bwd`) recomputes p from that lse: a
+pass for ``delta = rowsum(g * out)``, a dk/dv pass (one block per lane, kv
+head and key tile, walking the query tiles of its G heads that see the
+tile) and a dq pass (one block per lane, head and query tile); three
+launches per call, counted once under ``flash_attention_bwd``, with no
+atomics, so a call's gradients are the same bits every time. bf16 runs its
+products on tensor cores (``mma.sync``; p and ds enter as bf16 hi + lo, as
+the forward's p does), float32 on CUDA cores. The decode is a split-KV pass:
 :func:`decode_plan` cuts the cache into ``n_split`` chunks (one block per
 lane, kv head and chunk), and the last block of each (lane, kv head) merges
 the partials, so a call stays one launch.
@@ -57,7 +67,7 @@ H100_SMS = 132
 # every prefill launch counts under flash_attention_fwd; those that the C
 # side reports on the tensor-core kernel also under flash_attention_fwd_wgmma
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0, "flash_attention_fwd_wgmma": 0,
-                            "flash_attention_decode": 0}
+                            "flash_attention_decode": 0, "flash_attention_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -72,7 +82,8 @@ def launch_counts() -> Dict[str, int]:
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _D = ctypes.c_double
-_FWD_SIGNATURE = [_P] * 4 + [_I] * 7 + [_D, _D, _P]
+_FWD_SIGNATURE = [_P] * 5 + [_I] * 7 + [_D, _D, _P]
+_BWD_SIGNATURE = [_P] * 10 + [_I] * 7 + [_D, _D, _P]
 _DEC_SIGNATURE = [_P] * 8 + [_I] * 8 + [_D, _D, _P]
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 FWD_TENSOR_CORES = 1            # flash_attention_fwd_launched(): the wgmma kernel
@@ -156,7 +167,8 @@ def library() -> ctypes.CDLL:
         lib = build_lib.load(LIB_NAME)
         for sfx in _SUFFIX.values():
             for name, sig in (("flash_attention_fwd", _FWD_SIGNATURE),
-                              ("flash_attention_decode", _DEC_SIGNATURE)):
+                              ("flash_attention_decode", _DEC_SIGNATURE),
+                              ("flash_attention_bwd", _BWD_SIGNATURE)):
                 fn = getattr(lib, f"{name}_{sfx}")
                 fn.argtypes = sig
                 fn.restype = ctypes.c_int
@@ -199,33 +211,66 @@ def _cap(softcap: Optional[float]) -> float:
     return float(softcap)
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: Optional[int] = None,
-                        softcap: Optional[float] = None) -> torch.Tensor:
-    """Prefill attention (q_offset 0, Sq == Skv) -> (B, S, H, hd) in q's
-    dtype; one launch (bf16: the tensor-core kernel)."""
+def _prefill_checks(q, k, v, causal, window, softcap):
     B, S, H, KV, hd = _heads(q, k)
     cap = _cap(softcap)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
-    if B * H > _MAX_GRID_Y or -(-S // 64) > _MAX_GRID_Y:
+    if B * H > _MAX_GRID_Y or -(-S // 32) > _MAX_GRID_Y:
         raise ValueError(f"{B * H} (lane, head) rows or S {S} exceed the launch grid")
     dtypes = (q.dtype,) if q.dtype in _SUFFIX else tuple(_SUFFIX)
     _check(q, "q", dtypes, (B, S, H, hd))
     _check(k, "k", dtypes, (B, S, KV, hd))
     _check(v, "v", dtypes, (B, S, KV, hd))
+    return (B, S, H, KV, hd, int(causal), 0 if window is None else int(window),
+            hd ** -0.5, cap)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None, lse: bool = False):
+    """Prefill attention (q_offset 0, Sq == Skv) -> (B, S, H, hd) in q's
+    dtype; with ``lse=True`` the pair (output, rows' log-sum-exp (B, H, S)
+    float32). One launch (bf16: the tensor-core kernel)."""
+    args = _prefill_checks(q, k, v, causal, window, softcap)
+    B, S, H = args[:3]
     out = torch.empty_like(q)
+    lse_t = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if lse else None
     lib = library()
     rc = getattr(lib, f"flash_attention_fwd_{_SUFFIX[q.dtype]}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, S, H, KV, hd, int(causal), 0 if window is None else int(window),
-        hd ** -0.5, cap, _stream(q.device))
+        0 if lse_t is None else lse_t.data_ptr(), *args, _stream(q.device))
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd: CUDA launch failed with error {rc}")
     LAUNCHES["flash_attention_fwd"] += 1
     if lib.flash_attention_fwd_launched() == FWD_TENSOR_CORES:
         LAUNCHES["flash_attention_fwd_wgmma"] += 1
-    return out
+    return out if lse_t is None else (out, lse_t)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """Gradients of the prefill attention -> (dq, dk, dv) in the inputs'
+    dtype, from its output ``out`` (B, S, H, hd), its lse (B, H, S) float32
+    and the output gradient ``g`` (B, S, H, hd). Three launches (delta, dk
+    and dv, dq), counted as one call."""
+    args = _prefill_checks(q, k, v, causal, window, softcap)
+    B, S, H, KV, hd = args[:5]
+    _check(out, "out", (q.dtype,), (B, S, H, hd))
+    _check(g, "g", (q.dtype,), (B, S, H, hd))
+    _check(lse, "lse", (torch.float32,), (B, H, S))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    rc = getattr(library(), f"flash_attention_bwd_{_SUFFIX[q.dtype]}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        *args, _stream(q.device))
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd: CUDA launch failed with error {rc}")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
 
 
 def _plan_decode(q, k, v, kv_len, softcap) -> tuple:

@@ -21,12 +21,30 @@ from repro_torch.kernels.flash_attention import ref
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None, impl: str = "auto") -> torch.Tensor:
-    """Prefill attention (q_offset 0) -> (B, S, H, hd) in q's dtype."""
+                    softcap: Optional[float] = None, impl: str = "auto", lse: bool = False):
+    """Prefill attention (q_offset 0) -> (B, S, H, hd) in q's dtype; with
+    ``lse=True`` also the rows' log-sum-exp, (B, H, S) float32 (the
+    training forward's residual)."""
     if not use_ref(q, impl):
         return kernel.flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                          softcap=softcap)
-    return ref.attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+                                          softcap=softcap, lse=lse)
+    out = ref.attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    if not lse:
+        return out
+    return out, ref.attention_lse_ref(q, k, causal=causal, window=window, softcap=softcap)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None, impl: str = "auto"):
+    """The prefill attention's gradients (dq, dk, dv) in the inputs' dtype,
+    from its output, its lse (B, H, S) float32 and the output gradient."""
+    if not use_ref(q, impl):
+        return kernel.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                          window=window, softcap=softcap)
+    return ref.attention_bwd_ref(q, k, v, out, lse, g, causal=causal, window=window,
+                                 softcap=softcap)
 
 
 def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -86,10 +86,10 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 def local_train(b, opt_cfg, state: Dict[str, Any], batch: Dict[str, torch.Tensor],
                 local_steps: int, rows: Optional[Sequence[int]] = None) -> torch.Tensor:
-    """``local_steps`` AdamW steps per node on its own batches; writes the
-    results into the stacked ``state`` rows in place. ``rows`` limits the
-    training to those nodes (default all); the others keep their state and
-    report a NaN loss. Returns each node's mean loss over its steps, (n,)."""
+    """``local_steps`` AdamW steps per node on its own batches, written
+    into the stacked ``state`` rows in place (each node's tree is a view of
+    its row). ``rows`` limits the training to those nodes (default all);
+    the others keep their state and report a NaN loss. Returns each node's mean loss over its steps, (n,)."""
     n = tree_leaves(state["params"])[0].shape[0]
     dev = tree_leaves(state["params"])[0].device
     losses = torch.full((n, local_steps), float("nan"), dtype=torch.float32, device=dev)
@@ -102,16 +102,9 @@ def local_train(b, opt_cfg, state: Dict[str, Any], batch: Dict[str, torch.Tensor
             loss, _ = b.loss_fn(tree_unflatten(treedef, p_leaves), mb)
             grads = torch.autograd.grad(loss, p_leaves)
             with torch.no_grad():
-                new_p, new_opt, _ = adamw.apply_updates(
-                    tree_unflatten(treedef, [t.detach() for t in p_leaves]),
-                    tree_unflatten(treedef, list(grads)),
-                    node["opt"],
-                    opt_cfg,
-                )
-            node = {"params": new_p, "opt": new_opt, "step": node["step"] + 1}
+                adamw.apply_updates_(node["params"], list(grads), node["opt"], opt_cfg)
+                node["step"].add_(1)
             losses[i, h] = loss.detach()
-        with torch.no_grad():
-            tree_map(lambda dst, src: dst[i].copy_(src), state, node)
     return losses.mean(dim=1)
 
 

@@ -25,8 +25,10 @@ class ModelBundle:
         """Random params on ``gen``'s device."""
         return transformer.init_params(gen, self.cfg)
 
-    def loss_fn(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        return transformer.loss_fn(params, batch, self.cfg)
+    def loss_fn(self, params, batch, impl: str = "auto"
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Training loss; ``impl="ref"`` runs attention's plain versions."""
+        return transformer.loss_fn(params, batch, self.cfg, impl)
 
     def prefill_fn(self, params, batch, max_len: int):
         return transformer.prefill(params, batch["tokens"], self.cfg, max_len)

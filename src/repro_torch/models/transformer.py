@@ -1,6 +1,5 @@
 """The LM decoder stack, ssm (mamba2) and dense (gemma2, granite, qwen2)
-families: init, prefill and decode; training forward and loss for the ssm
-family.
+families: init, prefill and decode, training forward and loss.
 
 Counterpart of the JAX package's ``models/transformer.py``. A config is
 compiled to a list of :class:`LayerDesc` per *scan unit*:
@@ -11,11 +10,15 @@ compiled to a list of :class:`LayerDesc` per *scan unit*:
                                            attn(global)+mlp],    L/2 units
 
 MoE, hybrid and encoder-decoder configs, and M-RoPE (qwen2-vl), raise
-``NotImplementedError``; so do the dense family's training forward and loss
-(attention's backward comes with the dense training slice). Units are
-stacked on a leading layer axis as in the reference (its ``lax.scan``
-layout), and the forward loops over them. ``cfg.remat`` is a memory setting
-with no numeric effect and is ignored.
+``NotImplementedError``. Units are stacked on a leading layer axis as in the
+reference (its ``lax.scan`` layout), and the forward loops over them.
+Training: with ``cfg.remat == "full"`` (the default) each unit of
+:func:`forward_train` runs under ``torch.utils.checkpoint`` (recomputed in
+the backward, as the reference's ``jax.checkpoint`` of the scan body), and
+:func:`loss_fn` checkpoints each ``loss_chunk`` of the vocab projection, so
+a step keeps one chunk's float32 logits at a time. Neither changes a value.
+Attention trains through :func:`~repro_torch.models.attention.flash_attention_train`
+(its manual backward: the CUDA kernels on the card).
 
 Caches (``{"pos", "units"}`` as in the reference): per attention layer a
 :class:`KVCache` (length ``max_len``, or the window for local layers: a
@@ -39,9 +42,11 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import mamba2 as mamba_lib
-from repro_torch.models.attention import AttnSpec
+from repro_torch.models.attention import AttnSpec, flash_attention_train
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     apply_rope,
@@ -133,6 +138,8 @@ def _attn_spec(cfg: ModelConfig, desc: LayerDesc, causal: bool = True) -> AttnSp
         causal=causal,
         window=cfg.sliding_window if desc.local else None,
         softcap=cfg.attn_softcap,
+        block_q=cfg.attn_block_q,
+        block_k=cfg.attn_block_k,
     )
 
 
@@ -351,47 +358,68 @@ def decode_step(params: Params, cache: Dict, token: torch.Tensor, cfg: ModelConf
 
 
 # ---------------------------------------------------------------------------
-# training forward (ssm family)
+# training forward
 # ---------------------------------------------------------------------------
 
-def _unit_forward(h: torch.Tensor, unit_p: Params, cfg: ModelConfig) -> torch.Tensor:
-    """Apply one unit (mamba layers; attention's backward is not ported)."""
+def _unit_forward(h: torch.Tensor, unit_p: Params, positions: torch.Tensor,
+                  cfg: ModelConfig, impl: str = "auto") -> torch.Tensor:
+    """Apply one unit: each layer's mixer (attention through
+    ``flash_attention_train``, or mamba) and MLP, with their residuals."""
     for j, d in enumerate(scan_unit(cfg)):
-        if d.mixer != "mamba":
-            raise _unported(cfg, "'s training forward (attention backward)")
         p = unit_p[f"L{j}"]
         hn = rmsnorm(h, p["ln"], cfg.norm_eps)
-        h = h + mamba_lib.mamba_forward(p["mamba"], hn, cfg)
+        if d.mixer == "attn":
+            q, k, v = _qkv(p["attn"], hn, cfg)
+            q, k = _rope_qk(q, k, positions, cfg)
+            out = flash_attention_train(q, k, v, _attn_spec(cfg, d), impl)
+            h = h + _attn_out(p["attn"], out)
+        else:
+            h = h + mamba_lib.mamba_forward(p["mamba"], hn, cfg)
         if d.ffn is not None:
             h = h + mlp_apply(p["ffn"], rmsnorm(h, p["ln2"], cfg.norm_eps), cfg)
     return h
 
 
-def forward_train(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Decoder forward: hidden states (B, S, D)."""
+def forward_train(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+                  impl: str = "auto") -> torch.Tensor:
+    """Decoder forward: hidden states (B, S, D). ``impl`` picks attention's
+    path ("auto": the kernels on the card; "ref": their plain versions)."""
+    B, S = tokens.shape
     h = embed_tokens(params["embed"], tokens, cfg)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     for u in range(n_units(cfg)):
         unit_p = tree_map(lambda t: t[u], params["units"])
-        h = _unit_forward(h, unit_p, cfg)
+        if cfg.remat == "full":
+            h = checkpoint(_unit_forward, h, unit_p, positions, cfg, impl,
+                           use_reentrant=False)
+        else:
+            h = _unit_forward(h, unit_p, positions, cfg, impl)
     return rmsnorm(h, params["final_ln"], cfg.norm_eps)
 
 
-def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def _chunk_loss(embed: Params, h: torch.Tensor, labels: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """Summed cross-entropy of one chunk: (B, chunk, V) float32 logits."""
+    logits = lm_logits(embed, h, cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    return torch.sum(lse - gold)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            impl: str = "auto") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Token-mean cross-entropy, the vocab projection taken ``loss_chunk``
-    positions at a time (the logits of one chunk at once, as the reference's
-    chunk scan)."""
+    positions at a time, each chunk checkpointed (its logits recomputed in
+    the backward), as the reference's chunk scan."""
     tokens, labels = batch["tokens"], batch["labels"]
-    h = forward_train(params, tokens, cfg)
+    h = forward_train(params, tokens, cfg, impl)
     B, S, _ = h.shape
     chunk = min(cfg.loss_chunk, S)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(S // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
-        logits = lm_logits(params["embed"], h[:, sl], cfg)       # (B,chunk,V) f32
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.take_along_dim(logits, labels[:, sl, None].long(), dim=-1)[..., 0]
-        total = total + torch.sum(lse - gold)
+        total = total + checkpoint(_chunk_loss, params["embed"], h[:, sl], labels[:, sl],
+                                   cfg, use_reentrant=False)
     loss = total / (B * S)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     return loss, {"ce_loss": loss, "moe_aux": zero, "moe_zloss": zero}

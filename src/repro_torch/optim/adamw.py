@@ -15,7 +15,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
+from repro_torch.pytree import tree_leaves, tree_map
 
 
 @dataclass(frozen=True)
@@ -104,9 +104,8 @@ def _flat_with_q(tree: Any):
         yield tree
 
 
-def apply_updates(params: Any, grads: Any, state: Dict[str, Any], cfg: OptConfig
-                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
-    """One AdamW step on one node's tree; returns new tensors."""
+def _step_scalars(grads: Any, state: Dict[str, Any], cfg: OptConfig):
+    """(new count, lr, grad norm, clip factor, bias corrections 1 and 2)."""
     count = state["count"] + 1
     lr = schedule(state["count"], cfg)
     gnorm = global_norm(grads)
@@ -114,26 +113,77 @@ def apply_updates(params: Any, grads: Any, state: Dict[str, Any], cfg: OptConfig
     cnt = count.to(torch.float32)
     bc1 = 1 - torch.pow(_f32(cfg.b1, cnt.device), cnt)
     bc2 = 1 - torch.pow(_f32(cfg.b2, cnt.device), cnt)
+    return count, lr, gnorm, clip, bc1, bc2
 
-    def update_leaf(p, g, mu_s, nu_s):
-        g = g.to(torch.float32) * clip
-        mu = cfg.b1 * _load(mu_s) + (1 - cfg.b1) * g
-        nu = cfg.b2 * _load(nu_s) + (1 - cfg.b2) * torch.square(g)
-        upd = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
-        if p.dtype.is_floating_point:
-            p32 = p.to(torch.float32)
-            new_p = (p32 - lr * (upd + cfg.weight_decay * p32)).to(p.dtype)
-        else:  # non-float leaves pass through
-            new_p = p
-        return new_p, _store(mu, cfg.dtype), _store(nu, cfg.dtype)
 
-    flat_p, treedef = tree_flatten(params)
-    flat_g = tree_leaves(grads)
+def _update_leaf(p, g, mu_s, nu_s, cfg: OptConfig, lr, clip, bc1, bc2):
+    """One leaf's AdamW update -> (new param, stored mu, stored nu)."""
+    g = g.to(torch.float32) * clip
+    mu = cfg.b1 * _load(mu_s) + (1 - cfg.b1) * g
+    nu = cfg.b2 * _load(nu_s) + (1 - cfg.b2) * torch.square(g)
+    upd = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
+    if p.dtype.is_floating_point:
+        p32 = p.to(torch.float32)
+        new_p = (p32 - lr * (upd + cfg.weight_decay * p32)).to(p.dtype)
+    else:  # non-float leaves pass through
+        new_p = p
+    return new_p, _store(mu, cfg.dtype), _store(nu, cfg.dtype)
+
+
+def apply_updates(params: Any, grads: Any, state: Dict[str, Any], cfg: OptConfig
+                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
+    """One AdamW step on one node's tree; returns new tensors (a copy of
+    params and state stepped by :func:`apply_updates_`)."""
+    new_params = tree_map(torch.clone, params)
+    new_state = tree_map(torch.clone, state)
+    metrics = apply_updates_(new_params, tree_leaves(grads), new_state, cfg)
+    return new_params, new_state, metrics
+
+
+# elements of one piece of a large leaf in the in-place update
+INPLACE_CHUNK = 1 << 24
+
+
+def _write(dst, src) -> None:
+    if isinstance(dst, QTensor):
+        dst.q.copy_(src.q)
+        dst.scale.copy_(src.scale)
+    else:
+        dst.copy_(src)
+
+
+def _rows(x, sl):
+    return QTensor(q=x.q[sl], scale=x.scale[sl]) if isinstance(x, QTensor) else x[sl]
+
+
+def apply_updates_(params: Any, grads: list, state: Dict[str, Any], cfg: OptConfig
+                   ) -> Dict[str, torch.Tensor]:
+    """One AdamW step written into ``params`` and the moments of ``state``
+    in place (the reference's jit donates the state; a float32 model of
+    2.5 B params cannot hold a second copy of params and moments beside
+    the first on one card). ``grads`` is a list
+    of the leaves' gradients in tree order; each entry is dropped once its
+    leaf is updated, and a leaf of more than ``INPLACE_CHUNK`` elements and
+    two or more dims is updated ``INPLACE_CHUNK``-sized runs of rows at a
+    time (the update is elementwise, int8 moments are quantized per last-axis
+    row), so the step's scratch stays one run's. Returns the metrics; the
+    count advances in place."""
+    count, lr, gnorm, clip, bc1, bc2 = _step_scalars(grads, state, cfg)
+    flat_p = tree_leaves(params)
     flat_mu = list(_flat_with_q(state["mu"]))
     flat_nu = list(_flat_with_q(state["nu"]))
-    out = [update_leaf(p, g, m, n) for p, g, m, n in zip(flat_p, flat_g, flat_mu, flat_nu)]
-    new_params = tree_unflatten(treedef, [o[0] for o in out])
-    new_mu = tree_unflatten(treedef, [o[1] for o in out])
-    new_nu = tree_unflatten(treedef, [o[2] for o in out])
-    metrics = {"grad_norm": gnorm, "lr": lr}
-    return new_params, {"mu": new_mu, "nu": new_nu, "count": count}, metrics
+    for i, (p, m, n) in enumerate(zip(flat_p, flat_mu, flat_nu)):
+        g = grads[i]
+        grads[i] = None
+        rows = p.shape[0] if p.dim() >= 2 else 1
+        per = max(1, rows * INPLACE_CHUNK // max(p.numel(), 1))
+        for r0 in range(0, rows, per):
+            sl = slice(r0, r0 + per) if p.dim() >= 2 else slice(None)
+            new_p, new_m, new_n = _update_leaf(p[sl], g[sl], _rows(m, sl), _rows(n, sl),
+                                               cfg, lr, clip, bc1, bc2)
+            p[sl].copy_(new_p)
+            _write(_rows(m, sl), new_m)
+            _write(_rows(n, sl), new_n)
+        del g
+    state["count"].copy_(count)
+    return {"grad_norm": gnorm, "lr": lr}

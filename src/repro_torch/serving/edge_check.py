@@ -66,7 +66,7 @@ def dense_edge_check(device, arch: str = "gemma2-9b", ticks: int = EDGE_TICKS) -
         _require(bool((gpu.step(both) == cpu.step(both)).all()),
                  f"f32: tick {t} differs from a CPU decoder's")
     want = {"flash_attention_fwd": cfg.n_layers, "flash_attention_fwd_wgmma": 0,
-            "flash_attention_decode": cfg.n_layers * ticks}
+            "flash_attention_decode": cfg.n_layers * ticks, "flash_attention_bwd": 0}
     _require(fa_kern.launch_counts() == want,
              f"f32: launches {fa_kern.launch_counts()} != {want}")
     del gpu, cpu
@@ -78,7 +78,7 @@ def dense_edge_check(device, arch: str = "gemma2-9b", ticks: int = EDGE_TICKS) -
     for _ in range(ticks):
         dec.step(both)
     want = {"flash_attention_fwd": cfg.n_layers, "flash_attention_fwd_wgmma": cfg.n_layers,
-            "flash_attention_decode": cfg.n_layers * ticks}
+            "flash_attention_decode": cfg.n_layers * ticks, "flash_attention_bwd": 0}
     _require(fa_kern.launch_counts() == want,
              f"bf16: launches {fa_kern.launch_counts()} != {want}")
     _require(int(dec._cache["pos"].min()) > cfg.sliding_window,

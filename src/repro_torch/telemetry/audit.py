@@ -508,11 +508,11 @@ def audit_recorder(
 # CI gate: audit a small ground-segment plan end to end
 # ---------------------------------------------------------------------------
 
-def _ci_smoke(windows: int) -> int:
+def _ci_smoke(windows: int, report_prefix: Optional[str]) -> int:
     """Plan a small 2-plane Walker + 2-ground-station constellation, run
     the pipelined router for a few windows (with one satellite outage to
     exercise the carry/age ledger), and audit the result. Zero violations
-    is the gate."""
+    is the gate; the optional mission report captures the evidence."""
     from repro_torch.constellation import contact_plan, orbits
     from repro_torch.groundseg import routing
 
@@ -533,7 +533,7 @@ def _ci_smoke(windows: int) -> int:
         ground_stations=gs,
         max_range_km=16_000.0,
     )
-    with telemetry.record_scope(tracing=True):
+    with telemetry.record_scope(tracing=True) as rec:
         sched = plan.schedule(antennas=2, payload_bytes=1 << 20)
         rels = list(sched.tdm)
         router = routing.MultiWindowRouter(
@@ -551,6 +551,14 @@ def _ci_smoke(windows: int) -> int:
         )
         for v in audit.violations:
             print(f"  {v}")
+        if report_prefix:
+            from repro_torch.telemetry.report import write_report
+
+            md, js = write_report(
+                report_prefix, rec, audit=audit,
+                title="groundseg audit smoke",
+            )
+            print(f"wrote mission report to {md} and {js}")
     return 0 if audit.ok else 1
 
 
@@ -561,10 +569,14 @@ def main(argv=None) -> int:
         help="audit a small groundseg plan end to end (CI gate)",
     )
     p.add_argument("--windows", type=int, default=5)
+    p.add_argument(
+        "--report", default=None, metavar="PREFIX",
+        help="also write PREFIX.md / PREFIX.json mission report",
+    )
     args = p.parse_args(argv)
     if not args.ci_smoke:
         p.error("nothing to do: pass --ci-smoke")
-    return _ci_smoke(args.windows)
+    return _ci_smoke(args.windows, args.report)
 
 
 __all__ = (

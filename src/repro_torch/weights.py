@@ -52,9 +52,10 @@ def params_from_jax(tree_of_numpy: Any, device=None) -> Any:
 
 
 def state_from_jax(state_of_numpy: Any, device=None) -> Any:
-    """Reference ``_stack_init`` state ({"params", "opt": {"mu", "nu",
-    "count"}, "step"}, numpy leaves with the node axis first) -> the port's
-    stacked state on ``device``."""
+    """A reference train state ({"params", "opt": {"mu", "nu", "count"},
+    "step"}, numpy leaves: ``launch/steps.init_state``'s, or
+    ``_stack_init``'s with the node axis first) -> the port's state on
+    ``device``."""
     return _convert(state_of_numpy, resolve_device(device))
 
 

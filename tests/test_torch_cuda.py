@@ -28,7 +28,12 @@ and per-row kv_len (caches up to 8192 slots, split into many chunks), two
 launches bit-identical, bf16 prefills counted on the tensor-core kernel;
 and gemma2-9b smoke ``ModelDecoder`` runs on the card: a prefill and tick,
 and one prefill call admitting both replicas in a bucket-256 wave followed
-by ticks past the window (the local ring engaged).
+by ticks past the window (the local ring engaged). Training attention
+(``kernels/flash_attention/cases.py``, as ``chip_smoke.py`` runs it): the
+forward's lse and ``flash_attention_bwd`` against their plain versions,
+f32 and bf16, each launched twice bit-identical; and one train step of the
+gemma2-9b smoke config on the kernels against the same step on the plain
+versions (``impl="ref"``) on the card.
 """
 
 from __future__ import annotations
@@ -571,5 +576,82 @@ def test_dense_decoder_both_replicas_bucket_256_and_local_ring(device):
     assert seen["prompts"] == [129, 200, 256, 160] and seen["ticks"] == EDGE_TICKS == 24
     assert seen["launches"] == {"flash_attention_fwd": cfg.n_layers,
                                 "flash_attention_fwd_wgmma": cfg.n_layers,
-                                "flash_attention_decode": cfg.n_layers * EDGE_TICKS}
+                                "flash_attention_decode": cfg.n_layers * EDGE_TICKS,
+                                "flash_attention_bwd": 0}
     assert len(seen["rings"]) == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(range(8)))
+def test_flash_attention_bwd_against_plain(device, case, dtype):
+    from repro_torch.kernels.flash_attention import cases
+
+    cases.check_bwd_case(cases.BWD_CASES[case], dtype, device)
+
+
+# (loss rtol, grad norm rtol, mu's share of its leaf's scale) for one step
+# on the kernels against one on the plain versions. f32: sums in another
+# order, as tests/test_torch_train.py holds the step to the reference
+# (measured on an H100: grad norm 0, mu 4.4e-7). bf16: a bf16 activation
+# rounded the other way moves a gradient by bf16 ulps; mu within the bf16
+# attention tolerance of test_torch_train.py, 1e-2 of scale (measured
+# 7.3e-3), the grad norm within 1e-4 (measured 1.2e-5), the loss 1e-3
+# (measured 1.1e-6)
+FIRST_STEP_TOL = {"float32": (1e-5, 1e-5, 1e-5), "bfloat16": (1e-3, 1e-4, 1e-2)}
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_train_step_on_kernels_matches_plain(device, compute_dtype):
+    """One train step of the gemma2-9b smoke config (S 40: ragged tiles,
+    windows of 16) on the kernels and on their plain versions from the same
+    state, held together by ``cases.check_first_step`` at
+    ``FIRST_STEP_TOL``: the loss, the grad norm, every leaf's first moment
+    (0.1 times the clipped gradient, so the gradients' sizes), and every
+    param entry within what the mu tolerance lets Adam's first step move
+    it; besides, every param entry within twice the step's lr, and all but
+    1e-4 of them within 1e-6 in f32 (as ``tests/test_torch_train.py`` holds
+    the step to the reference: Adam's ``mu / (sqrt(nu) + eps)`` amplifies
+    the rounding of gradient entries near eps), all but 1% within 1e-4 in
+    bf16 (a bf16 activation rounded the other way moves the gradients by
+    bf16 ulps, which flips the sign of the entries whose gradient is that
+    small; measured 104 of 131 648); the attention launches are the
+    oracle's (remat: forward twice per layer)."""
+    from repro_torch.configs import archs
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.flash_attention import cases
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kern
+    from repro_torch.launch import steps
+    from repro_torch.launch.fl_train import batch_to_device
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.pytree import tree_leaves, tree_map
+
+    cfg = archs.smoke_cfg(archs.get("gemma2-9b")).replace(compute_dtype=compute_dtype)
+    opt = adamw.OptConfig(peak_lr=3e-3, warmup_steps=5, decay_steps=10)
+    start = steps.init_state(0, cfg, opt, device)
+    batch = batch_to_device(
+        pipeline.SyntheticStream(cfg, ShapeConfig("c", "train", 40, 4), seed=1).batch(0),
+        device)
+    runs = {}
+    for impl in ("cuda", "ref"):
+        state = tree_map(lambda t: t.clone(), start)
+        fa_kern.reset_launch_counts()
+        state, metrics = steps.build_train_step(cfg, opt, impl)(state, batch)
+        torch.cuda.synchronize()
+        runs[impl] = (state, metrics, fa_kern.launch_counts())
+    assert runs["cuda"][2]["flash_attention_fwd"] == 2 * cfg.n_layers
+    assert runs["cuda"][2]["flash_attention_bwd"] == cfg.n_layers
+    assert runs["ref"][2]["flash_attention_fwd"] == runs["ref"][2]["flash_attention_bwd"] == 0
+    loss_rtol, gnorm_rtol, mu_rtol = FIRST_STEP_TOL[compute_dtype]
+    read = cases.check_first_step(runs["cuda"][0], runs["cuda"][1], runs["ref"][0],
+                                  runs["ref"][1], opt, loss_rtol=loss_rtol,
+                                  gnorm_rtol=gnorm_rtol, mu_rtol=mu_rtol)
+    print(f"first step, {compute_dtype}: {read}")
+    off = total = 0
+    for a, b in zip(tree_leaves(runs["cuda"][0]["params"]), tree_leaves(runs["ref"][0]["params"])):
+        diff = (a - b).abs()
+        assert float(diff.max()) <= 2 * 3e-3 / 5      # a sign flip at step 0's lr
+        off += int((diff > (1e-6 if compute_dtype == "float32" else 1e-4)).sum())
+        total += diff.numel()
+    assert off <= (1e-4 if compute_dtype == "float32" else 1e-2) * total, \
+        f"{off} of {total} param entries off"

@@ -3,9 +3,11 @@
 A child process (this file run as a script, with 8 forced XLA host devices)
 runs the reference ``run_constellation_fl`` for 2 rounds each of int8 and
 top-k (CHOCO) exchange on the mamba2-780m smoke model, satellite 3 lost
-after round 0, and writes its start state, per-round logs and final params
-to an ``.npz``. The port starts from the same state (``state_from_jax``) on
-the same batches and must match.
+after round 0, and one uncompressed ``build_fl_round`` over a ring of the
+8 nodes on the gemma2-9b smoke model (the dense training path), and writes
+the start states, per-round logs and final params to an ``.npz``. The port
+starts from the same state (``state_from_jax``) on the same batches and
+must match.
 
 Tolerances: round 0's loss comes before any exchange, from the same params
 and tokens, so it agrees to float32 rounding (rtol 1e-5). After an exchange
@@ -86,7 +88,43 @@ def _reference(out_path: str) -> None:
         flat, _ = jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, state["params"]))
         for path, leaf in flat:
             out[f"{mode}/params/" + jax.tree_util.keystr(path)] = leaf
+    _reference_dense(out, mesh)
     np.savez(out_path, **out)
+
+
+def _dense_cfgs(archs, adamw, ShapeConfig):
+    cfg = archs.smoke_cfg(archs.get("gemma2-9b")).replace(compute_dtype="float32")
+    _, opt_cfg, shape = _cfgs(archs, adamw, ShapeConfig)
+    return cfg, opt_cfg, shape
+
+
+def _reference_dense(out: dict, mesh) -> None:
+    """One TDM round (2 local steps, uncompressed exchange over a ring of the
+    8 nodes) on the gemma2-9b smoke model: start state, losses, params."""
+    import jax
+
+    from repro.configs import archs
+    from repro.core.relation import Relation
+    from repro.launch import fl_train
+    from repro.models.config import ShapeConfig
+    from repro.optim import adamw
+    from repro_torch.launch.train_fl_constellation import make_batch_fn
+
+    cfg, opt_cfg, shape = _dense_cfgs(archs, adamw, ShapeConfig)
+    start = jax.tree.map(
+        np.asarray, fl_train._stack_init(jax.random.PRNGKey(1), cfg, opt_cfg, N_SATS))
+    flat, _ = jax.tree_util.tree_flatten_with_path(start)
+    for path, leaf in flat:
+        out["dense/start/" + jax.tree_util.keystr(path)] = leaf
+    rel = Relation.from_edges([(i, (i + 1) % N_SATS) for i in range(N_SATS)])
+    fn = fl_train.build_fl_round(cfg, opt_cfg, mesh, N_SATS,
+                                 fl_train.FLConfig(mode="tdm", local_steps=2), rel)
+    state, losses = fn(jax.tree.map(jax.numpy.array, start),
+                       jax.tree.map(jax.numpy.asarray, make_batch_fn(cfg, shape, N_SATS)(0)))
+    out["dense/loss"] = np.asarray(losses)
+    flat, _ = jax.tree_util.tree_flatten_with_path(jax.tree.map(np.asarray, state["params"]))
+    for path, leaf in flat:
+        out["dense/params/" + jax.tree_util.keystr(path)] = leaf
 
 
 def _unkeystr(d: dict, prefix: str) -> dict:
@@ -172,6 +210,50 @@ def test_constellation_slice_matches_reference(reference, mode):
         np.testing.assert_allclose(g, w, rtol=0, atol=2e-4, err_msg=path)
 
     compare(got, want)
+
+
+
+@pytest.mark.slow
+def test_dense_fl_round_matches_reference(reference):
+    """One TDM round of the gemma2-9b smoke model (the dense training path:
+    attention's manual backward under remat) from the reference's start
+    state on its batches: each node's loss within rtol 1e-5 (no exchange
+    before it); the mixed params with every entry within 2e-4, as the
+    mamba rounds above, and all but 1e-4 of them within 1e-6 (Adam's
+    ``mu / (sqrt(nu) + eps)`` amplifies the rounding of gradient entries
+    near eps, as ``tests/test_torch_train.py`` measures)."""
+    from repro_torch.configs import archs
+    from repro_torch.core.relation import Relation
+    from repro_torch.launch import fl_train
+    from repro_torch.launch.train_fl_constellation import make_batch_fn
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.weights import state_from_jax, to_numpy
+
+    cfg, opt_cfg, shape = _dense_cfgs(archs, adamw, ShapeConfig)
+    state = state_from_jax(_unkeystr(reference, "dense/start/"), device="cpu")
+    rel = Relation.from_edges([(i, (i + 1) % N_SATS) for i in range(N_SATS)])
+    fn = fl_train.build_fl_round(cfg, opt_cfg, N_SATS,
+                                 fl_train.FLConfig(mode="tdm", local_steps=2), rel)
+    batch = fl_train.batch_to_device(make_batch_fn(cfg, shape, N_SATS)(0), "cpu")
+    state, losses = fn(state, batch)
+    np.testing.assert_allclose(losses.numpy(), reference["dense/loss"], rtol=1e-5)
+    want = _unkeystr(reference, "dense/params/")
+    got = to_numpy(state["params"])
+    counts = [0, 0]
+
+    def compare(g, w, path=""):
+        if isinstance(w, dict):
+            for k in w:
+                compare(g[k], w[k], f"{path}/{k}")
+            return
+        diff = np.abs(g - w)
+        assert float(diff.max()) <= 2e-4, path
+        counts[0] += int((diff > 1e-6).sum())
+        counts[1] += diff.size
+
+    compare(got, want)
+    assert counts[0] <= 1e-4 * counts[1], counts
 
 
 if __name__ == "__main__":

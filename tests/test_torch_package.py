@@ -48,6 +48,30 @@ def test_dense_slice_modules_are_covered():
     assert (PKG / "csrc" / "flash_attention.cu").is_file()
 
 
+def test_training_slice_modules_are_covered():
+    """The scans above reach the dense training slice's modules (the step
+    builders, the trainer, checkpoints, the telemetry export and report,
+    the training attention's card cases) and the port names the training
+    attention, its kernels and plain versions."""
+    want = {
+        "repro_torch.launch.steps", "repro_torch.launch.train",
+        "repro_torch.checkpoint.checkpoint", "repro_torch.telemetry.export",
+        "repro_torch.telemetry.report", "repro_torch.kernels.flash_attention.cases",
+    }
+    assert want <= set(MODULES)
+    from repro_torch.kernels.flash_attention import flash_attention, ops, ref
+    from repro_torch.models import attention
+
+    for mod, names in (
+        (attention, ("naive_attention", "flash_attention_train", "_flash_forward",
+                     "_flash_backward")),
+        (ops, ("flash_attention_bwd",)),
+        (flash_attention, ("flash_attention_bwd",)),
+        (ref, ("attention_bwd_ref", "attention_lse_ref")),
+    ):
+        assert all(callable(getattr(mod, n, None)) for n in names), mod.__name__
+
+
 def test_paper_slice_modules_are_covered():
     """The scans above reach the modules that finish the paper's exchange
     layer: the simulator floor, the per-leaf compressors and the schedule

@@ -1,8 +1,11 @@
-"""The port's dense-family serving slice against the reference's, on gemma2-9b.
+"""The port's dense-family serving slice against the reference's, on gemma2-9b
+and, for the model itself, the other dense archs.
 
 - Model: ``transformer.prefill`` / ``decode_step`` on the gemma2-9b smoke
   config (4 layers, local/global alternating, window 16, GQA 4/2, hd 16,
-  softcaps), reference params carried across with
+  softcaps) and on the smoke configs of gemma2-27b, granite-20b (MQA, the
+  2-matrix MLP; 2 layers, every one global) and qwen2-72b (QKV bias, an
+  untied head, rope theta 1e6), reference params carried across with
   ``weights.params_from_jax``; prompts of 14 tokens (shorter than the window:
   the local caches are padded, and decoding wraps their ring at position
   16) and 20 tokens (longer: the prefill writes the ring), then 4 greedy
@@ -48,20 +51,32 @@ from repro_torch.weights import params_from_jax
 from test_torch_serving import _serve, _snapshot
 
 ARCH = "gemma2-9b"
+# the dense archs held to the reference: gemma2-27b (local/global, hd 128 at
+# full size), granite-20b (MQA, the 2-matrix MLP), qwen2-72b (QKV bias, an
+# untied head, rope theta 1e6)
+DENSE_ARCHS = (ARCH, "gemma2-27b", "granite-20b", "qwen2-72b")
 MAX_LEN, DECODE_STEPS = 27, 4
 
 
-def _cfgs(compute_dtype="float32"):
-    j = j_archs.smoke_cfg(j_archs.get(ARCH)).replace(compute_dtype=compute_dtype)
-    t = archs.smoke_cfg(archs.get(ARCH)).replace(compute_dtype=compute_dtype)
+def _cfgs(compute_dtype="float32", arch=ARCH):
+    j = j_archs.smoke_cfg(j_archs.get(arch)).replace(compute_dtype=compute_dtype)
+    t = archs.smoke_cfg(archs.get(arch)).replace(compute_dtype=compute_dtype)
     return j, t
+
+
+_REF_PARAMS = {}
+
+
+def _ref_params_of(arch):
+    if arch not in _REF_PARAMS:
+        jcfg, _ = _cfgs(arch=arch)
+        _REF_PARAMS[arch] = j_registry.bundle(jcfg).init(jax.random.PRNGKey(0))[0]
+    return _REF_PARAMS[arch]
 
 
 @pytest.fixture(scope="module")
 def ref_params():
-    jcfg, _ = _cfgs()
-    params, _ = j_registry.bundle(jcfg).init(jax.random.PRNGKey(0))
-    return params
+    return _ref_params_of(ARCH)
 
 
 def _np(x):
@@ -75,11 +90,16 @@ def _close(got, want, rtol, floor, what):
                                err_msg=what)
 
 
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("prompt", [14, 20])
-def test_prefill_and_decode_match_reference(ref_params, prompt, compute_dtype):
-    jcfg, tcfg = _cfgs(compute_dtype)
-    assert [d.local for d in transformer.scan_unit(tcfg)] == [True, False]
+def test_prefill_and_decode_match_reference(prompt, compute_dtype, arch):
+    ref_params = _ref_params_of(arch)
+    jcfg, tcfg = _cfgs(compute_dtype, arch)
+    local = tcfg.local_global_alternate
+    assert [d.local for d in transformer.scan_unit(tcfg)] == ([True, False] if local else
+                                                              [False])
+    names = ("kv0", "kv1") if local else ("kv0",)      # local (ring of 16), global (27)
     jb, tb = j_registry.bundle(jcfg), registry.bundle(tcfg)
     tp = params_from_jax(jax.tree.map(np.asarray, ref_params), "cpu")
     rtol, floor = (2e-5, 2e-5) if compute_dtype == "float32" else (0.0, 1.5e-2)
@@ -89,13 +109,14 @@ def test_prefill_and_decode_match_reference(ref_params, prompt, compute_dtype):
 
     def check(step):
         _close(tl, jl, rtol, floor, f"logits at step {step}")
-        for name in ("kv0", "kv1"):            # local (ring of 16), global (27)
+        for name in names:
             for f in ("k", "v"):
                 got = getattr(tc["units"][name], f)
                 _close(got, getattr(jc["units"][name], f), rtol, floor,
                        f"{name}.{f} at step {step}")
                 assert got.dtype == getattr(torch, compute_dtype)
-        assert tc["units"]["kv0"].k.shape[2] == 16 and tc["units"]["kv1"].k.shape[2] == MAX_LEN
+        assert tc["units"][names[-1]].k.shape[2] == MAX_LEN
+        assert not local or tc["units"]["kv0"].k.shape[2] == 16
         assert int(tc["pos"]) == int(jc["pos"]) == prompt + step
 
     check(0)
