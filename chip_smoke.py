@@ -2319,6 +2319,7 @@ TRAIN_BATCH = 2             # train_4k's global batch of 256, cut to one card
 TRAIN_STEPS = 4
 TRAIN_TAG = "dense-train"
 FA_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 16, 8, 256)            # (B, S, H, KV, hd)
+TRAIN_WINDOW = 4096                                         # gemma2-9b's local layers
 
 
 def _train_kernel_cases(device) -> None:
@@ -2339,8 +2340,10 @@ def _train_kernel_cases(device) -> None:
             for k, v in errs.items():
                 worst[k] = max(worst.get(k, 0.0), v)
     log(f"[{TRAIN_TAG}] {2 * len(cases.BWD_CASES)} training attention cases (hd 16-256, "
-        f"G 1-4 and MQA, causal, windows 5-256 with edges inside tiles and one biting at S "
-        f"1024, softcap 50 and none, ragged S 33-300, f32 and bf16): each launched twice "
+        f"G 1-4 (G 4 at hd 256) and MQA, causal, windows 5-256 with edges inside tiles and "
+        f"one biting at S 1024, softcap 50 and none, ragged S 33-300 (65, 127, 191 across the "
+        f"64-row tiles), the cell's local layers at S 4096 (window 4096), f32 and bf16): each "
+        f"launched twice "
         f"bit-identical; lse within 1e-5 of max(|lse|, 1) of the plain lse, the output within "
         f"fa_tolerance, dq / dk / dv within bwd_tolerance (1e-4 of each tensor's scale, plus "
         f"one bf16 ulp in bf16) of ref.attention_bwd_ref; max |diff| " + ", ".join(
@@ -2450,11 +2453,17 @@ def _train_cell(device, power_note: str) -> dict:
         f"{busy / 1e3:.3f} s ({busy / 1e3 / dt:.1%}), by kind: " + ", ".join(
             f"{k} {ms:.1f} ms" for k, ms in kinds.items()) + f"  [{power_note}]")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
-        short = name.replace("(anonymous namespace)::", "").split("(")[0][-70:]
-        log(f"[{TRAIN_TAG}]   {short}: {ms:.1f} ms in {n} launches")
+        log(f"[{TRAIN_TAG}]   {_short(name)}: {ms:.1f} ms in {n} launches")
+    log(f"[{TRAIN_TAG}] the attention backward's passes in the profiled step: " + ", ".join(
+        f"{_short(name)} {ms:.1f} ms in {n} launches ({ms / n:.3f} ms each)"
+        for name, (ms, n) in sorted(by_name.items()) if "fa_bwd" in name))
     del state, metrics, batches, prof
     torch.cuda.empty_cache()
     return counts
+
+
+def _short(kernel_name: str) -> str:
+    return kernel_name.replace("(anonymous namespace)::", "").split("(")[0][-70:]
 
 
 def _gib(nbytes: int) -> str:
@@ -2568,7 +2577,9 @@ def _train_bwd_row(device, power_note: str) -> dict:
     heads / 8 kv heads x 256, causal, softcap 50, bf16): the kernel against
     its plain version on the kernels' own (out, lse), once those are held
     to ``ref.attention_ref`` and ``ref.attention_lse_ref``; CUDA-event
-    times of both and of the library call, the bound."""
+    times of both and of the library call, the bound. The row is the global
+    layers' call (no window); the local layers' (window 4096) is timed
+    beside it."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops, ref
@@ -2611,6 +2622,16 @@ def _train_bwd_row(device, power_note: str) -> dict:
         lib = time_ms(run, reps=5)
         note = (f"{lib:.3f} ms by CUDA events (flex_attention's backward under torch.compile, "
                 f"softcap score_mod; it rounds p to bf16, so not the same function to the bit)")
+    # the local layers' call (window 4096) beside the global layers' (the
+    # row); the passes' device times come from the profiled training step
+    out_w, lse_w = ops.flash_attention(q, k, v, softcap=cap, window=TRAIN_WINDOW, impl="cuda",
+                                       lse=True)
+    local_ms = time_ms(lambda: ops.flash_attention_bwd(q, k, v, out_w, lse_w, g, softcap=cap,
+                                                       window=TRAIN_WINDOW, impl="cuda"), reps=5)
+    del out_w, lse_w
+    log(f"[kernels] flash_attention_bwd at both layer kinds of the cell: global (no window) "
+        f"{ms:.3f} ms, local (window {TRAIN_WINDOW}) {local_ms:.3f} ms by CUDA events  "
+        f"[{power_note}]")
     flops = 5 * 2 * B * H * (S * (S + 1) // 2) * hd      # the causal triangle, five products
     nbytes = 4 * B * S * H * hd * 2 + 4 * B * S * KV * hd * 2 + B * H * S * 4
     op_ms, byte_ms = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3

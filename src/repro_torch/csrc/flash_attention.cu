@@ -30,8 +30,9 @@
 // - flash_attention_bwd (training backward, q_offset 0): the gradients of
 //   the prefill from its output and lse. It replaces no Pallas kernel: the
 //   reference's backward is pure JAX under a custom_vjp
-//   (src/repro/models/attention.py _flash_backward); its design is at
-//   fa_bwd_dkdv_kernel below.
+//   (src/repro/models/attention.py _flash_backward); the f32 design is at
+//   fa_bwd_dkdv_kernel below, the bf16 one (wgmma) at
+//   fa_bwd_dq_wgmma_kernel.
 // - flash_attention_decode (serving decode): no causal or window mask, a
 //   per-row kv_len (B,) int32 device tensor, keys t >= kv_len[b] masked and
 //   never read (kv_len must be in [1, L]). kv_len is read on the card only,
@@ -133,6 +134,7 @@
 // an int (0 = success). flash_attention_fwd_launched() then says which
 // prefill kernel the call launched, for the wrapper's launch counters.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -941,8 +943,8 @@ fa_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // backward (flash_attention_bwd): f32 on CUDA cores
 // ---------------------------------------------------------------------------
 //
-// Three passes, launched one after the other by one entry point (the bf16
-// entry runs the same passes on tensor cores, below):
+// Three passes, launched one after the other by the f32 entry point (the
+// bf16 entry runs two wgmma passes instead, below):
 // - fa_bwd_delta_kernel: delta[b, h, q] = sum_d g[b, q, h, d] out[b, q, h, d]
 //   in f32, one warp per row;
 // - fa_bwd_dkdv_kernel: one block per (lane, kv head, 32-key tile). dK and
@@ -965,10 +967,10 @@ fa_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // 256, causal, bf16): the five products of the causal triangle, 5 x 2 x
 // S^2/2 x hd x B x H = 687 GFLOP, are 0.69 ms at 989 TFLOP/s (bf16 tensor
 // cores); the bytes (q, k, v, out, g, lse in; dq, dk, dv out), 403 MB,
-// 0.12 ms at 3.35 TB/s: operations bound it. Both versions recompute S and dP in both
-// passes (seven products) and stage every operand through shared memory
-// behind block-wide barriers; their times against the bound are in
-// PERF.md. Shared memory of the f32 passes at hd 256: four 32 x (hd + 1)
+// 0.12 ms at 3.35 TB/s: operations bound it. The f32 passes recompute S
+// and dP in both passes (seven products) and stage every operand through
+// shared memory behind block-wide barriers; the times of both entries
+// against the bound are in PERF.md. Shared memory of the f32 passes at hd 256: four 32 x (hd + 1)
 // f32 tiles and the two 32 x 33 score tiles, 140 KB (opted in above 48
 // KB), one block of 256 threads per SM.
 
@@ -1252,314 +1254,491 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// backward in bf16 on tensor cores (mma.sync)
+// backward in bf16 on tensor cores (wgmma)
 // ---------------------------------------------------------------------------
 //
-// The bf16 entry runs the same three passes with the five products on the
-// tensor cores: mma.sync m16n8k16, bf16 operands, f32 accumulators. Q, dO,
-// K and V are bf16 already, so S = Q K^T and dP = dO V^T are exact products
-// summed in f32, as on CUDA cores. p and ds are f32: they enter dV += P^T dO,
-// dK += dS^T Q and dQ += dS K as two bf16 operands, hi = bf16(x) and lo =
-// bf16(x - hi), two products each (16 significant bits of x, as the
-// forward's PV takes p). A block of 8 warps owns a 32-key tile (dk/dv pass)
-// or a 32-row query tile (dq pass): each warp computes one 16 x 8 tile of S
-// and of dP (hd / 16 steps), writes its p / ds entries to shared memory as
-// hi and lo (transposed in the dk/dv pass, so that P^T and dS^T are
-// row-major A operands), and accumulates a 16 x (hd / 4) slab of dK and dV
-// (or dQ) in registers, 32 f32 each at hd 256. The B operands of those
-// products (dO, Q, K with the query or key index contiguous) are staged
-// transposed as they are loaded. Rows are padded by 8 bf16 (16 bytes), so
-// a warp's 32-bit fragment loads hit 32 distinct banks. Shared memory at hd
-// 256: 119 KB (dk/dv) and 93 KB (dq).
+// The bf16 entry runs two passes, both on wgmma (bf16 operands, f32
+// accumulators), launched one after the other on the stream:
+// - fa_bwd_dq_wgmma_kernel: one block per (lane, head, 64-row query tile).
+//   Its prologue computes the tile's delta = rowsum(g * out) in f32 and
+//   writes it for the next pass, so delta costs no launch of its own. It walks the key tiles of _kv_block_range:
+//   S = Q K^T and dP = dO V^T, p, ds, then dQ += dS K.
+// - fa_bwd_dkdv_wgmma_kernel: one block per (lane, kv head, 64-key tile).
+//   It walks the G query heads of its kv head and, for each, the query
+//   tiles that see the key tile (the inverse of _kv_block_range: causal
+//   from the tile's first key, a window up to its last key + window - 1),
+//   from the last: S^T = K Q^T and dP^T = V dO^T with M = keys, p^T and
+//   ds^T, then dV += P^T dO and dK += dS^T Q.
+// Each output row has one block, and every sum runs in a fixed order: no
+// atomics, so a call's gradients are the same bits every time.
+//
+// The grids run the tile index fastest, heavy tiles first (the query tiles
+// with the most key tiles; key tile 0, which the most query tiles see), and
+// (lane, head) slowest, so the ~132 blocks resident at a time share one or
+// two (lane, kv head) streams of K and V (Q and dO), which stay in the 50 MB
+// L2; with (lane, head) fastest they spanned all 16 streams at the cell's
+// shape (64 MB of K and V, 134 MB of Q and dO), more than L2 holds.
+//
+// One skeleton serves both passes. The block's own 64 rows (K and V, or Q
+// and dO) are resident in shared memory for the whole block and are the A
+// operands of the two score products; the other side's 64-row tiles (Q and
+// dO with their lse and delta, or K and V) stream through a two-stage ring.
+// At hd >= 64 one thread copies every tile with TMA (boxes of 64 rows x 64
+// dims, 128-byte swizzled, rows past S zero-filled) and each stage's
+// mbarrier counts its bytes; the lse and delta rows, which need not be
+// 16-byte aligned, come by 4-byte cp.async copies that arrive on the same
+// barrier. Copied by cp.async, 16 bytes a thread, the tiles of a pass took
+// about as long as its products and arithmetic together, and the two passes
+// ran 1.5x as long as with TMA (PERF.md, Findings);
+// TMA's line-sized requests hide the copies behind the products. At hd 16
+// and 32 (no 128-byte rows) the tiles keep cp.async and hopper.cuh's
+// no-swizzle layout. The streamed tiles are B operands twice: K-major in the
+// score products (S^T = K Q^T reads Q's rows as N), and MN-major (trans-b =
+// 1) in the output products (dV += P^T dO reads dO with N = hd and K = the
+// query rows). So nothing is staged transposed, and no 2-byte transposing
+// store is made.
+//
+// The register budget at hd 256 is the crux. dK and dV of a 64-key tile are
+// 2 x 64 x 256 f32: 256 registers a thread for one warpgroup, over the limit
+// of 255 before anything else is held. So a block is two consumer
+// warpgroups (256 threads), and warpgroup w owns dims [128 w, 128 w + 128)
+// of both dK and dV (64 + 64 registers a thread; the dq pass 64 of dQ) and
+// columns [32 w, 32 w + 32) of the 64 x 64 score tiles (S^T and dP^T as
+// m64n32 products over hd, 16 + 16 registers). The output products need all
+// 64 columns, so each warpgroup writes its half of p^T and ds^T (the dq
+// pass: ds) as bf16 hi and lo into four 64 x 64 tiles in shared memory
+// (4-byte stores; each warp's fill one 128-byte core matrix, no bank
+// conflict), and both read the whole tiles as SS-wgmma A operands (K-major).
+// Per streamed tile, two named barriers over the two warpgroups: one after
+// the score tiles are written (before the output products read them), one
+// once both warpgroups' output products of the previous tile are done (the
+// score tiles and that tile's ring stage are free, and the next tile but
+// one is copied into the stage). The output products of tile i overlap the
+// issue of the score products of tile i + 1 (wgmma.wait_group 1). A
+// register-A (RS) dQ += dS K in one warpgroup would hold 128 registers of
+// dQ, 64 of S and dP and 32 of dS hi + lo at once; the split keeps the
+// dk/dv pass at 221 registers a thread and the dq pass at 158 with no spills
+// (ptxas, hd 256; PERF.md has every hd), and the two passes share one code
+// path. No producer warpgroup, so no setmaxnreg.
+//
+// Shared memory at hd 256: resident 2 x 32 KB, the ring 2 stages x 64 KB,
+// the score tiles 4 x 8 KB (dq: 2 x 8 KB), lse, delta and the barriers: 225
+// KB (dq: 208.5 KB), one block per SM. So the ring cannot deepen at hd 256,
+// and the exposed part of a tile is its score products and its per-entry
+// arithmetic, which the tensor cores wait on.
+//
+// Arithmetic, entry by entry, is the reference's and the f32 passes': s =
+// scale qk, t = tanhf(s / cap), s = cap t, the mask (-1e30), p =
+// expf(s - lse), ds = p (dp - delta), times (1 - t^2), times the scale
+// (tanhf and expf, not their approximations). s / cap is taken as s times
+// fl(1 / cap), as the references compute it (XLA under jit and PyTorch on
+// CUDA divide by a constant so). Only tiles that a causal, window or ragged
+// edge cuts test each entry. p and ds enter the output products as hi =
+// bf16(x) and lo = bf16(x - hi), two products each, per 16-row k-step hi
+// then lo (tests/test_torch_fa_bwd_tiles.py emulates this order within
+// bwd_tolerance; one bf16 rounding leaves it,
+// tests/test_torch_fa_bwd_design.py). S and dP are recomputed in the dq
+// pass, so the two passes run 10 products' worth of work where the
+// reference's backward has five.
 
-constexpr int kTbRows = 32;           // query rows and keys per tile
-constexpr int kTbPadT = kTbRows + 8;  // row of a transposed (hd x 32) tile
-
+// The head dims from which the row tiles come by TMA (64 and up: a box row
+// is 64 dims, 128 bytes).
 template <int HD>
-struct BwdTc {
-  static constexpr int LDR = HD + 8;                 // row of a (32 x hd) tile
-  static constexpr int NTW = HD / 32 > 0 ? HD / 32 : 1;  // n8 tiles per warp
-  static constexpr size_t kRow = sizeof(__nv_bfloat16) * kTbRows * LDR;
-  static constexpr size_t kT = sizeof(__nv_bfloat16) * HD * kTbPadT;
-  static constexpr size_t kS = sizeof(__nv_bfloat16) * kTbRows * kTbPadT;
-  static constexpr size_t dkdv_smem = 4 * kRow + 2 * kT + 4 * kS + 2 * kTbRows * sizeof(float);
-  static constexpr size_t dq_smem = 4 * kRow + kT + 2 * kS + 2 * kTbRows * sizeof(float);
+constexpr bool kBwTma = HD >= 64;
+
+constexpr int kBwThreads = 256;                   // two consumer warpgroups
+constexpr int kBwStages = 2;                      // streamed-tile ring depth
+constexpr uint32_t kBwScore = 64 * 64 * 2;        // bytes of a 64 x 64 bf16 tile
+
+// The row tiles' tensor maps (q and g over (B, S, H, hd), k and v over (B,
+// S, KV, hd); boxes of 64 rows x 64 dims, 128-byte swizzled), read by TMA
+// where kBwTma (hd >= 64); below, the tiles are copied by cp.async and these
+// are unused.
+struct BwdMaps {
+  CUtensorMap q, g, k, v;
 };
 
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], uint32_t a0, uint32_t a1,
-                                               uint32_t a2, uint32_t a3, uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
+template <int HD, bool DQ>
+struct BwdWg {
+  static constexpr bool kTma = kBwTma<HD>;
+  static constexpr uint32_t kTile = 64 * HD * 2;             // a 64 x hd bf16 tile
+  static constexpr int kScores = DQ ? 2 : 4;                 // dS hi, lo (P hi, lo)
+  static constexpr uint32_t kRowOff = (2 + 2 * kBwStages) * kTile + kScores * kBwScore;
+  // dq: the tile's lse and delta; dk/dv: per stage, the streamed tile's
+  static constexpr uint32_t kBarOff = kRowOff + (DQ ? 1 : kBwStages) * 128 * sizeof(float);
+  static constexpr size_t smem = kBarOff + kBwStages * sizeof(uint64_t);
+  // arrivals per phase of a stage's barrier: with TMA the issuing thread's
+  // (its expect_tx), and in dk/dv the first warpgroup's lse / delta copies;
+  // else every thread's copies
+  static constexpr int kArrivals = kTma ? 1 + (DQ ? 0 : 128) : kBwThreads;
+};
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += A B for one 16 x 8 tile: A row-major (m, k) at a + m * lda + k, B
-// stored n-major (n, k) at b + n * ldb + k, k from 0 to K (a multiple of 16)
-template <int K>
-__device__ __forceinline__ void mma_tile(float (&d)[4], const __nv_bfloat16* a, int lda,
-                                         const __nv_bfloat16* b, int ldb) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = 2 * (lane & 3);
-#pragma unroll
-  for (int k = 0; k < K; k += 16) {
-    mma_bf16_16816(d, ld32(a + g * lda + k + t), ld32(a + (g + 8) * lda + k + t),
-                   ld32(a + g * lda + k + 8 + t), ld32(a + (g + 8) * lda + k + 8 + t),
-                   ld32(b + g * ldb + k + t), ld32(b + g * ldb + k + 8 + t));
-  }
-}
-
-// rows `rows` of a (32, HD) bf16 slab at src (row stride `stride`) into a
-// (32, LDR) tile at dst and, when dstT is not null, transposed into an (HD,
-// kTbPadT) tile at dstT; rows past `rows` zero-filled
+// Descriptors of a row tile (64 rows x HD) as a wgmma operand. TMA layout
+// (kBwTma): HD / 64 atoms of 64 rows x 128 bytes, 8 KB apart, swizzled;
+// else hopper.cuh's no-swizzle layout (tile_offset). K-major: rows
+// [row0, ...) (a multiple of 8) as M or N, dims 16 kk .. 16 kk + 15 as K.
 template <int HD>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst, __nv_bfloat16* dstT,
-                                               const __nv_bfloat16* src, int64_t stride,
-                                               int rows) {
-  constexpr int LDR = BwdTc<HD>::LDR, VEC = 8, PER_ROW = HD / VEC;
-  for (int i = threadIdx.x; i < kTbRows * PER_ROW; i += kBwdThreads) {
-    // transposing: neighbouring threads take neighbouring rows, so the
-    // 2-byte stores of a column land in neighbouring banks
-    const int r = dstT != nullptr ? i % kTbRows : i / PER_ROW;
-    const int c = (dstT != nullptr ? i / kTbRows : i % PER_ROW) * VEC;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) v = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LDR + c) = v;
-    if (dstT != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) dstT[(c + j) * kTbPadT + r] = e[j];
-    }
-  }
+__device__ __forceinline__ uint64_t bw_desc_k(uint32_t base, int row0, int kk) {
+  if constexpr (kBwTma<HD>)
+    return gmma_desc(base + (kk >> 2) * 8192 + row0 * 128 + (kk & 3) * 32, 16, 1024) |
+           kSwizzle128;
+  else
+    return gmma_desc(base + (row0 >> 3) * HD * 16 + kk * 256, 128, HD * 16);
 }
-
-__device__ __forceinline__ void split_bf16(float x, __nv_bfloat16& hi, __nv_bfloat16& lo) {
-  hi = __float2bfloat16_rn(x);
-  lo = __float2bfloat16_rn(x - __bfloat162float(hi));
-}
-
-// This warp's 16 x 8 tile of S and dP (query rows m0.., keys n0.. of the
-// tiles), then p and ds of its four entries per thread, as bwd_scores; the
-// entries go to (ph, pl) and (dh, dl) at [key * ld + q] when `transposed`,
-// else at [q * ld + key] (ph, pl may be null).
+// MN-major (trans-b = 1): dims [dim0, ...) as N, rows 16 kk .. 16 kk + 15 as K
 template <int HD>
-__device__ __forceinline__ void tc_scores(
-    const __nv_bfloat16* sQ, const __nv_bfloat16* sG, const __nv_bfloat16* sK,
-    const __nv_bfloat16* sV, const float* sLse, const float* sDelta, __nv_bfloat16* ph,
-    __nv_bfloat16* pl, __nv_bfloat16* dh, __nv_bfloat16* dl, bool transposed, int q_lo,
-    int k_lo, int S, int causal, int window, float scale, float softcap) {
-  constexpr int LDR = BwdTc<HD>::LDR;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m0 = 16 * (warp & 1), n0 = 8 * (warp >> 1);
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mma_tile<HD>(s, sQ + m0 * LDR, LDR, sK + n0 * LDR, LDR);
-  mma_tile<HD>(dp, sG + m0 * LDR, LDR, sV + n0 * LDR, LDR);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int r = m0 + (lane >> 2) + 8 * (e >> 1), c = n0 + 2 * (lane & 3) + (e & 1);
-    const int qpos = q_lo + r, kpos = k_lo + c;
-    bool ok = kpos < S && qpos < S;
-    if (causal) ok = ok && kpos <= qpos;
-    if (window > 0) ok = ok && kpos > qpos - window;
-    float sc = s[e] * scale, dcap = 1.0f;
-    if (softcap > 0.0f) {
-      const float th = tanhf(sc / softcap);
-      sc = softcap * th;
-      dcap = 1.0f - th * th;
-    }
-    if (!ok) sc = kNegInf;
-    const float p = expf(sc - sLse[r]);
-    float ds = p * (dp[e] - sDelta[r]);
-    if (softcap > 0.0f) ds = ds * dcap;
-    ds = ds * scale;
-    const int at = transposed ? c * kTbPadT + r : r * kTbPadT + c;
-    if (ph != nullptr) split_bf16(p, ph[at], pl[at]);
-    split_bf16(ds, dh[at], dl[at]);
-  }
+__device__ __forceinline__ uint64_t bw_desc_mn(uint32_t base, int dim0, int kk) {
+  if constexpr (kBwTma<HD>)
+    return gmma_desc(base + (dim0 >> 6) * 8192 + (dim0 & 63) * 2 + kk * 2048, 8192, 1024) |
+           kSwizzle128;
+  else
+    return gmma_desc(base + kk * 2 * HD * 16 + (dim0 >> 3) * 128, HD * 16, 128);
 }
 
-// acc[j] += A B over k = 32 for this warp's n8 tiles j: A = hi + lo, (32,
-// kTbPadT) row-major; B stored n-major as (HD, kTbPadT)
-template <int HD>
-__device__ __forceinline__ void tc_accumulate(float (&acc)[BwdTc<HD>::NTW][4],
-                                              const __nv_bfloat16* ah,
-                                              const __nv_bfloat16* al,
-                                              const __nv_bfloat16* bT) {
-  const int warp = threadIdx.x >> 5;
-  const int m0 = 16 * (warp & 1);
-#pragma unroll
-  for (int j = 0; j < BwdTc<HD>::NTW; ++j) {
-    const int n0 = ((warp >> 1) * BwdTc<HD>::NTW + j) * 8;
-    if (n0 < HD) {
-      mma_tile<kTbRows>(acc[j], ah + m0 * kTbPadT, kTbPadT, bT + n0 * kTbPadT, kTbPadT);
-      mma_tile<kTbRows>(acc[j], al + m0 * kTbPadT, kTbPadT, bT + n0 * kTbPadT, kTbPadT);
-    }
-  }
-}
+// The pass DQ of the block (blockIdx.x, blockIdx.y); see above. q, g, out,
+// dq (B, S, H, hd); k, v, dk, dv (B, S, KV, hd); lse, delta (B, H, S).
+template <int HD, bool DQ>
+__device__ __forceinline__ void bwd_wgmma_pass(
+    const BwdMaps& maps, const __nv_bfloat16* __restrict__ q,
+    const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
+    const __nv_bfloat16* __restrict__ out, const __nv_bfloat16* __restrict__ g,
+    const float* __restrict__ lse, float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int H, int KV,
+    int causal, int window, float scale, float softcap) {
+  using Geo = BwdWg<HD, DQ>;
+  constexpr uint32_t kTile = Geo::kTile;
+  constexpr int NH = HD / 2;                        // output dims per warpgroup
+  constexpr int NS = NH < 64 ? NH : 64;             // N of one output product
+  constexpr int NSL = NH / NS;
+  constexpr int NACC = DQ ? 1 : 2;                  // dQ; or dK, dV
+  extern __shared__ __align__(1024) unsigned char bw_smem[];
+  const uint32_t sA = smem_addr(bw_smem);           // resident: K or Q, then V or dO
+  const uint32_t sB = sA + 2 * kTile;               // stage s: Q or K at sB + 2 s kTile,
+                                                    // dO or V next
+  const uint32_t sP = sB + 2 * kBwStages * kTile;   // dS hi, dS lo (P hi, P lo)
+  float* sRow = reinterpret_cast<float*>(bw_smem + Geo::kRowOff);
+  const uint32_t full0 = sA + Geo::kBarOff;         // the stages' mbarriers
 
-// this warp's accumulator tiles (rows m0.. of the block's 32) to `out`, the
-// block's first row at out, rows `rows` of them, row stride `stride`
-template <int HD>
-__device__ __forceinline__ void tc_store(const float (&acc)[BwdTc<HD>::NTW][4],
-                                         __nv_bfloat16* out, int64_t stride, int rows) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int m0 = 16 * (warp & 1);
-#pragma unroll
-  for (int j = 0; j < BwdTc<HD>::NTW; ++j) {
-    const int n0 = ((warp >> 1) * BwdTc<HD>::NTW + j) * 8;
-    if (n0 >= HD) continue;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = m0 + (lane >> 2) + 8 * h, c = n0 + 2 * (lane & 3);
-      if (r < rows)
-        *reinterpret_cast<__nv_bfloat162*>(out + r * stride + c) =
-            __floats2bfloat162_rn(acc[j][2 * h], acc[j][2 * h + 1]);
-    }
-  }
-}
-
-// Grid (ceil(S / 32), B * KV); kBwdThreads threads (8 warps).
-template <int HD>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-fa_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
-                      const float* __restrict__ lse, const float* __restrict__ delta,
-                      __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S,
-                      int H, int KV, int causal, int window, float scale, float softcap) {
-  using Geo = BwdTc<HD>;
-  extern __shared__ __align__(16) unsigned char tb_smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(tb_smem);
-  __nv_bfloat16* sV = sK + kTbRows * Geo::LDR;
-  __nv_bfloat16* sQ = sV + kTbRows * Geo::LDR;
-  __nv_bfloat16* sG = sQ + kTbRows * Geo::LDR;
-  __nv_bfloat16* sQT = sG + kTbRows * Geo::LDR;
-  __nv_bfloat16* sGT = sQT + HD * kTbPadT;
-  __nv_bfloat16* sPh = sGT + HD * kTbPadT;        // P^T and dS^T, (key, query)
-  __nv_bfloat16* sPl = sPh + kTbRows * kTbPadT;
-  __nv_bfloat16* sDh = sPl + kTbRows * kTbPadT;
-  __nv_bfloat16* sDl = sDh + kTbRows * kTbPadT;
-  float* sLse = reinterpret_cast<float*>(sDl + kTbRows * kTbPadT);
-  float* sDelta = sLse + kTbRows;
-
-  const int tid = threadIdx.x;
-  const int k_lo = blockIdx.x * kTbRows;
-  const int k_rows = min(kTbRows, S - k_lo);
-  const int b = blockIdx.y / KV, kvh = blockIdx.y - b * KV;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, lane = tid & 31;
+  const int wq = (tid >> 5) & 3;
   const int G = H / KV;
+  const int n_tiles = gridDim.x;
   const int64_t q_stride = static_cast<int64_t>(H) * HD;
   const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
-  const int64_t kv_off = (static_cast<int64_t>(b) * S + k_lo) * kv_stride +
-                         static_cast<int64_t>(kvh) * HD;
-  load_tile_bf16<HD>(sK, nullptr, k + kv_off, kv_stride, k_rows);
-  load_tile_bf16<HD>(sV, nullptr, v + kv_off, kv_stride, k_rows);
+  int b, h, kvh, r_lo;
+  if (DQ) {
+    b = blockIdx.y / H;
+    h = blockIdx.y - b * H;
+    kvh = h / G;
+    r_lo = (n_tiles - 1 - static_cast<int>(blockIdx.x)) * 64;   // most key tiles first
+  } else {
+    b = blockIdx.y / KV;
+    kvh = blockIdx.y - b * KV;
+    h = kvh * G;
+    r_lo = static_cast<int>(blockIdx.x) * 64;
+  }
+  const int r_last = min(S, r_lo + 64) - 1;
 
-  int q_first = causal ? k_lo : 0, q_last = S - 1;
-  if (window > 0) q_last = min(q_last, k_lo + k_rows - 1 + window - 1);
-  const int qt_begin = q_first / kTbRows, qt_end = q_last / kTbRows + 1;
+  // the streamed tiles: dq, the key tiles of _kv_block_range; dk/dv, for
+  // each of the G heads, the query tiles that see a key of this tile
+  int c_begin, n_c;
+  if (DQ) {
+    int lo = 0, hi = S;
+    if (causal) hi = min(hi, r_lo + 64);
+    if (window > 0) lo = max(lo, r_lo - window + 1);
+    c_begin = lo / 64;
+    n_c = (hi + 63) / 64 - c_begin;
+  } else {
+    int q_first = causal ? r_lo : 0, q_last = S - 1;
+    if (window > 0) q_last = min(q_last, r_last + window - 1);
+    c_begin = q_first / 64;
+    n_c = q_last / 64 + 1 - c_begin;
+  }
+  const int n_items = DQ ? n_c : G * n_c;
 
-  float ak[Geo::NTW][4], av[Geo::NTW][4];
+  if (tid == 0) {
+    for (int st = 0; st < kBwStages; ++st) mbar_init(full0 + 8 * st, Geo::kArrivals);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // item i: (head, first row) of the streamed tile; dk/dv walks each head's
+  // query tiles from the last, so the blocks of one kv head start together
+  auto item = [&](int i, int& hi_, int& c_lo) {
+    const int hh = DQ ? 0 : i / n_c;
+    hi_ = DQ ? h : kvh * G + hh;
+    c_lo = (c_begin + (DQ ? i : n_c - 1 - (i - hh * n_c))) * 64;
+  };
+  // rows row0 .. row0 + 63 of one head of a tensor into the tile at dst:
+  // by TMA (the calling thread), else by this warpgroup's cp.async copies
+  auto load_tile = [&](uint32_t dst, const CUtensorMap& map, const __nv_bfloat16* x,
+                       int64_t stride, int head, int row0, uint32_t bar) {
+    if constexpr (Geo::kTma) {
 #pragma unroll
-  for (int j = 0; j < Geo::NTW; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) ak[j][e] = av[j][e] = 0.0f;
-
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = kvh * G + hh;
-    const float* lse_h = lse + (static_cast<int64_t>(b) * H + h) * S;
-    const float* delta_h = delta + (static_cast<int64_t>(b) * H + h) * S;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q_lo = qt * kTbRows;
-      const int q_rows = min(kTbRows, S - q_lo);
-      const int64_t q_off = (static_cast<int64_t>(b) * S + q_lo) * q_stride +
-                            static_cast<int64_t>(h) * HD;
-      __syncthreads();  // the previous tile's operands are consumed
-      load_tile_bf16<HD>(sQ, sQT, q + q_off, q_stride, q_rows);
-      load_tile_bf16<HD>(sG, sGT, g + q_off, q_stride, q_rows);
-      if (tid < kTbRows) {
-        sLse[tid] = tid < q_rows ? lse_h[q_lo + tid] : 0.0f;
-        sDelta[tid] = tid < q_rows ? delta_h[q_lo + tid] : 0.0f;
+      for (int a = 0; a < HD / 64; ++a) tma_load_4d(dst + a * 8192, &map, bar, 64 * a, head, row0, b);
+    } else {
+      load_tile_async<HD>(dst, x + (static_cast<int64_t>(b) * S + row0) * stride +
+                                   static_cast<int64_t>(head) * HD,
+                          stride, S - row0, t);
+    }
+  };
+  // copy item i into its stage (item 0 with the resident tiles): with TMA
+  // thread 0 issues every tile; else the first warpgroup copies Q or K,
+  // the second dO or V. In dk/dv the first warpgroup also copies the lse
+  // and delta rows.
+  auto load_item = [&](int i) {
+    const int st = i % kBwStages;
+    const uint32_t bar = full0 + 8 * st;
+    int hi_, c_lo;
+    item(i, hi_, c_lo);
+    const uint32_t dst = sB + 2 * st * kTile;
+    const CUtensorMap& m0 = DQ ? maps.k : maps.q;
+    const CUtensorMap& m1 = DQ ? maps.v : maps.g;
+    const __nv_bfloat16* x0 = DQ ? k : q;
+    const __nv_bfloat16* x1 = DQ ? v : g;
+    const int64_t stride = DQ ? kv_stride : q_stride;
+    const int head = DQ ? kvh : hi_;
+    if (Geo::kTma ? tid == 0 : true) {
+      if (Geo::kTma) mbar_arrive_expect_tx(bar, (i == 0 ? 4 : 2) * kTile);
+      if (i == 0) {
+        // the resident tiles ride with item 0's barrier phase
+        const CUtensorMap& r0 = DQ ? maps.q : maps.k;
+        const CUtensorMap& r1 = DQ ? maps.g : maps.v;
+        const __nv_bfloat16* y0 = DQ ? q : k;
+        const __nv_bfloat16* y1 = DQ ? g : v;
+        const int64_t rstride = DQ ? q_stride : kv_stride;
+        if (Geo::kTma || wg == 0) load_tile(sA, r0, y0, rstride, DQ ? h : kvh, r_lo, bar);
+        if (Geo::kTma || wg == 1) load_tile(sA + kTile, r1, y1, rstride, DQ ? h : kvh, r_lo, bar);
       }
-      __syncthreads();
-      tc_scores<HD>(sQ, sG, sK, sV, sLse, sDelta, sPh, sPl, sDh, sDl, true, q_lo, k_lo, S,
-                    causal, window, scale, softcap);
-      __syncthreads();
-      tc_accumulate<HD>(av, sPh, sPl, sGT);   // dV += P^T dO
-      tc_accumulate<HD>(ak, sDh, sDl, sQT);   // dK += dS^T Q
+      if (Geo::kTma || wg == 0) load_tile(dst, m0, x0, stride, head, c_lo, bar);
+      if (Geo::kTma || wg == 1) load_tile(dst + kTile, m1, x1, stride, head, c_lo, bar);
+    }
+    if (!DQ && wg == 0) {
+      const float* row = (t < 64 ? lse : delta) +
+                         (static_cast<int64_t>(b) * H + hi_) * S + c_lo + (t & 63);
+      const bool ok = c_lo + (t & 63) < S;
+      cp_async4(smem_addr(sRow + st * 128 + t), ok ? row : lse, ok);
+    }
+    if (!Geo::kTma || (!DQ && wg == 0)) mbar_arrive_cp_async(bar);
+  };
+
+  if (n_items > 0) {
+    load_item(0);
+    if (n_items > 1) load_item(1);
+  }
+  if (DQ) {
+    // the tile's lse, and its delta = rowsum(g * out) written for the dk/dv
+    // pass, while the copies are in flight; each warp 8 rows
+    const int64_t bh = static_cast<int64_t>(b) * H + h;
+    if (tid < 64) sRow[tid] = r_lo + tid < S ? lse[bh * S + r_lo + tid] : 0.0f;
+    const int warp = tid >> 5;
+    float acc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      // lane l takes dims 8l .. 8l + 7 of row 8 warp + j: one 16-byte load
+      // of g and of out each, all rows' loads in flight together
+      const int r = warp * 8 + j;
+      acc[j] = 0.0f;
+      if (8 * lane < HD && r_lo + r < S) {
+        const int64_t off = (static_cast<int64_t>(b) * S + r_lo + r) * q_stride +
+                            static_cast<int64_t>(h) * HD + 8 * lane;
+        float gf[8], of[8];
+        unpack16(*reinterpret_cast<const uint4*>(g + off), gf);
+        unpack16(*reinterpret_cast<const uint4*>(out + off), of);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[j] = fmaf(gf[e], of[e], acc[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int r = warp * 8 + j;
+      const float sum = warp_sum(acc[j]);
+      if (lane == 0) {
+        sRow[64 + r] = r_lo + r < S ? sum : 0.0f;
+        if (r_lo + r < S) delta[bh * S + r_lo + r] = sum;
+      }
+    }
+    __syncthreads();
+  }
+
+  // this thread's fragment rows r0 and r0 + 8 of the block's 64, and its
+  // columns 8j + cq, + 1 of its warpgroup's 32 score columns
+  const int r0 = wq * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);
+  const float inv_cap = 1.0f / softcap;
+  float acc[NACC][NSL][NS / 2];
+#pragma unroll
+  for (int a = 0; a < NACC; ++a)
+#pragma unroll
+    for (int sl = 0; sl < NSL; ++sl)
+#pragma unroll
+      for (int x = 0; x < NS / 2; ++x) acc[a][sl][x] = 0.0f;
+
+  for (int i = 0; i < n_items; ++i) {
+    const int st = i % kBwStages;
+    int hi_, c_lo;
+    item(i, hi_, c_lo);
+    const uint32_t sB0 = sB + 2 * st * kTile, sB1 = sB0 + kTile;
+    mbar_wait(full0 + 8 * st, (i / kBwStages) & 1);
+    fence_proxy_async();           // cp.async (generic proxy) may have written it
+
+    // this warpgroup's 32 columns of S and dP (S^T and dP^T in dk/dv)
+    float s[16], dp[16];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<32, 0>(s, bw_desc_k<HD>(sA, 0, kk), bw_desc_k<HD>(sB0, 32 * wg, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<32, 0>(dp, bw_desc_k<HD>(sA + kTile, 0, kk), bw_desc_k<HD>(sB1, 32 * wg, kk),
+                      kk > 0);
+    wgmma_commit();
+    if (i > 0) {
+      // this warpgroup's output products of item i - 1, then the other's:
+      // the score tiles and item i - 1's stage are free
+      wgmma_wait<1>();
+#pragma unroll
+      for (int a = 0; a < NACC; ++a)
+#pragma unroll
+        for (int sl = 0; sl < NSL; ++sl) fence_regs(acc[a][sl]);
+      named_bar_sync(1, kBwThreads);
+      if (i + 1 < n_items) load_item(i + 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // p and ds of entry x: (row r0 + 8 ((x >> 1) & 1), column 32 wg + 8 (x >> 2)
+    // + cq + (x & 1)); rows are queries in dq, keys in dk/dv
+    const int q_lo = DQ ? r_lo : c_lo, k_lo = DQ ? c_lo : r_lo;
+    const bool full = q_lo + 64 <= S && k_lo + 64 <= S &&
+                      (!causal || k_lo + 63 <= q_lo) &&
+                      (window <= 0 || k_lo > q_lo + 63 - window);
+    const float* rows = DQ ? sRow : sRow + st * 128;   // lse, then delta at + 64
+#pragma unroll
+    for (int x = 0; x < 16; ++x) {
+      const int m = r0 + 8 * ((x >> 1) & 1);
+      const int n = 32 * wg + 8 * (x >> 2) + cq + (x & 1);
+      const int qi = DQ ? m : n;
+      float sc = s[x] * scale, dcap = 1.0f;
+      if (softcap > 0.0f) {
+        const float th = tanhf(sc * inv_cap);
+        sc = softcap * th;
+        dcap = 1.0f - th * th;
+      }
+      if (!full) {
+        const int qpos = q_lo + qi, kpos = k_lo + (DQ ? n : m);
+        bool ok = kpos < S && qpos < S;
+        if (causal) ok = ok && kpos <= qpos;
+        if (window > 0) ok = ok && kpos > qpos - window;
+        if (!ok) sc = kNegInf;
+      }
+      const float p = expf(sc - rows[qi]);
+      float ds = p * (dp[x] - rows[64 + qi]);
+      if (softcap > 0.0f) ds = ds * dcap;
+      ds = ds * scale;
+      s[x] = p;
+      dp[x] = ds;
+    }
+    // the score tiles, hi and lo: (row m, column n) of a 64 x 64 tile at
+    // tile_offset<64>(m, n / 8) + 2 (n % 8)
+#pragma unroll
+    for (int x = 0; x < 16; x += 2) {
+      const int m = r0 + 8 * ((x >> 1) & 1);
+      const int n = 32 * wg + 8 * (x >> 2) + cq;
+      const uint32_t off = tile_offset<64>(m, n >> 3) + 2 * (n & 7);
+      __nv_bfloat162 hv = __floats2bfloat162_rn(dp[x], dp[x + 1]);
+      st_shared_u32(sP + off, *reinterpret_cast<uint32_t*>(&hv));
+      st_shared_u32(sP + kBwScore + off, pack_bf16(dp[x] - __low2float(hv),
+                                                   dp[x + 1] - __high2float(hv)));
+      if (!DQ) {
+        hv = __floats2bfloat162_rn(s[x], s[x + 1]);
+        st_shared_u32(sP + 2 * kBwScore + off, *reinterpret_cast<uint32_t*>(&hv));
+        st_shared_u32(sP + 3 * kBwScore + off, pack_bf16(s[x] - __low2float(hv),
+                                                         s[x + 1] - __high2float(hv)));
+      }
+    }
+    fence_proxy_async();           // st.shared wrote them; wgmma reads them
+    named_bar_sync(2, kBwThreads);
+
+    // dQ += dS K, or dK += dS^T Q and dV += P^T dO: A the score tiles
+    // (K-major, 16 streamed rows a step), B the streamed tile MN-major at
+    // this warpgroup's dims
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int sl = 0; sl < NSL; ++sl) {
+        const int dim0 = wg * NH + sl * NS;
+        const uint64_t b0 = bw_desc_mn<HD>(sB0, dim0, kk);
+        wgmma_ss<NS, 1>(acc[0][sl], gmma_desc(sP + kk * 256, 128, 1024), b0, 1);
+        wgmma_ss<NS, 1>(acc[0][sl], gmma_desc(sP + kBwScore + kk * 256, 128, 1024), b0, 1);
+        if (!DQ) {
+          const uint64_t b1 = bw_desc_mn<HD>(sB1, dim0, kk);
+          wgmma_ss<NS, 1>(acc[NACC - 1][sl],
+                          gmma_desc(sP + 2 * kBwScore + kk * 256, 128, 1024), b1, 1);
+          wgmma_ss<NS, 1>(acc[NACC - 1][sl],
+                          gmma_desc(sP + 3 * kBwScore + kk * 256, 128, 1024), b1, 1);
+        }
+      }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int a = 0; a < NACC; ++a)
+#pragma unroll
+    for (int sl = 0; sl < NSL; ++sl) fence_regs(acc[a][sl]);
+
+  // rows below S: dQ (query rows of head h), or dK and dV (keys of kv head kvh)
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = r_lo + r0 + 8 * hr;
+    if (row >= S) continue;
+#pragma unroll
+    for (int a = 0; a < NACC; ++a) {
+      __nv_bfloat16* dst =
+          DQ ? dq + (static_cast<int64_t>(b) * S + row) * q_stride + static_cast<int64_t>(h) * HD
+             : (a == 0 ? dk : dv) + (static_cast<int64_t>(b) * S + row) * kv_stride +
+                   static_cast<int64_t>(kvh) * HD;
+#pragma unroll
+      for (int sl = 0; sl < NSL; ++sl)
+#pragma unroll
+        for (int j = 0; j < NS / 8; ++j) {
+          const int col = wg * NH + sl * NS + 8 * j + cq;
+          *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(
+              acc[a][sl][4 * j + 2 * hr], acc[a][sl][4 * j + 2 * hr + 1]);
+        }
     }
   }
-  tc_store<HD>(ak, dk + kv_off, kv_stride, k_rows);
-  tc_store<HD>(av, dv + kv_off, kv_stride, k_rows);
 }
 
-// Grid (ceil(S / 32), B * H); kBwdThreads threads (8 warps).
+// Grid (ceil(S / 64), B * H); kBwThreads threads.
 template <int HD>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-fa_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ g,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, int S, int H, int KV, int causal,
-                    int window, float scale, float softcap) {
-  using Geo = BwdTc<HD>;
-  extern __shared__ __align__(16) unsigned char tb_smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(tb_smem);
-  __nv_bfloat16* sG = sQ + kTbRows * Geo::LDR;
-  __nv_bfloat16* sK = sG + kTbRows * Geo::LDR;
-  __nv_bfloat16* sV = sK + kTbRows * Geo::LDR;
-  __nv_bfloat16* sKT = sV + kTbRows * Geo::LDR;
-  __nv_bfloat16* sDh = sKT + HD * kTbPadT;        // dS, (query, key)
-  __nv_bfloat16* sDl = sDh + kTbRows * kTbPadT;
-  float* sLse = reinterpret_cast<float*>(sDl + kTbRows * kTbPadT);
-  float* sDelta = sLse + kTbRows;
+__global__ void __launch_bounds__(kBwThreads, 1)
+fa_bwd_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
+                       const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ out,
+                       const __nv_bfloat16* __restrict__ g, const float* __restrict__ lse,
+                       float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int S,
+                       int H, int KV, int causal, int window, float scale, float softcap) {
+  bwd_wgmma_pass<HD, true>(maps, q, k, v, out, g, lse, delta, dq, nullptr, nullptr, S, H, KV,
+                           causal, window, scale, softcap);
+}
 
-  const int tid = threadIdx.x;
-  const int q_lo = blockIdx.x * kTbRows;
-  const int q_rows = min(kTbRows, S - q_lo);
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh - b * H;
-  const int kvh = h / (H / KV);
-  const int64_t q_stride = static_cast<int64_t>(H) * HD;
-  const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
-  const int64_t q_off = (static_cast<int64_t>(b) * S + q_lo) * q_stride +
-                        static_cast<int64_t>(h) * HD;
-  load_tile_bf16<HD>(sQ, nullptr, q + q_off, q_stride, q_rows);
-  load_tile_bf16<HD>(sG, nullptr, g + q_off, q_stride, q_rows);
-  if (tid < kTbRows) {
-    sLse[tid] = tid < q_rows ? lse[static_cast<int64_t>(bh) * S + q_lo + tid] : 0.0f;
-    sDelta[tid] = tid < q_rows ? delta[static_cast<int64_t>(bh) * S + q_lo + tid] : 0.0f;
-  }
-
-  int lo = 0, hi = S;
-  if (causal) hi = min(hi, q_lo + q_rows);
-  if (window > 0) lo = max(lo, q_lo - window + 1);
-  const int t_begin = lo / kTbRows, t_end = (hi + kTbRows - 1) / kTbRows;
-
-  float aq[Geo::NTW][4];
-#pragma unroll
-  for (int j = 0; j < Geo::NTW; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) aq[j][e] = 0.0f;
-
-  const __nv_bfloat16* kb = k + static_cast<int64_t>(b) * S * kv_stride +
-                            static_cast<int64_t>(kvh) * HD;
-  const __nv_bfloat16* vb = v + static_cast<int64_t>(b) * S * kv_stride +
-                            static_cast<int64_t>(kvh) * HD;
-  for (int kt = t_begin; kt < t_end; ++kt) {
-    const int k_lo = kt * kTbRows;
-    __syncthreads();  // the previous tile's operands are consumed
-    load_tile_bf16<HD>(sK, sKT, kb + k_lo * kv_stride, kv_stride, min(kTbRows, S - k_lo));
-    load_tile_bf16<HD>(sV, nullptr, vb + k_lo * kv_stride, kv_stride, min(kTbRows, S - k_lo));
-    __syncthreads();
-    tc_scores<HD>(sQ, sG, sK, sV, sLse, sDelta, nullptr, nullptr, sDh, sDl, false, q_lo,
-                  k_lo, S, causal, window, scale, softcap);
-    __syncthreads();
-    tc_accumulate<HD>(aq, sDh, sDl, sKT);     // dQ += dS K
-  }
-  tc_store<HD>(aq, dq + q_off, q_stride, q_rows);
+// Grid (ceil(S / 64), B * KV); kBwThreads threads. Reads the dq pass's delta.
+template <int HD>
+__global__ void __launch_bounds__(kBwThreads, 1)
+fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ BwdMaps maps,
+                         const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         const __nv_bfloat16* __restrict__ g, const float* __restrict__ lse,
+                         float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int S, int H, int KV, int causal,
+                         int window, float scale, float softcap) {
+  bwd_wgmma_pass<HD, false>(maps, q, k, v, nullptr, g, lse, delta, nullptr, dk, dv, S, H, KV,
+                            causal, window, scale, softcap);
 }
 
 // ---------------------------------------------------------------------------
@@ -1674,43 +1853,84 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn tensor_map_encoder() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiledFn>(nullptr);
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// The row tiles of a (B, S, NH, HD) bf16 tensor for TMA: dims (HD, NH, S, B)
+// innermost first, boxes of 64 dims x 1 head x 64 rows x 1 lane, 128-byte
+// swizzled; rows at or past S are zero-filled.
+int encode_row_tiles(CUtensorMap* map, const void* x, int64_t B, int64_t S, int64_t NH,
+                     int HD) {
+  const EncodeTiledFn encode = tensor_map_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(HD), static_cast<cuuint64_t>(NH),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(HD) * 2,
+                                 static_cast<cuuint64_t>(NH * HD) * 2,
+                                 static_cast<cuuint64_t>(S * NH * HD) * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <int HD>
-int launch_bwd_tc(const void* q, const void* k, const void* v, const void* out,
-                  const void* lse, const void* g, void* dq, void* dk, void* dv,
-                  void* delta, int64_t B, int64_t S, int64_t H, int64_t KV,
-                  int64_t causal, int64_t window, double scale, double softcap,
-                  cudaStream_t stream) {
+int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* out,
+                     const void* lse, const void* g, void* dq, void* dk, void* dv,
+                     void* delta, int64_t B, int64_t S, int64_t H, int64_t KV,
+                     int64_t causal, int64_t window, double scale, double softcap,
+                     cudaStream_t stream) {
   using T = __nv_bfloat16;
-  static int configured_dkdv = allow_smem(fa_bwd_dkdv_tc_kernel<HD>, BwdTc<HD>::dkdv_smem);
-  static int configured_dq = allow_smem(fa_bwd_dq_tc_kernel<HD>, BwdTc<HD>::dq_smem);
-  if (configured_dkdv != 0) return configured_dkdv;
+  constexpr size_t smem_dq = BwdWg<HD, true>::smem, smem_kv = BwdWg<HD, false>::smem;
+  static int configured_dq = allow_smem(fa_bwd_dq_wgmma_kernel<HD>, smem_dq);
+  static int configured_dkdv = allow_smem(fa_bwd_dkdv_wgmma_kernel<HD>, smem_kv);
   if (configured_dq != 0) return configured_dq;
-  const int64_t rows = B * S * H;
-  const unsigned rows_per_block = kBwdThreads / 32;
-  fa_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + rows_per_block - 1) / rows_per_block),
-                           kBwdThreads, 0, stream>>>(
-      static_cast<const T*>(out), static_cast<const T*>(g), static_cast<float*>(delta),
-      rows, static_cast<int>(S), static_cast<int>(H), HD);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  const unsigned tiles = static_cast<unsigned>((S + kTbRows - 1) / kTbRows);
-  fa_bwd_dkdv_tc_kernel<HD><<<dim3(tiles, static_cast<unsigned>(B * KV)), kBwdThreads,
-                              BwdTc<HD>::dkdv_smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
-      static_cast<int>(S), static_cast<int>(H), static_cast<int>(KV),
-      static_cast<int>(causal), static_cast<int>(window), static_cast<float>(scale),
-      static_cast<float>(softcap));
-  rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  fa_bwd_dq_tc_kernel<HD><<<dim3(tiles, static_cast<unsigned>(B * H)), kBwdThreads,
-                            BwdTc<HD>::dq_smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), static_cast<int>(S),
+  if (configured_dkdv != 0) return configured_dkdv;
+  BwdMaps maps = {};
+  if (BwdWg<HD, true>::kTma) {
+    int rc = encode_row_tiles(&maps.q, q, B, S, H, HD);
+    if (rc == 0) rc = encode_row_tiles(&maps.g, g, B, S, H, HD);
+    if (rc == 0) rc = encode_row_tiles(&maps.k, k, B, S, KV, HD);
+    if (rc == 0) rc = encode_row_tiles(&maps.v, v, B, S, KV, HD);
+    if (rc != 0) return rc;
+  }
+  const unsigned tiles = static_cast<unsigned>((S + 63) / 64);
+  // the dq pass first: its prologue writes delta, which the dk/dv pass reads
+  fa_bwd_dq_wgmma_kernel<HD><<<dim3(tiles, static_cast<unsigned>(B * H)), kBwThreads,
+                               smem_dq, stream>>>(
+      maps, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(out), static_cast<const T*>(g), static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<T*>(dq), static_cast<int>(S),
       static_cast<int>(H), static_cast<int>(KV), static_cast<int>(causal),
       static_cast<int>(window), static_cast<float>(scale), static_cast<float>(softcap));
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  fa_bwd_dkdv_wgmma_kernel<HD><<<dim3(tiles, static_cast<unsigned>(B * KV)), kBwThreads,
+                                 smem_kv, stream>>>(
+      maps, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(g), static_cast<const float*>(lse), static_cast<float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<int>(S), static_cast<int>(H),
+      static_cast<int>(KV), static_cast<int>(causal), static_cast<int>(window),
+      static_cast<float>(scale), static_cast<float>(softcap));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1833,7 +2053,8 @@ extern "C" int flash_attention_decode_bf16(
 // The backward of the prefill (flash_attention_bwd): q, k, v, out, g in the
 // inputs' type, lse (B, H, S) f32 from the forward; dq, dk, dv written in
 // the inputs' type; delta (B, H, S) f32 scratch. Three launches on
-// `stream`; returns the first error.
+// `stream` in f32, two in bf16 (the dq pass writes delta); returns the
+// first error.
 extern "C" int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* out, const void* lse,
     const void* g, void* dq, void* dk, void* dv, void* delta, int64_t B, int64_t S,
@@ -1854,8 +2075,8 @@ extern "C" int flash_attention_bwd_bf16(
     double softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_CALL(HD)                                                                   \
-  launch_bwd_tc<HD>(q, k, v, out, lse, g, dq, dk, dv, delta, B, S, H, KV, causal, window, \
-                    scale, softcap, st)
+  launch_bwd_wgmma<HD>(q, k, v, out, lse, g, dq, dk, dv, delta, B, S, H, KV, causal, \
+                       window, scale, softcap, st)
   FA_BY_HD(hd, FA_CALL)
 #undef FA_CALL
 }

@@ -23,9 +23,13 @@ from repro_torch.kernels.flash_attention import ops, ref
 from repro_torch.pytree import tree_leaves
 
 # (B, S, H, KV, hd, causal, window, softcap): f32 and bf16 each; head dims
-# 16 to 256, G 1, 2 and 4, MQA (KV 1), ragged S (not a multiple of the
-# 32-row tiles), windows whose edges fall inside a tile (48, 100) and one
-# that bites at S 1024 (256), softcap 50 and none, one non-causal window
+# 16 to 256, G 1, 2 and 4 (G 4 at hd 256, where the bf16 passes split the
+# dims of dK and dV over two warpgroups), MQA (KV 1, at hd 64 and 128),
+# ragged S (33-300, not a multiple of the 32-row f32 tiles; 65, 127 and 191
+# across the 64-row bf16 tiles), windows whose edges fall inside a tile (5,
+# 40, 48, 100) and one that bites at S 1024 (256), softcap 50 and none, one
+# non-causal window, and the training cell's local layers (B 2, S 4096,
+# 16 / 8 heads x 256, causal, window 4096, softcap 50)
 BWD_CASES = [
     (2, 33, 4, 2, 16, True, 5, 50.0),
     (2, 64, 4, 2, 128, True, None, 50.0),
@@ -35,6 +39,10 @@ BWD_CASES = [
     (2, 130, 8, 2, 64, False, 30, 50.0),
     (1, 1024, 4, 2, 256, True, 256, 50.0),
     (1, 160, 8, 2, 32, True, None, None),
+    (2, 65, 4, 2, 128, True, None, 50.0),
+    (2, 127, 4, 1, 64, True, 40, None),
+    (1, 191, 8, 2, 256, True, None, 50.0),
+    (2, 4096, 16, 8, 256, True, 4096, 50.0),
 ]
 
 

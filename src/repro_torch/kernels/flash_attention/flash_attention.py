@@ -20,14 +20,15 @@ one it launched, and the bf16 tensor-core launches count also under
 ``flash_attention_fwd_wgmma``. Asked for it (``lse=True``, the training
 forward), either also writes each row's log-sum-exp, (B, H, S) float32.
 
-The backward (:func:`flash_attention_bwd`) recomputes p from that lse: a
-pass for ``delta = rowsum(g * out)``, a dk/dv pass (one block per lane, kv
-head and key tile, walking the query tiles of its G heads that see the
-tile) and a dq pass (one block per lane, head and query tile); three
-launches per call, counted once under ``flash_attention_bwd``, with no
-atomics, so a call's gradients are the same bits every time. bf16 runs its
-products on tensor cores (``mma.sync``; p and ds enter as bf16 hi + lo, as
-the forward's p does), float32 on CUDA cores. The decode is a split-KV pass:
+The backward (:func:`flash_attention_bwd`) recomputes p from that lse. In
+bf16 it is two ``wgmma`` passes: a dq pass (one block per lane, head and
+64-row query tile) whose prologue also writes ``delta = rowsum(g * out)``,
+then a dk/dv pass (one block per lane, kv head and 64-key tile, walking the
+query tiles of its G heads that see the tile); p and ds enter the output
+products as bf16 hi + lo, as the forward's p does. In float32 it is three
+CUDA-core passes (delta, dk/dv, dq). Either way a call counts once under
+``flash_attention_bwd``, with no atomics, so a call's gradients are the
+same bits every time. The decode is a split-KV pass:
 :func:`decode_plan` cuts the cache into ``n_split`` chunks (one block per
 lane, kv head and chunk), and the last block of each (lane, kv head) merges
 the partials, so a call stays one launch.
@@ -254,8 +255,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         softcap: Optional[float] = None):
     """Gradients of the prefill attention -> (dq, dk, dv) in the inputs'
     dtype, from its output ``out`` (B, S, H, hd), its lse (B, H, S) float32
-    and the output gradient ``g`` (B, S, H, hd). Three launches (delta, dk
-    and dv, dq), counted as one call."""
+    and the output gradient ``g`` (B, S, H, hd). Two launches in bf16 (dq
+    with delta, then dk and dv), three in float32 (delta, dk and dv, dq),
+    counted as one call."""
     args = _prefill_checks(q, k, v, causal, window, softcap)
     B, S, H, KV, hd = args[:5]
     _check(out, "out", (q.dtype,), (B, S, H, hd))

@@ -41,6 +41,7 @@ from __future__ import annotations
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention.cases import BWD_CASES
 from repro_torch.kernels.tdm_compress.tdm_compress import TOPK_SELECT_MAX_K
 
 pytestmark = pytest.mark.cuda
@@ -582,7 +583,7 @@ def test_dense_decoder_both_replicas_bucket_256_and_local_ring(device):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("case", list(range(8)))
+@pytest.mark.parametrize("case", list(range(len(BWD_CASES))))
 def test_flash_attention_bwd_against_plain(device, case, dtype):
     from repro_torch.kernels.flash_attention import cases
 

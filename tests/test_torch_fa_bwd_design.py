@@ -5,7 +5,9 @@ with bf16 operands. q, k, v and the output gradient g are bf16 already, so
 S = q k^T and dP = g v^T are exact products summed in float32; p and ds are
 float32 and enter dv += p^T g, dk += ds^T q and dq += ds k as two bf16
 operands, hi = bf16(x) and lo = bf16(x - hi), two products each
-(``csrc/flash_attention.cu`` ``tc_scores`` / ``tc_accumulate``). This file
+(``csrc/flash_attention.cu`` ``bwd_wgmma_pass``, run by
+``fa_bwd_dq_wgmma_kernel`` and ``fa_bwd_dkdv_wgmma_kernel``; the kernels'
+tile order is modelled in ``tests/test_torch_fa_bwd_tiles.py``). This file
 emulates that arithmetic in float32 on the CPU and holds it to the plain
 version (``ref.attention_bwd_ref``) within ``ref.bwd_tolerance``, the bound
 the card holds the kernel to; and shows that one bf16 rounding of p and ds
