@@ -97,6 +97,28 @@ Phases (any failure exits non-zero, and no result line is printed):
    generated tokens per second of device time, the busy share, the device
    time by kind of kernel, ``lm_logits``' time, peak GiB and the
    ``serve.*`` counters;
+4c. slice 11, serving the MoE family (``[moe]`` lines): qwen3-moe-30b-a3b
+   at its published widths (d_model 2048, 32 / 4 heads x 128, 128 experts
+   top-8 of d_ff 768, capacity factor 1.25, vocab 151 936 tied), depth cut
+   to 24 of 48 layers (15.27 B f32 params, 61.1 GB; 48 layers are 120.9
+   GB), built with ``ModelDecoder`` directly, random weights from seed 0,
+   the same scenario and workload as 4. First one MoE layer at the
+   published widths (layer 0's params copied to the CPU, B 1 x S 512 of a
+   bf16 x from a seed) on the card, with TF32 switched on around the call,
+   and on the CPU: ``top_e``, the token table, the slots and the drop count
+   equal, the output within 2e-2 of its scale (the tests' bf16 bound).
+   Then the run, the counters zeroed just before and read just after and
+   ``moe.count_drops`` tallying: every request delivered with 16 tokens,
+   the audit clean, ``flash_attention_fwd`` launched 24 times per prefill
+   call (all on the tensor-core kernel) and ``flash_attention_decode`` 24
+   times per tick, no other kernel, the peak under 74 GiB; the dropped
+   share of routed assignments at prefill and at decode; a replay on a
+   fresh decoder under ``torch.profiler``, bit-identical, with device time
+   by kind; one 4-lane prefill and tick split into host and device time;
+   then the attention kernels at the cell's shapes (G 8, hd 128, no
+   softcap: ``kernels/flash_attention/cases.py``'s serving cases against
+   their plain versions, and the 8- and 4-lane prefill and 8-lane decode
+   timed beside their bounds and ``flex_attention``);
 5. slice 1: the port's TDM path through its user entry points
    (``repro_torch.launch.train_fl_constellation``): constellation-driven
    TDM-FLA rounds of mamba2-780m at its published widths, depth cut to 8
@@ -187,6 +209,7 @@ repository's ``src/`` is missing.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -1438,16 +1461,17 @@ def _run_serving(dec, cfg, device, tag: str):
     return res, rec, launches, model_s
 
 
-def _profiled_replay(arch, cfg, device, tokens, model_s: float, tag: str):
-    """The same workload again on a fresh decoder (the caller has freed the
-    first), under the profiler: the same token streams bit for bit, and the
-    device's busy time. Returns (decoder, run)."""
+def _profiled_replay(make, cfg, device, tokens, model_s: float, tag: str):
+    """The same workload again on a fresh decoder from ``make()`` (the caller
+    has freed the first), under the profiler: the same token streams bit for
+    bit, and the device's busy time. Returns (decoder, run, device time by
+    kernel name)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import telemetry
 
-    _, dec = _make_decoder(arch, device)
+    _, dec = make()
     t0 = time.perf_counter()
     with telemetry.record_scope(tracing=False):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1509,7 +1533,8 @@ def phase_serving(device) -> dict:
     tokens = _tokens_by_request(res.report)
     del dec, res
     torch.cuda.empty_cache()
-    dec2, res2, _ = _profiled_replay(SERVE_ARCH, cfg, device, tokens, model_s, "serve")
+    dec2, res2, _ = _profiled_replay(lambda: _make_decoder(SERVE_ARCH, device), cfg, device,
+                                     tokens, model_s, "serve")
     _split_one_call(dec2, res2.report, device, "serve", "ssd_scan")
     del dec2, res2
     torch.cuda.empty_cache()
@@ -1901,10 +1926,11 @@ def _wave_prefill_dense(decoder, report, device) -> None:
           f"{SERVE_SPREAD}x the plain path's spread ({spread_l:.3g})")
 
 
-def _device_time_by_kind(by_name: dict) -> None:
+def _device_time_by_kind(by_name: dict, tag: str) -> None:
     """The replay's device time by kind of kernel."""
     index = "index ops (K/V slot writes, embedding rows)"
-    kinds = {"attention (fa_prefill/fa_decode)": 0.0, "GEMMs": 0.0, index: 0.0,
+    routing = "sort, gather, scatter and search ops (MoE routing, dispatch, combine)"
+    kinds = {"attention (fa_prefill/fa_decode)": 0.0, "GEMMs": 0.0, index: 0.0, routing: 0.0,
              "casts and copies": 0.0, "other": 0.0}
     for name, (ms, _) in by_name.items():
         low = name.lower()
@@ -1912,18 +1938,20 @@ def _device_time_by_kind(by_name: dict) -> None:
             kinds["attention (fa_prefill/fa_decode)"] += ms
         elif any(t in low for t in ("gemm", "xmma", "nvjet", "cutlass", "cublas")):
             kinds["GEMMs"] += ms
+        elif any(t in low for t in ("sort", "scatter", "gather", "search", "radix")):
+            kinds[routing] += ms
         elif "index" in low:
             kinds[index] += ms
         elif "copy" in low or "memcpy" in low:
             kinds["casts and copies"] += ms
         else:
             kinds["other"] += ms
-    log(f"[{DENSE_TAG}] replay device time by kind: " + ", ".join(
+    log(f"[{tag}] replay device time by kind: " + ", ".join(
         f"{k} {ms:.1f} ms" for k, ms in kinds.items()))
     for name, (ms, n) in sorted(by_name.items()):
         if "fa_prefill" in name or "fa_decode" in name:
             short = name.replace("(anonymous namespace)::", "").split("(")[0]
-            log(f"[{DENSE_TAG}]   {short[-60:]}: {ms:.1f} ms in {n} launches "
+            log(f"[{tag}]   {short[-60:]}: {ms:.1f} ms in {n} launches "
                 f"({ms / n * 1e3:.1f} us each)")
 
 
@@ -2026,11 +2054,11 @@ def phase_serving_dense(device, power_note: str) -> dict:
     left = torch.cuda.memory_allocated(device)
     check(left < 2**30, f"{left / 2**30:.2f} GiB still allocated after the first decoder")
     torch.cuda.reset_peak_memory_stats(device)
-    dec2, res2, by_name = _profiled_replay(DENSE_ARCH, cfg, device, tokens, model_s,
-                                           DENSE_TAG)
+    dec2, res2, by_name = _profiled_replay(lambda: _make_decoder(DENSE_ARCH, device), cfg,
+                                           device, tokens, model_s, DENSE_TAG)
     log(f"[{DENSE_TAG}] replay peak {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB "
         f"(a fresh decoder: one copy of the params)")
-    _device_time_by_kind(by_name)
+    _device_time_by_kind(by_name, DENSE_TAG)
     _split_one_call(dec2, res2.report, device, DENSE_TAG, "fa_")
     _time_logits(dec2, device, power_note)
     _time_cache_fold(dec2, device, power_note)
@@ -2123,10 +2151,10 @@ def _profiled_ms(fn, key: str, reps: int) -> str:
     return f"{sum(ms for ms, _ in hits) / launches:.4f} ms per launch"
 
 
-def _flex(q, k, v, cap: float, causal: bool, kv_len=None):
+def _flex(q, k, v, cap, causal: bool, kv_len=None):
     """The library yardstick: one ``flex_attention`` call under
-    ``torch.compile`` that computes the kernel's function (softcap as a
-    ``score_mod``, causal or per-row kv_len as a ``mask_mod``, GQA by
+    ``torch.compile`` that computes the kernel's function (softcap, where
+    ``cap`` is not None, as a ``score_mod``, causal or per-row kv_len as a ``mask_mod``, GQA by
     ``enable_gqa``). Returns (a function that runs it and returns the output
     in the kernels' layout, None) or (None, the error). Never called by the
     port."""
@@ -2152,8 +2180,8 @@ def _flex(q, k, v, cap: float, causal: bool, kv_len=None):
         flex = torch.compile(flex_attention, dynamic=False)
 
         def run():
-            return flex(qt, kt, vt, score_mod=softcap, block_mask=block_mask,
-                        enable_gqa=True).transpose(1, 2)
+            return flex(qt, kt, vt, score_mod=softcap if cap is not None else None,
+                        block_mask=block_mask, enable_gqa=True).transpose(1, 2)
 
         run()
         torch.cuda.synchronize()
@@ -2205,6 +2233,23 @@ def _profiler_check(device, power_note: str) -> None:
             f"{passes}; the call {time_ms(run, reps=20):.4f} ms by CUDA events  [{power_note}]")
 
 
+def _library(run, note, want):
+    """(ms, note) of the library yardstick from :func:`_flex`, held to the
+    plain version ``want``; (None, why) when it did not build."""
+    from repro_torch.kernels.flash_attention import ref
+
+    if run is None:
+        return None, f"null ({note})"
+    ok, err = ref.fa_close(run(), want)
+    ms = time_ms(run, reps=20)
+    try:
+        how = f"{_graph_ms(run, 20):.4f} ms device by graph replay"
+    except Exception as exc:  # noqa: BLE001 - a compiled call may refuse capture
+        how = f"CUDA-graph capture failed: {type(exc).__name__}"
+    return ms, (f"{ms:.4f} ms by CUDA events ({how}; {'within' if ok else 'outside'} "
+                f"fa_tolerance of the plain version, max |diff| {err:.3g})")
+
+
 def phase_fa_slice(device, power_note: str) -> list:
     """Both attention entry points at the serving shapes (gemma2-9b, both
     replicas admitted: 8 lanes x 16 heads / 8 kv heads x 256, bf16, softcap
@@ -2218,7 +2263,6 @@ def phase_fa_slice(device, power_note: str) -> list:
     import torch
 
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention import ref
 
     gen = torch.Generator(device=device).manual_seed(29)
     rows = []
@@ -2240,18 +2284,6 @@ def phase_fa_slice(device, power_note: str) -> list:
             "graph_ms": graph,
         })
 
-    def library(run, note, want):
-        if run is None:
-            return None, f"null ({note})"
-        ok, err = ref.fa_close(run(), want)
-        ms = time_ms(run, reps=20)
-        try:
-            how = f"{_graph_ms(run, 20):.4f} ms device by graph replay"
-        except Exception as exc:  # noqa: BLE001 - a compiled call may refuse capture
-            how = f"CUDA-graph capture failed: {type(exc).__name__}"
-        return ms, (f"{ms:.4f} ms by CUDA events ({how}; {'within' if ok else 'outside'} "
-                    f"fa_tolerance of the plain version, max |diff| {err:.3g})")
-
     cap = 50.0
     for B in (FA_SERVE_PREFILL[0], SERVE_BATCH):
         _, S, H, KV, hd = FA_SERVE_PREFILL
@@ -2265,7 +2297,7 @@ def phase_fa_slice(device, power_note: str) -> list:
         flops = B * H * (S * (S + 1) // 2) * 4 * hd       # the causal triangle, QK and PV
         nbytes = 2 * B * S * H * hd * 2 + 2 * B * S * KV * hd * 2
         shape = f"(B {B}, S {S}, H {H}, KV {KV}, hd {hd}, causal, bf16)"
-        lib, note = library(*_flex(q, k, v, cap, True), want)
+        lib, note = _library(*_flex(q, k, v, cap, True), want)
         if B == FA_SERVE_PREFILL[0]:
             record("flash_attention_fwd", err, ms, graph, plain, flops, nbytes, lib, note,
                    _sdpa_ms(q, k, v, True), shape)
@@ -2293,7 +2325,7 @@ def phase_fa_slice(device, power_note: str) -> list:
         flops = B * H * L * 4 * hd
         nbytes = 2 * B * L * KV * hd * 2 + 2 * B * H * hd * 2 + B * 4
         shape = f"(B {B}, Sq 1, L {L}, kv_len {L}, H {H}, KV {KV}, hd {hd}, bf16)"
-        lib, note = library(*_flex(q, k, v, cap, False, kv_len), want)
+        lib, note = _library(*_flex(q, k, v, cap, False, kv_len), want)
         if B == FA_SERVE_DECODE[0]:
             record("flash_attention_decode", err, ms, graph, plain, flops, nbytes, lib, note,
                    _sdpa_ms(q, k, v, False), shape)
@@ -2306,6 +2338,281 @@ def phase_fa_slice(device, power_note: str) -> list:
                 f"{_sdpa_ms(q, k, v, False)}  [{power_note}]")
         del q, k, v, want
     return rows
+
+
+# ---------------------------------------------------------------------------
+# MoE serving (slice 11): qwen3-moe-30b-a3b through the ModelDecoder
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_LAYERS = 24             # qwen3-moe-30b-a3b has 48: 120.9 GB of f32 params, over 80 GB
+MOE_TAG = "moe"
+MOE_PEAK_GIB = 74.0         # the phase fails above this (then cut to 16 layers)
+MOE_BF16_FRAC = 2e-2        # a MoE layer's bf16 output, card vs CPU (tests/test_torch_moe.py)
+MOE_LAYER_S = 512           # the card-vs-CPU layer's tokens: one prefill bucket, B 1
+
+
+def _make_moe_decoder(device):
+    """The torch ``ModelDecoder`` of qwen3-moe-30b-a3b at its published
+    widths, depth cut to ``MOE_LAYERS``, random weights from seed 0, its
+    cache sized as the other serving cells'."""
+    from repro_torch.configs import archs
+    from repro_torch.launch import serve_constellation as sc
+    from repro_torch.serving import ModelDecoder
+
+    cfg = archs.get(MOE_ARCH).replace(n_layers=MOE_LAYERS)
+    max_len = ModelDecoder._bucket(SERVE_PROMPT[1]) + SERVE_MAX_NEW + 1
+    return cfg, ModelDecoder(cfg, len(sc.REPLICAS), SERVE_BATCH, max_len, seed=0,
+                             device=device)
+
+
+def _moe_layer_card_vs_cpu(dec, device) -> None:
+    """One MoE layer at the published widths (layer 0's params, copied to the
+    CPU), B 1 x S 512 of a bf16 x drawn from a seed, on the card and on the
+    CPU: ``top_e``, the token table, each token's slots and the drop count
+    equal; the routing weights within rtol 1e-5; the output within
+    ``MOE_BF16_FRAC`` of its largest magnitude; the aux losses within rtol
+    1e-4. TF32 is switched on around the card's call, so the router's
+    product has to keep itself in float32."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.pytree import tree_map
+
+    cfg = dec.cfg
+    E, K, C = cfg.moe.n_experts, cfg.moe.top_k, moe.capacity(MOE_LAYER_S, cfg)
+    p_card = tree_map(lambda t: t[0], dec.params["units"])["L0"]["ffn"]
+    p_cpu = tree_map(lambda t: t.cpu(), p_card)
+    gen = torch.Generator().manual_seed(41)
+    x_cpu = torch.randn(1, MOE_LAYER_S, cfg.d_model, generator=gen).to(torch.bfloat16)
+
+    def run(p, x):
+        r = moe.route(p["router"], x, K)
+        d = moe.dispatch(r.top_e, r.top_w, E, C)
+        out, aux = moe.moe_apply(p, x, cfg)
+        return r, d, out, aux
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            card = run(p_card, x_cpu.to(device))
+        torch.cuda.synchronize(device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu = run(p_cpu, x_cpu)
+    cpu_s = time.perf_counter() - t0
+    (rg, dg, og, ag), (rc, dc, oc, ac) = tree_map(lambda t: t.cpu(), card), cpu
+    for what, a, b in (("top_e", rg.top_e, rc.top_e), ("token table", dg.table, dc.table),
+                       ("slots", dg.slots, dc.slots), ("counts", dg.counts, dc.counts),
+                       ("drops", dg.dropped, dc.dropped)):
+        check(torch.equal(a, b), f"MoE layer, card vs CPU: {what} differ "
+              f"({int((a != b).sum())} of {a.numel()})")
+    w_rel = float(((rg.top_w - rc.top_w).abs() / rc.top_w.abs()).max())
+    scale = float(oc.float().abs().max())
+    out_frac = float((og.float() - oc.float()).abs().max()) / scale
+    ulps = out_frac * scale / 2.0 ** (math.floor(math.log2(scale)) - 7)
+    aux_rel = max(abs(float(ag[k]) / float(ac[k]) - 1.0) for k in ac)
+    log(f"[{MOE_TAG}] one MoE layer at the published widths (B 1, S {MOE_LAYER_S}, bf16, "
+        f"C {C}, TF32 on around the card's call), card vs CPU ({cpu_s:.1f} s on the CPU): "
+        f"top_e, token table, slots, counts and drops equal; {int(dc.dropped)} of "
+        f"{MOE_LAYER_S * K} assignments dropped ({int(dc.dropped) / (MOE_LAYER_S * K):.2%}); "
+        f"top_w max rel {w_rel:.3g}; output max |diff| {out_frac:.3g} of its scale (bound "
+        f"{MOE_BF16_FRAC}), {ulps:.3g} bf16 ulps at that scale; aux losses rel {aux_rel:.3g}")
+    check(torch.backends.cuda.matmul.allow_tf32 == prev, "moe left the TF32 switch changed")
+    check(w_rel <= 1e-5 and out_frac <= MOE_BF16_FRAC and aux_rel <= 1e-4,
+          f"MoE layer, card vs CPU: top_w {w_rel:.3g}, output {out_frac:.3g} of its scale, "
+          f"aux {aux_rel:.3g}")
+
+
+def _moe_drops_by_layer(dec, report) -> None:
+    """The dropped share of routed assignments in one 4-lane prefill call
+    (the first wave's prompts, left-padded to their bucket) and one 4-lane
+    tick after it, layer by layer (``moe.count_drops`` keeps each call's
+    layers in order)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import moe
+
+    prompts = [r.prompt for r in sorted(report.requests, key=lambda r: r.rid)[:SERVE_BATCH]]
+    plen = dec._bucket(max(len(p) for p in prompts))
+    pads = sum(plen - len(p) for p in prompts)
+    with moe.count_drops() as tally:
+        dec.prefill_waves({0: prompts})
+        dec.step(np.array([True, False]))
+    for kind, what in (("prefill", f"one 4-lane prefill call (bucket {plen}, {pads} of "
+                        f"{SERVE_BATCH * plen} tokens left padding)"),
+                       ("decode", "the 4-lane tick after it")):
+        per = torch.stack(tally[kind]).tolist()
+        seen, dropped = (sum(c[i] for c in per) for i in (0, 1))
+        shares = ", ".join(f"{d / n:.0%}" for n, d in per)
+        log(f"[{MOE_TAG}] {what}: {dropped} of {seen} assignments dropped ({dropped / seen:.2%});"
+            f" by layer {shares}")
+
+
+def _moe_attention(device, power_note: str) -> None:
+    """The attention kernels at qwen3-moe's shapes (32 / 4 heads x 128, G 8,
+    no softcap): ``kernels/flash_attention/cases.py``'s serving cases
+    against their plain versions (prefill at 4 and 8 lanes, S 512, causal;
+    decode at 8 lanes against 529 slots with ragged kv_len; bf16 and f32,
+    each launched twice bit-identical), then the bf16 prefill at 8 and 4
+    lanes and the decode at 8 lanes timed beside their bounds and
+    ``flex_attention`` (the same function: no softcap)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import cases, ops
+
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for case in cases.SERVE_PREFILL_CASES:
+            worst = max(worst, _case(cases.check_prefill_case, case, dtype, device))
+        for case in cases.SERVE_DECODE_CASES:
+            worst = max(worst, _case(cases.check_decode_case, case, dtype, device))
+    log(f"[{MOE_TAG}] attention at qwen3-moe's shapes (G 8, hd 128, no softcap): "
+        f"{2 * len(cases.SERVE_PREFILL_CASES)} prefill and {2 * len(cases.SERVE_DECODE_CASES)} "
+        f"decode cases, bf16 and f32, within fa_tolerance of the plain version (max |diff| "
+        f"{worst:.3g}), each launched twice bit-identical, bf16 prefills on tensor cores")
+    gen = torch.Generator(device=device).manual_seed(43)
+    for B, S, H, KV, hd, causal, _, _ in cases.SERVE_PREFILL_CASES[::-1]:
+        q, k, v = _fa_inputs(gen, (B, S, H, hd), (B, S, KV, hd), torch.bfloat16, device)
+        want = ops.flash_attention(q, k, v, impl="ref")
+        kernel = lambda: ops.flash_attention(q, k, v, impl="cuda")  # noqa: E731
+        ms, graph = time_ms(kernel, reps=20), _graph_ms(kernel, 20)
+        plain = time_ms(lambda: ops.flash_attention(q, k, v, impl="ref"), reps=3)
+        flops = B * H * (S * (S + 1) // 2) * 4 * hd
+        nbytes = 2 * B * S * H * hd * 2 + 2 * B * S * KV * hd * 2
+        _, note = _library(*_flex(q, k, v, None, True), want)
+        _log_g8_row("flash_attention_fwd", f"(B {B}, S {S}, H {H}, KV {KV}, hd {hd}, causal, "
+                    "bf16)", ms, graph, plain, flops, nbytes, note, power_note)
+        del q, k, v, want
+    for B, L, H, KV, hd, lens in cases.SERVE_DECODE_CASES:
+        q, k, v = _fa_inputs(gen, (B, 1, H, hd), (B, L, KV, hd), torch.bfloat16, device)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=device)
+        want = ops.flash_attention_decode(q, k, v, kv_len, impl="ref")
+        kernel = lambda: ops.flash_attention_decode(q, k, v, kv_len, impl="cuda")  # noqa: E731
+        ms, graph = time_ms(kernel, reps=50), _graph_ms(kernel, 50)
+        plain = time_ms(lambda: ops.flash_attention_decode(q, k, v, kv_len, impl="ref"),
+                        reps=10)
+        n = sum(lens)           # the keys this run's kv_len reads
+        flops = n * H * 4 * hd
+        nbytes = 2 * n * KV * hd * 2 + 2 * B * H * hd * 2 + B * 4
+        _, note = _library(*_flex(q, k, v, None, False, kv_len), want)
+        _log_g8_row("flash_attention_decode", f"(B {B}, Sq 1, L {L}, kv_len {list(lens)}, "
+                    f"H {H}, KV {KV}, hd {hd}, bf16)", ms, graph, plain, flops, nbytes, note,
+                    power_note)
+        del q, k, v, want
+
+
+def _case(fn, case, dtype, device) -> float:
+    try:
+        return fn(case, dtype, device)
+    except AssertionError as exc:
+        raise SmokeFailure(f"attention case: {exc}") from exc
+
+
+def _log_g8_row(name, shape, ms, graph, plain, flops, nbytes, note, power_note) -> None:
+    op_ms, byte_ms = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound = max(op_ms, byte_ms)
+    log(f"[{MOE_TAG}] {name} at {shape}: {ms:.4f} ms by CUDA events ({graph:.4f} ms device "
+        f"by graph replay), bound {bound:.4f} ms by {'operations' if op_ms >= byte_ms else 'bytes'} "
+        f"({bound / ms:.1%}; {flops / 1e9:.3f} GFLOP at 989 TFLOP/s "
+        f"bf16, {nbytes / 1e6:.2f} MB at 3.35 TB/s), plain {plain:.3f} ms, library "
+        f"(flex_attention, torch.compile) {note}  [{power_note}]")
+
+
+def phase_serving_moe(device, power_note: str) -> dict:
+    """Slice 11: qwen3-moe-30b-a3b at its published widths, 24 of 48 layers
+    (15.27 B f32 params), through ``serve_constellation``'s entry points
+    with the ``ModelDecoder`` built directly, the launch counters zeroed
+    just before and read just after and the MoE drops tallied
+    (``moe.count_drops``); a replay on a fresh decoder under the profiler,
+    bit-identical; one MoE layer card vs CPU; the attention kernels at the
+    cell's shapes. Returns the attention launches of the serving run."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.pytree import tree_leaves
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    cfg, dec = _make_moe_decoder(device)
+    torch.cuda.synchronize(device)
+    init_peak = torch.cuda.max_memory_allocated(device)
+    n_params = sum(t.numel() for t in tree_leaves(dec.params))
+    n_attn, n_moe = (sum(t[0].numel() for t in tree_leaves(dec.params["units"]["L0"][part]))
+                     for part in ("attn", "ffn"))
+    cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(dec._cache))
+    m = cfg.moe
+    log(f"[{MOE_TAG}] {cfg.name}: {cfg.n_layers} of 48 layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv heads x {cfg.head_dim}, {m.n_experts} "
+        f"experts top-{m.top_k}, expert d_ff {m.d_ff}, capacity factor {m.capacity_factor}, "
+        f"vocab {cfg.vocab_size} (tied), rope theta {cfg.rope_theta:g}; params {n_params:,} "
+        f"f32 ({n_params * 4 / 1e9:.2f} GB, seed 0; per layer {n_attn / 1e6:.1f} M attention, "
+        f"{n_moe / 1e6:.1f} M MoE), caches {cache_bytes / 1e6:.1f} MB for 2 replicas (max_len "
+        f"{dec.max_len}); {cfg.compute_dtype} compute; decoder built in "
+        f"{time.perf_counter() - t0:.1f} s, peak {_gib(init_peak)} GiB while building")
+    check(cfg.n_layers == MOE_LAYERS and m.n_experts == 128 and m.top_k == 8,
+          f"{cfg.name}: {cfg.n_layers} layers, {m.n_experts} experts top-{m.top_k}")
+    _moe_layer_card_vs_cpu(dec, device)
+    torch.cuda.reset_peak_memory_stats(device)
+    with moe.count_drops() as tally:
+        res, rec, counts, model_s = _run_serving(dec, cfg, device, MOE_TAG)
+    drops = {kind: torch.stack(calls).sum(0).tolist() for kind, calls in tally.items()}
+    del tally
+    peak = max(init_peak, torch.cuda.max_memory_allocated(device))
+    prefill_calls = int(rec.get_counter("serve.prefill.calls"))
+    ticks = sum(1 for sp in rec.spans if sp.name == "serve.decode")
+    fwd, dcd = counts["flash_attention_fwd"], counts["flash_attention_decode"]
+    check(prefill_calls > 0 and fwd == cfg.n_layers * prefill_calls,
+          f"flash_attention_fwd launched {fwd} times for {prefill_calls} prefill calls")
+    check(ticks > 0 and dcd == cfg.n_layers * ticks,
+          f"flash_attention_decode launched {dcd} times for {ticks} decode ticks")
+    check(counts["flash_attention_fwd_wgmma"] == fwd,
+          f"{counts['flash_attention_fwd_wgmma']} of {fwd} prefill launches on tensor cores")
+    others = {k: v for k, v in counts.items() if not k.startswith("flash_attention") and v}
+    check(not others and counts["flash_attention_bwd"] == 0,
+          f"other kernels on the MoE serving path: {others}, bwd {counts['flash_attention_bwd']}")
+    check(peak <= MOE_PEAK_GIB * 2 ** 30,
+          f"peak {_gib(peak)} GiB above {MOE_PEAK_GIB} GiB: cut the cell to 16 layers")
+    summ = res.report.summary()
+    log(f"[{MOE_TAG}] {summ['delivered']}/{summ['n_requests']} delivered x {SERVE_MAX_NEW} "
+        f"tokens, audit OK ({res.verdict.n_hops} hops), {summ['retries']} retries; "
+        f"flash_attention_fwd launches {fwd} = {cfg.n_layers} x {prefill_calls} prefill calls "
+        f"(all on the tensor-core kernel), flash_attention_decode {dcd} = {cfg.n_layers} x "
+        f"{ticks} ticks; peak {_gib(peak)} GiB (bound {MOE_PEAK_GIB})")
+    for kind, (seen, dropped) in sorted(drops.items()):
+        log(f"[{MOE_TAG}] {kind}: {dropped} of {seen} routed assignments dropped over "
+            f"capacity ({dropped / seen:.2%}), all {cfg.n_layers} layers of "
+            f"{prefill_calls if kind == 'prefill' else ticks} calls")
+    check(set(drops) == {"prefill", "decode"}, f"drops tallied for {sorted(drops)}")
+
+    tokens = _tokens_by_request(res.report)
+    del dec, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(device)
+    check(left < 2**30, f"{_gib(left)} GiB still allocated after the first decoder")
+    torch.cuda.reset_peak_memory_stats(device)
+    dec2, res2, by_name = _profiled_replay(lambda: _make_moe_decoder(device), cfg, device,
+                                           tokens, model_s, MOE_TAG)
+    log(f"[{MOE_TAG}] replay peak {_gib(torch.cuda.max_memory_allocated(device))} GiB")
+    _device_time_by_kind(by_name, MOE_TAG)
+    _split_one_call(dec2, res2.report, device, MOE_TAG, "fa_")
+    _moe_drops_by_layer(dec2, res2.report)
+    del dec2, res2
+    gc.collect()
+    torch.cuda.empty_cache()
+    _moe_attention(device, power_note)
+    log(f"[{MOE_TAG}] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"flash_attention_fwd": fwd, "flash_attention_decode": dcd}
 
 
 # ---------------------------------------------------------------------------
@@ -2700,6 +3007,8 @@ def main() -> int:
     mark("serving, mamba2-780m")
     dense_launches = phase_serving_dense(device, dev["card"])
     mark("serving, gemma2-9b")
+    moe_launches = phase_serving_moe(device, dev["card"])
+    mark("serving, qwen3-moe-30b-a3b")
     launches, buf, k_b = phase_slice(device)
     mark("slice 1")
     gs_launches = phase_groundseg(device)
@@ -2718,7 +3027,8 @@ def main() -> int:
     ssd_row["launches"] = serve_launches["ssd_scan"]
     kernels.append(ssd_row)
     for row in phase_fa_slice(device, dev["card"]):
-        row["launches"] = dense_launches[row["name"]] + train_launches[row["name"]]
+        row["launches"] = (dense_launches[row["name"]] + moe_launches[row["name"]]
+                           + train_launches[row["name"]])
         kernels.append(row)
     bwd_row["launches"] = train_launches["flash_attention_bwd"]
     kernels.append(bwd_row)

@@ -1,7 +1,14 @@
-"""The training attention kernels held to their plain versions on the card:
-the cases that ``chip_smoke.py`` and the card tests both run.
+"""The attention kernels held to their plain versions on the card: the cases
+that ``chip_smoke.py`` and the card tests both run.
 
-Each case draws q, k, v and an output gradient g from a seed on the card,
+Serving (:func:`check_prefill_case`, :func:`check_decode_case`): the
+prefill and the decode at the MoE serving cell's shapes (qwen3-moe-30b-a3b,
+a GQA group of 8 at head dim 128, no softcap, no window), each launched
+twice, bit-identical, within ``ref.fa_tolerance`` of the plain version
+(``ref.attention_ref``, with ``kv_len`` for the decode); a bf16 prefill on
+the tensor-core kernel.
+
+Training: each case draws q, k, v and an output gradient g from a seed on the card,
 runs ``flash_attention_fwd(..., lse=True)`` twice and
 ``flash_attention_bwd`` twice on the kernels' own (out, lse), and checks:
 the two launches of each bit-identical; the lse within ``ref.lse_close`` of
@@ -29,7 +36,8 @@ from repro_torch.pytree import tree_leaves
 # across the 64-row bf16 tiles), windows whose edges fall inside a tile (5,
 # 40, 48, 100) and one that bites at S 1024 (256), softcap 50 and none, one
 # non-causal window, and the training cell's local layers (B 2, S 4096,
-# 16 / 8 heads x 256, causal, window 4096, softcap 50)
+# 16 / 8 heads x 256, causal, window 4096, softcap 50), and a GQA group of 8
+# at hd 128 with no softcap (qwen3-moe-30b-a3b's group and head dim)
 BWD_CASES = [
     (2, 33, 4, 2, 16, True, 5, 50.0),
     (2, 64, 4, 2, 128, True, None, 50.0),
@@ -43,11 +51,69 @@ BWD_CASES = [
     (2, 127, 4, 1, 64, True, 40, None),
     (1, 191, 8, 2, 256, True, None, 50.0),
     (2, 4096, 16, 8, 256, True, 4096, 50.0),
+    (1, 300, 16, 2, 128, True, None, None),
+]
+
+# the MoE serving cell's attention (qwen3-moe-30b-a3b: 32 query / 4 kv
+# heads x 128, so G 8; causal, no window, no softcap): the prefill at its
+# 4 and 8 lanes and bucket 512, (B, S, H, KV, hd, causal, window, softcap);
+# the decode at 8 lanes against its 529-slot cache with ragged kv_len,
+# (B, L, H, KV, hd, kv_len of each row)
+SERVE_PREFILL_CASES = [
+    (4, 512, 32, 4, 128, True, None, None),
+    (8, 512, 32, 4, 128, True, None, None),
+]
+SERVE_DECODE_CASES = [
+    (8, 529, 32, 4, 128, (1, 2, 129, 256, 257, 400, 528, 529)),
 ]
 
 
 def _same(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _draw(gen, dtype, device, *shape):
+    return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+
+def check_prefill_case(case, dtype: torch.dtype, device, seed: int = 0) -> float:
+    """Run one prefill case; raise AssertionError on any failed check.
+    Returns the max |diff| from the plain version."""
+    from repro_torch.kernels.flash_attention import flash_attention as kern
+
+    B, S, H, KV, hd, causal, window, cap = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (_draw(gen, dtype, device, B, S, n, hd) for n in (H, KV, KV))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    what = f"prefill {case} {dtype}"
+    before = kern.launch_counts()
+    got = [ops.flash_attention(q, k, v, impl="cuda", **kw) for _ in range(2)]
+    after = kern.launch_counts()
+    torch.cuda.synchronize(device)
+    assert torch.equal(got[0], got[1]), f"{what}: two launches differ"
+    wgmma = after["flash_attention_fwd_wgmma"] - before["flash_attention_fwd_wgmma"]
+    assert wgmma == (2 if dtype == torch.bfloat16 else 0), f"{what}: {wgmma} on tensor cores"
+    ok, err = ref.fa_close(got[0], ref.attention_ref(q, k, v, **kw))
+    assert ok, f"{what}: outside fa_tolerance ({err})"
+    return err
+
+
+def check_decode_case(case, dtype: torch.dtype, device, seed: int = 0) -> float:
+    """Run one decode case (one new token per row, no softcap); raise
+    AssertionError on any failed check. Returns the max |diff| from the
+    plain version."""
+    B, L, H, KV, hd, lens = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = _draw(gen, dtype, device, B, 1, H, hd)
+    k, v = (_draw(gen, dtype, device, B, L, KV, hd) for _ in range(2))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=device)
+    what = f"decode {case} {dtype}"
+    got = [ops.flash_attention_decode(q, k, v, kv_len, impl="cuda") for _ in range(2)]
+    torch.cuda.synchronize(device)
+    assert torch.equal(got[0], got[1]), f"{what}: two launches differ"
+    ok, err = ref.fa_close(got[0], ops.flash_attention_decode(q, k, v, kv_len, impl="ref"))
+    assert ok, f"{what}: outside fa_tolerance ({err})"
+    return err
 
 
 def check_bwd_case(case, dtype: torch.dtype, device, seed: int = 0) -> Dict[str, float]:

@@ -11,7 +11,8 @@ links, use :mod:`repro_torch.launch.serve_constellation`.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
         [--smoke] --requests 6 --max-new 12 [--device cuda|cpu]
 
-``--arch`` takes the ssm and dense configs (mamba2-780m, gemma2-9b, ...).
+``--arch`` takes the ssm, dense and moe configs (mamba2-780m, gemma2-9b,
+qwen3-moe-30b-a3b, ...).
 """
 
 from __future__ import annotations

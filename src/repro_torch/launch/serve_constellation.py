@@ -11,8 +11,8 @@ requests). The run exits non-zero on a lost request or an audit violation.
 
 The default decoder is the deterministic ``NullDecoder``. ``--model``
 decodes with the real ``ModelDecoder`` on ``--arch`` (default gemma2-9b, the
-reference example's model; mamba2-780m and the other dense configs work as
-well) at its published config, or its smoke config with ``--smoke`` (the
+reference example's model; mamba2-780m, the other dense configs and the MoE
+configs qwen3-moe-30b-a3b and kimi-k2-1t-a32b work as well) at its published config, or its smoke config with ``--smoke`` (the
 reference example's choice), with random weights from seed 0. Prompts are
 drawn over the model's vocabulary. ``run`` takes the batch, the prompt
 lengths and the number of new tokens for callers that serve other workloads.

@@ -1,7 +1,7 @@
 """Base layers for the port: norms, embedding, tied LM head, init.
 
-Counterpart of the JAX package's ``models/layers.py`` (the parts the ssm
-and dense families use; ``apply_mrope`` waits for qwen2-vl). Params are plain dicts of tensors. Inits draw from an explicit
+Counterpart of the JAX package's ``models/layers.py`` (the parts the ssm,
+dense and moe families use; ``apply_mrope`` waits for qwen2-vl). Params are plain dicts of tensors. Inits draw from an explicit
 ``torch.Generator`` and allocate on its device; they cannot reproduce
 ``jax.random`` draws, so parity tests load the reference's params instead
 (:mod:`repro_torch.weights`).

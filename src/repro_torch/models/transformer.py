@@ -1,5 +1,6 @@
-"""The LM decoder stack, ssm (mamba2) and dense (gemma2, granite, qwen2)
-families: init, prefill and decode, training forward and loss.
+"""The LM decoder stack, ssm (mamba2), dense (gemma2, granite, qwen2) and
+moe (qwen3-moe, kimi-k2) families: init, prefill and decode, training
+forward and loss.
 
 Counterpart of the JAX package's ``models/transformer.py``. A config is
 compiled to a list of :class:`LayerDesc` per *scan unit*:
@@ -8,8 +9,9 @@ compiled to a list of :class:`LayerDesc` per *scan unit*:
 - dense (granite/qwen2):           unit = [attn+mlp],            L units
 - gemma2:                          unit = [attn(local)+mlp,
                                            attn(global)+mlp],    L/2 units
+- moe (qwen3-moe/kimi-k2):         unit = [attn+moe],            L units
 
-MoE, hybrid and encoder-decoder configs, and M-RoPE (qwen2-vl), raise
+Hybrid and encoder-decoder configs, and M-RoPE (qwen2-vl), raise
 ``NotImplementedError``. Units are stacked on a leading layer axis as in the
 reference (its ``lax.scan`` layout), and the forward loops over them.
 Training: with ``cfg.remat == "full"`` (the default) each unit of
@@ -17,6 +19,9 @@ Training: with ``cfg.remat == "full"`` (the default) each unit of
 the backward, as the reference's ``jax.checkpoint`` of the scan body), and
 :func:`loss_fn` checkpoints each ``loss_chunk`` of the vocab projection, so
 a step keeps one chunk's float32 logits at a time. Neither changes a value.
+The MoE layers' aux losses (:func:`~repro_torch.models.moe.moe_apply`) are
+summed per unit and over units, as the reference's scan carries them, and
+:func:`loss_fn` adds them to the cross-entropy.
 Attention trains through :func:`~repro_torch.models.attention.flash_attention_train`
 (its manual backward: the CUDA kernels on the card).
 
@@ -46,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import mamba2 as mamba_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import AttnSpec, flash_attention_train
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -69,13 +75,13 @@ Params = Dict[str, Any]
 class LayerDesc:
     mixer: str                  # "attn" | "mamba"
     local: bool = False         # sliding-window attention
-    ffn: Optional[str] = None   # "dense" | None
+    ffn: Optional[str] = None   # "dense" | "moe" | None
 
 
 def _unported(cfg: ModelConfig, what: str = ""):
     return NotImplementedError(
         f"model family {cfg.family!r} ({cfg.name}){what} is not ported yet; the "
-        "port covers the ssm and dense families (ROADMAP queue 1, model zoo)"
+        "port covers the ssm, dense and moe families (ROADMAP queue 1, model zoo)"
     )
 
 
@@ -83,12 +89,13 @@ def scan_unit(cfg: ModelConfig) -> List[LayerDesc]:
     """The per-unit layer pattern for this config (see module docstring)."""
     if cfg.family == "ssm":
         return [LayerDesc("mamba", ffn=None if cfg.no_ffn else "dense")]
-    if cfg.family == "hybrid" or cfg.enc_dec or cfg.moe is not None:
+    if cfg.family == "hybrid" or cfg.enc_dec:
         raise _unported(cfg)
     if cfg.local_global_alternate:
-        return [LayerDesc("attn", local=True, ffn="dense"),
-                LayerDesc("attn", local=False, ffn="dense")]
-    return [LayerDesc("attn", local=cfg.force_local, ffn="dense")]
+        return [LayerDesc("attn", local=True, ffn="moe" if cfg.ffn_is_moe(0) else "dense"),
+                LayerDesc("attn", local=False, ffn="moe" if cfg.ffn_is_moe(1) else "dense")]
+    ffn = "moe" if (cfg.moe is not None and cfg.moe.every == 1) else "dense"
+    return [LayerDesc("attn", local=cfg.force_local, ffn=ffn)]
 
 
 def n_units(cfg: ModelConfig) -> int:
@@ -147,6 +154,16 @@ def _attn_out(p: Params, out: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
 
 
+def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig, desc: LayerDesc,
+         groups: Optional[int] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """The FFN sub-layer on ``h`` (before the residual add) and, for a MoE
+    layer, its aux losses. ``groups`` is the MoE's decode groups."""
+    hn = rmsnorm(h, p["ln2"], cfg.norm_eps)
+    if desc.ffn == "moe":
+        return moe_lib.moe_apply(p["ffn"], hn, cfg, groups)
+    return mlp_apply(p["ffn"], hn, cfg), None
+
+
 # ---------------------------------------------------------------------------
 # unit (scan body) param init
 # ---------------------------------------------------------------------------
@@ -162,7 +179,8 @@ def init_unit(gen: torch.Generator, cfg: ModelConfig) -> Params:
             lp["mamba"] = mamba_lib.init_mamba(gen, cfg)
         if d.ffn is not None:
             lp["ln2"] = init_rmsnorm(cfg.d_model, pdt, gen.device)
-            lp["ffn"] = init_mlp(gen, cfg, cfg.d_ff)
+            lp["ffn"] = (moe_lib.init_moe(gen, cfg) if d.ffn == "moe"
+                         else init_mlp(gen, cfg, cfg.d_ff))
         p[f"L{j}"] = lp
     return p
 
@@ -289,7 +307,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int
                                                                     impl)
             h = h + out
             if d.ffn is not None:
-                h = h + mlp_apply(p["ffn"], rmsnorm(h, p["ln2"], cfg.norm_eps), cfg)
+                h = h + _ffn(p, h, cfg, d)[0]
         caches.append(entries)
     h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
     logits = lm_logits(params["embed"], h[:, -1:], cfg)
@@ -332,10 +350,12 @@ def decode_step(params: Params, cache: Dict, token: torch.Tensor, cfg: ModelConf
     ``token`` is (B, 1). The cache's tensors are updated in place (one K/V
     slot per lane of each attention layer, the whole state of each mamba
     layer) and returned; ``pos``, a scalar or one value per replica of a
-    folded batch, comes back advanced by one."""
+    folded batch, comes back advanced by one. Each replica's lanes are one
+    MoE decode group, as each replica decodes alone in the reference."""
     descs = scan_unit(cfg)
     B = token.shape[0]
     pos = lane_positions(cache["pos"], B)
+    groups = cache["pos"].numel()
     h = embed_tokens(params["embed"], token, cfg)
     for u in range(n_units(cfg)):
         unit_p = tree_map(lambda t: t[u], params["units"])
@@ -351,7 +371,7 @@ def decode_step(params: Params, cache: Dict, token: torch.Tensor, cfg: ModelConf
                 tree_map(lambda dst, src: dst.copy_(src), unit_c[f"mamba{j}"], new)
             h = h + out
             if d.ffn is not None:
-                h = h + mlp_apply(p["ffn"], rmsnorm(h, p["ln2"], cfg.norm_eps), cfg)
+                h = h + _ffn(p, h, cfg, d, groups)[0]
     h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
     logits = lm_logits(params["embed"], h, cfg)
     return logits, {"pos": cache["pos"] + 1, "units": cache["units"]}
@@ -361,10 +381,18 @@ def decode_step(params: Params, cache: Dict, token: torch.Tensor, cfg: ModelConf
 # training forward
 # ---------------------------------------------------------------------------
 
+def _zero_aux(device) -> Dict[str, torch.Tensor]:
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in ("moe_aux", "moe_zloss")}
+
+
 def _unit_forward(h: torch.Tensor, unit_p: Params, positions: torch.Tensor,
-                  cfg: ModelConfig, impl: str = "auto") -> torch.Tensor:
+                  cfg: ModelConfig, impl: str = "auto"
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Apply one unit: each layer's mixer (attention through
-    ``flash_attention_train``, or mamba) and MLP, with their residuals."""
+    ``flash_attention_train``, or mamba) and FFN, with their residuals.
+    Returns (h, the unit's summed MoE aux losses)."""
+    aux = _zero_aux(h.device)
     for j, d in enumerate(scan_unit(cfg)):
         p = unit_p[f"L{j}"]
         hn = rmsnorm(h, p["ln"], cfg.norm_eps)
@@ -376,25 +404,31 @@ def _unit_forward(h: torch.Tensor, unit_p: Params, positions: torch.Tensor,
         else:
             h = h + mamba_lib.mamba_forward(p["mamba"], hn, cfg)
         if d.ffn is not None:
-            h = h + mlp_apply(p["ffn"], rmsnorm(h, p["ln2"], cfg.norm_eps), cfg)
-    return h
+            out, a = _ffn(p, h, cfg, d)
+            h = h + out
+            if a is not None:
+                aux = {k: aux[k] + a[k] for k in aux}
+    return h, aux
 
 
 def forward_train(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                  impl: str = "auto") -> torch.Tensor:
-    """Decoder forward: hidden states (B, S, D). ``impl`` picks attention's
-    path ("auto": the kernels on the card; "ref": their plain versions)."""
+                  impl: str = "auto") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Decoder forward: (hidden states (B, S, D), the MoE aux losses summed
+    over layers). ``impl`` picks attention's path ("auto": the kernels on
+    the card; "ref": their plain versions)."""
     B, S = tokens.shape
     h = embed_tokens(params["embed"], tokens, cfg)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    aux = _zero_aux(h.device)
     for u in range(n_units(cfg)):
         unit_p = tree_map(lambda t: t[u], params["units"])
         if cfg.remat == "full":
-            h = checkpoint(_unit_forward, h, unit_p, positions, cfg, impl,
-                           use_reentrant=False)
+            h, a = checkpoint(_unit_forward, h, unit_p, positions, cfg, impl,
+                              use_reentrant=False)
         else:
-            h = _unit_forward(h, unit_p, positions, cfg, impl)
-    return rmsnorm(h, params["final_ln"], cfg.norm_eps)
+            h, a = _unit_forward(h, unit_p, positions, cfg, impl)
+        aux = {k: aux[k] + a[k] for k in aux}
+    return rmsnorm(h, params["final_ln"], cfg.norm_eps), aux
 
 
 def _chunk_loss(embed: Params, h: torch.Tensor, labels: torch.Tensor,
@@ -410,9 +444,10 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             impl: str = "auto") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Token-mean cross-entropy, the vocab projection taken ``loss_chunk``
     positions at a time, each chunk checkpointed (its logits recomputed in
-    the backward), as the reference's chunk scan."""
+    the backward), as the reference's chunk scan, plus the MoE aux losses.
+    Returns (the total, {"ce_loss", "moe_aux", "moe_zloss"})."""
     tokens, labels = batch["tokens"], batch["labels"]
-    h = forward_train(params, tokens, cfg, impl)
+    h, aux = forward_train(params, tokens, cfg, impl)
     B, S, _ = h.shape
     chunk = min(cfg.loss_chunk, S)
     total = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -421,5 +456,4 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         total = total + checkpoint(_chunk_loss, params["embed"], h[:, sl], labels[:, sl],
                                    cfg, use_reentrant=False)
     loss = total / (B * S)
-    zero = torch.zeros((), dtype=torch.float32, device=h.device)
-    return loss, {"ce_loss": loss, "moe_aux": zero, "moe_zloss": zero}
+    return loss + aux["moe_aux"] + aux["moe_zloss"], {"ce_loss": loss, **aux}

@@ -4,7 +4,8 @@ float32 / bfloat16 / int8 moment storage.
 Counterpart of the JAX package's ``optim/adamw.py``, as a pure function of
 (params, grads, state) on one node's tree. The FL trainer keeps one state per
 node, so clipping uses each node's own gradient norm. int8 moments are
-row-wise symmetric (one float32 scale per trailing-axis row).
+row-wise symmetric (one float32 scale per trailing-axis row), quantized as
+the jitted reference quantizes them, bit for bit.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core.compress import INV127
 from repro_torch.pytree import tree_leaves, tree_map
 
 
@@ -56,8 +58,11 @@ class QTensor(NamedTuple):
 
 
 def _quantize(x: torch.Tensor) -> QTensor:
+    """Row-wise int8 codes: the scale ``max(absmax, 1e-12) * fl(1/127)``, as
+    the jitted reference computes it, and the codes a true division by it,
+    rounded half to even."""
     absmax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
-    scale = torch.clamp_min(absmax, 1e-12) / 127.0
+    scale = torch.clamp_min(absmax, 1e-12) * INV127
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return QTensor(q=q, scale=scale.to(torch.float32))
 

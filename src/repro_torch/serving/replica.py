@@ -95,7 +95,10 @@ class ModelDecoder:
     cache and nothing is copied; with several, a tick moves their caches
     twice (concatenated into the fold, copied back). Folding and
     unfolding work leaf by leaf, so ``KVCache`` and ``MambaCache`` fields
-    alike keep their replica axis. Replicas outside a call keep their cache and
+    alike keep their replica axis. In a folded tick each replica's lanes are
+    one MoE decode group (``decode_step`` passes the number of replicas), as
+    each replica decodes alone under the reference's ``shard_map``; at
+    prefill a group is a batch row on both sides. Replicas outside a call keep their cache and
     ``pos`` frozen, as under the reference's ``jnp.where`` merge (which
     computes them and discards the result; skipping them gives the same
     outputs). Under tracing, each call is a ``serve.prefill`` or

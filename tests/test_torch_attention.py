@@ -200,16 +200,18 @@ def test_decode_with_per_row_kv_len_matches_reference(hd, Sq, dt):
 def test_dense_training_forward_raises():
     """The dense family trains since attention's backward was ported (its
     parity with the reference is ``tests/test_torch_train.py``): the
-    training forward and loss run; a family not ported yet still raises."""
+    training forward and loss run, with zero MoE aux losses; a family not
+    ported yet (the hybrid jamba) still raises."""
     cfg = archs.smoke_cfg(archs.get("gemma2-9b"))
     tokens = torch.zeros((1, 8), dtype=torch.long)
     params = transformer.init_params(torch.Generator().manual_seed(0), cfg)
-    h = transformer.forward_train(params, tokens, cfg)
+    h, aux = transformer.forward_train(params, tokens, cfg)
     assert h.shape == (1, 8, cfg.d_model) and bool(torch.isfinite(h).all())
-    loss, _ = transformer.loss_fn(params, {"tokens": tokens, "labels": tokens}, cfg)
-    assert bool(torch.isfinite(loss))
+    assert float(aux["moe_aux"]) == float(aux["moe_zloss"]) == 0.0
+    loss, metrics = transformer.loss_fn(params, {"tokens": tokens, "labels": tokens}, cfg)
+    assert bool(torch.isfinite(loss)) and float(metrics["ce_loss"]) == float(loss)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        transformer.forward_train(params, tokens, archs.get("qwen3-moe-30b-a3b"))
+        transformer.forward_train(params, tokens, archs.get("jamba-1.5-large-398b"))
 
 
 def test_wrappers_check_and_cpu_never_reaches_a_kernel():

@@ -28,7 +28,11 @@ and per-row kv_len (caches up to 8192 slots, split into many chunks), two
 launches bit-identical, bf16 prefills counted on the tensor-core kernel;
 and gemma2-9b smoke ``ModelDecoder`` runs on the card: a prefill and tick,
 and one prefill call admitting both replicas in a bucket-256 wave followed
-by ticks past the window (the local ring engaged). Training attention
+by ticks past the window (the local ring engaged). The MoE serving cell's
+attention shapes (``kernels/flash_attention/cases.py``: qwen3-moe-30b-a3b's
+GQA group of 8 at hd 128, no softcap; the prefill at 4 and 8 lanes and
+bucket 512, the decode at 8 lanes with ragged kv_len), and a
+qwen3-moe smoke ``ModelDecoder`` on the card against the CPU's. Training attention
 (``kernels/flash_attention/cases.py``, as ``chip_smoke.py`` runs it): the
 forward's lse and ``flash_attention_bwd`` against their plain versions,
 f32 and bf16, each launched twice bit-identical; and one train step of the
@@ -41,7 +45,11 @@ from __future__ import annotations
 import pytest
 import torch
 
-from repro_torch.kernels.flash_attention.cases import BWD_CASES
+from repro_torch.kernels.flash_attention.cases import (
+    BWD_CASES,
+    SERVE_DECODE_CASES,
+    SERVE_PREFILL_CASES,
+)
 from repro_torch.kernels.tdm_compress.tdm_compress import TOPK_SELECT_MAX_K
 
 pytestmark = pytest.mark.cuda
@@ -580,6 +588,67 @@ def test_dense_decoder_both_replicas_bucket_256_and_local_ring(device):
                                 "flash_attention_decode": cfg.n_layers * EDGE_TICKS,
                                 "flash_attention_bwd": 0}
     assert len(seen["rings"]) == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(range(len(SERVE_PREFILL_CASES))))
+def test_flash_attention_at_moe_serving_shapes(device, case, dtype):
+    from repro_torch.kernels.flash_attention import cases
+
+    cases.check_prefill_case(cases.SERVE_PREFILL_CASES[case], dtype, device)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(range(len(SERVE_DECODE_CASES))))
+def test_flash_attention_decode_at_moe_serving_shapes(device, case, dtype):
+    from repro_torch.kernels.flash_attention import cases
+
+    cases.check_decode_case(cases.SERVE_DECODE_CASES[case], dtype, device)
+
+
+def test_moe_model_decoder_prefill_and_ticks(device):
+    """A two-replica ModelDecoder on the qwen3-moe smoke config at a binding
+    capacity factor (0.5) on the card: the first tokens and ticks (both
+    replicas, at different pos, each its own MoE decode group) equal a CPU
+    decoder's with the same params (float32 compute); the prefill launches
+    the attention kernel once per layer and a tick the decode kernel once
+    per layer; capacity drops happen on both devices alike."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import archs
+    from repro_torch.kernels.flash_attention import flash_attention as kern
+    from repro_torch.models import moe
+    from repro_torch.pytree import tree_map
+    from repro_torch.serving import ModelDecoder
+
+    cfg = archs.smoke_cfg(archs.get("qwen3-moe-30b-a3b"))
+    cfg = cfg.replace(compute_dtype="float32",
+                      moe=dataclasses.replace(cfg.moe, capacity_factor=0.5))
+    gpu = ModelDecoder(cfg, 2, 2, 40, seed=3, device=device)
+    cpu = ModelDecoder(cfg, 2, 2, 40, seed=3, device="cpu")
+    cpu.params = tree_map(lambda t: t.cpu(), gpu.params)
+    rng = np.random.default_rng(0)
+    first = {0: [rng.integers(0, 128, 13).astype(np.int32),
+                 rng.integers(0, 128, 9).astype(np.int32)]}
+    second = {1: [rng.integers(0, 128, 20).astype(np.int32)]}
+    kern.reset_launch_counts()
+    tallies = []
+    for dec in (gpu, cpu):
+        with moe.count_drops() as tally:
+            toks = [dec.prefill_waves(first)]
+            toks.append(dec.step(np.array([True, False])).tolist())
+            toks.append(dec.prefill_waves(second))
+            toks += [dec.step(np.array([True, True])).tolist() for _ in range(3)]
+        tallies.append({k: [t.tolist() for t in v] for k, v in tally.items()})
+        if dec is gpu:
+            counts = kern.launch_counts()
+            want = toks
+    assert toks == want
+    assert tallies[0] == tallies[1] and sum(t[1] for t in tallies[0]["decode"]) > 0
+    assert counts["flash_attention_fwd"] == 2 * cfg.n_layers
+    assert counts["flash_attention_decode"] == 4 * cfg.n_layers
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])

@@ -97,6 +97,16 @@ def test_paper_slice_modules_are_covered():
         assert all(callable(getattr(mod, n, None)) for n in names), mod.__name__
 
 
+def test_moe_slice_modules_are_covered():
+    """The scans above reach the MoE family's module, and the port names its
+    routing, dispatch, combine and drop tally."""
+    assert "repro_torch.models.moe" in set(MODULES)
+    from repro_torch.models import moe
+
+    assert all(callable(getattr(moe, n, None)) for n in (
+        "init_moe", "capacity", "route", "dispatch", "combine", "moe_apply", "count_drops"))
+
+
 def test_imports_without_jax():
     """Every module of the port imports with ``jax`` made unimportable."""
     code = (
