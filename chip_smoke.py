@@ -44,7 +44,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    decode; kv_len 1, one past a chunk edge, full), bf16 and float32; every
    case launched twice, bit-identical; the launch counters (counted by the
    kernel the C side reports it launched) show every bf16 prefill on the
-   tensor-core kernel and no float32 one; the serving-shape decode queued
+   tensor-core kernel and no float32 one; the rectangular and padded cases
+   (``kernels/flash_attention/cases.py`` ``RECT_CASES``: Sq != Skv at
+   whisper-base's encoder and cross-attention shapes, Skv 1500, its
+   training cell's causal decoder self-attention, causal rectangles both ways with the reference's top-left masks, head dims 112
+   and 40 padded by the wrapper; the forward with and without lse and the
+   backward, and ``RECT_DECODE_CASES``), bf16 and float32, each twice
+   bit-identical; the serving-shape decode queued
    alternately on two streams, and replayed from a CUDA graph, equals one
    launch bit for bit; both at their 8-lane serving shapes by
    ``torch.profiler`` (the serving phases' instrument), CUDA events and
@@ -119,6 +125,33 @@ Phases (any failure exits non-zero, and no result line is printed):
    softcap: ``kernels/flash_attention/cases.py``'s serving cases against
    their plain versions, and the 8- and 4-lane prefill and 8-lane decode
    timed beside their bounds and ``flex_attention``);
+4d. slice 12, the encoder-decoder family (``[whisper]`` lines):
+   whisper-base at full size (6 + 6 layers, published widths), random
+   weights from seed 0. Generation: ``registry.bundle(cfg).prefill_fn`` on
+   8 lanes of a 4-token prompt with ``enc_embeds`` (8, 1536, 512) from
+   ``pipeline.host_batch``, max_len 448, then 192 greedy ``decode_fn``
+   ticks, the counters zeroed just before and read just after (18 prefill
+   launches: 6 encoder, 6 self, 6 cross; 12 decodes a tick), again for
+   times and the same tokens, again under the profiler; the same calls
+   through the plain versions on the card, fed the same tokens: every
+   logits tensor within 1.5e-2 of its scale. Training: one step on the
+   kernels against one on the plain versions (``cases.check_first_step``)
+   in float32 and in bf16, the bf16 kernels' step no farther from the f32
+   plain step, or from the plain bf16 step, than 1.25 x the plain bf16
+   step's distance from the f32 one, then 4 bf16 steps of
+   ``build_train_step`` at S 4096 against 1536 frames, batch 16 (the
+   launches 2 x 18 forward and 18 backward a step), the loss lower on a
+   fixed batch, a profiled step. Then the kernels at its shapes against
+   their bounds, plain versions and ``scaled_dot_product_attention`` on
+   one named backend (the same function: no softcap), and at hd 112 with
+   the padding's copy timed apart;
+4e. slice 12, M-RoPE (``[vlm]`` lines): qwen2-vl-72b at its published
+   widths, 8 of 80 layers (9.51 B f32 params), through slice 3's
+   workload and ``ModelDecoder`` (text positions), the launches 8 x
+   prefill calls and 8 x ticks, a replay under the profiler bit-identical,
+   and one image-grid prefill (an 8 x 8 grid, then 192 text tokens)
+   through the kernels and the plain versions, last-token logits within
+   1.5e-2 of their scale;
 5. slice 1: the port's TDM path through its user entry points
    (``repro_torch.launch.train_fl_constellation``): constellation-driven
    TDM-FLA rounds of mamba2-780m at its published widths, depth cut to 8
@@ -2970,6 +3003,662 @@ def phase_dense_train(device, power_note: str) -> tuple:
     return counts, row
 
 
+# ---------------------------------------------------------------------------
+# slice 12: rectangular attention, whisper-base (encoder-decoder) and
+# qwen2-vl-72b (M-RoPE)
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH = "whisper-base"
+WHISPER_TAG = "whisper"
+WHISPER_LANES = 8
+WHISPER_PROMPT = 4          # the length of Whisper's start-of-transcript sequence
+WHISPER_MAX_LEN = 448       # Whisper's text context
+WHISPER_TICKS = 192
+WHISPER_TRAIN_SEQ = 4096    # the published train_4k shape's sequence
+WHISPER_TRAIN_BATCH = 16    # train_4k's global batch of 256, cut to one card
+WHISPER_STEPS = 4
+VLM_ARCH = "qwen2-vl-72b"
+VLM_LAYERS = 8              # qwen2-vl-72b has 80: 291 GB of f32 params, over 80 GB
+VLM_TAG = "vlm"
+VLM_GRID, VLM_TEXT = 8, 192  # the image-grid prefill: 8 x 8 patch tokens, then text
+# bf16 logits of a whole model, kernels against plain versions on the card:
+# the tests' bound for the port's bf16 model against the reference's
+# (tests/test_torch_serving_dense.py, 1.5e-2 of the logits' scale)
+BF16_MODEL_FRAC = 1.5e-2
+# one train step on the kernels against one on the plain versions, float32
+# compute (loss, grad norm, mu): sums in another order, the bounds of the
+# dense training cell's micro-2 step and of tests/test_torch_cuda.py
+F32_FIRST_STEP = (1e-5, 1e-5, 1e-5)
+# the same in bf16 compute at whisper's training shape (loss, grad norm,
+# mu): read on an H100 on three batches up to 6.5e-6, 1.6e-4 and 1.22e-2,
+# where each bf16 step lay 1.17-1.35e-2 of mu from the f32 plain step, the
+# kernels' at most 1.04 x as far as the plain versions', and the kernels'
+# gap from the plain bf16 step at most 0.90 x the plain bf16 step's own
+# from f32: bf16 compute makes the gap, not the kernels. BF16_FAR_RATIO
+# bounds both of those ratios.
+BF16_WHISPER_FIRST_STEP = (5e-5, 5e-4, 2.5e-2)
+BF16_FAR_RATIO = 1.25
+
+
+def phase_fa_rect(device) -> None:
+    """The attention kernels at Sq != Skv and padded head dims against their
+    plain versions (``kernels/flash_attention/cases.py``'s ``RECT_CASES``
+    and ``RECT_DECODE_CASES``, which the card tests run too), bf16 and f32,
+    every call launched twice bit-identical."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import cases
+
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for case in cases.RECT_CASES:
+            errs = _case(cases.check_rect_case, case, dtype, device)
+            log(f"[kernels] rect {case} {str(dtype)[6:]}: max |diff| " + ", ".join(
+                f"{k} {v:.3g}" for k, v in errs.items()))
+            for k, v in errs.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+            torch.cuda.empty_cache()
+        for case in cases.RECT_DECODE_CASES:
+            worst["decode"] = max(worst.get("decode", 0.0),
+                                  _case(cases.check_decode_case, case, dtype, device))
+    log(f"[kernels] {2 * len(cases.RECT_CASES)} rectangular and padded prefill cases "
+        f"(whisper-base's encoder 1536 x 1536, its cross-attention Sq 4 / 17 against Skv 1536 "
+        f"and 1500 and Sq 4096 against 1536 at B 16, the causal decoder self-attention 4096 x "
+        f"4096 at B 16, causal 96 x 160 and 160 x 96, a window at 100 x 77, hd 112 at 64 / 8 "
+        f"heads, hd 40) forward without and with lse and backward, and "
+        f"{2 * len(cases.RECT_DECODE_CASES)} decode cases (G 1 x hd 64 against 1536 and 1500 "
+        f"frames, 448 slots, hd 112, qwen2-vl's 64 / 8 x 128 against 529 slots), bf16 and f32: "
+        f"each launched twice "
+        f"bit-identical, within fa_tolerance / bwd_tolerance / the lse bound of the plain "
+        f"versions; max |diff| " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+
+
+def _whisper_batch(cfg, B: int, S: int, device) -> dict:
+    """``pipeline.host_batch``'s tokens and ``enc_embeds`` (seed 0, step 0)
+    on the card."""
+    import torch
+
+    from repro_torch.data import pipeline
+    from repro_torch.models.config import ShapeConfig
+
+    hb = pipeline.host_batch(cfg, ShapeConfig("whisper", "prefill", S, B), step=0, seed=0)
+    return {"tokens": torch.from_numpy(hb["tokens"]).long().to(device),
+            "enc_embeds": torch.from_numpy(hb["enc_embeds"]).to(device)}
+
+
+def _generate(cfg, params, batch, impl: str, forced=None):
+    """Greedy generation through the registry's ``prefill_fn`` and
+    ``decode_fn`` (``impl="auto"``: the kernels), or the same calls on the
+    plain versions (``impl="ref"``, fed ``forced``, the kernel run's
+    tokens). Tokens stay on the card (argmax there), so a tick waits for no
+    host copy. Returns (prefill logits, each tick's logits, the tokens fed,
+    prefill ms, ms per tick), host clock ending in a synchronize."""
+    import torch
+
+    from repro_torch.models import registry, transformer
+
+    b = registry.bundle(cfg)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if impl == "auto":
+            first, cache = b.prefill_fn(params, batch, WHISPER_MAX_LEN)
+        else:
+            first, cache = transformer.prefill(params, batch["tokens"], cfg, WHISPER_MAX_LEN,
+                                               impl=impl, enc_embeds=batch["enc_embeds"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = forced[0] if forced else first[:, -1].argmax(-1)[:, None]
+        toks, outs = [tok], []
+        for i in range(WHISPER_TICKS):
+            if impl == "auto":
+                logits, cache = b.decode_fn(params, cache, {"token": tok})
+            else:
+                logits, cache = transformer.decode_step(params, cache, tok, cfg, impl=impl)
+            outs.append(logits)
+            tok = forced[i + 1] if forced else logits[:, -1].argmax(-1)[:, None]
+            toks.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return first, outs, toks, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / WHISPER_TICKS
+
+
+def _rel(a, b) -> float:
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _whisper_generation(device, power_note: str) -> dict:
+    """whisper-base at full size (6 + 6 layers, published widths), random
+    weights from seed 0: ``prefill_fn`` on 8 lanes of a 4-token prompt with
+    ``enc_embeds`` (8, 1536, 512) from ``pipeline.host_batch``, max_len 448,
+    then 192 greedy ``decode_fn`` ticks, the launch counters zeroed just
+    before and read just after; again for the times (the same tokens bit
+    for bit), again under the profiler (device time); the plain versions
+    (``impl="ref"``) on the card fed the same tokens: prefill and every
+    tick's logits within ``BF16_MODEL_FRAC`` of their scale. Returns the
+    launches of the counted run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import archs
+    from repro_torch.models import registry
+    from repro_torch.pytree import tree_leaves
+
+    cfg = archs.get(WHISPER_ARCH)
+    check(cfg.n_layers == 6 and cfg.n_enc_layers == 6 and cfg.enc_frames == 1536 and
+          cfg.d_model == 512, f"{cfg.name}: not the published whisper-base")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    params = registry.bundle(cfg).init(torch.Generator(device=device).manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_enc = sum(t.numel() for t in tree_leaves(params["encoder"]))
+    batch = _whisper_batch(cfg, WHISPER_LANES, WHISPER_PROMPT, device)
+    log(f"[{WHISPER_TAG}] {cfg.name}: {cfg.n_enc_layers} encoder + {cfg.n_layers} decoder "
+        f"layers, d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads x "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} (tied), enc_frames "
+        f"{cfg.enc_frames}; params {n_params:,} f32 ({n_params * 4 / 1e9:.3f} GB, seed 0; "
+        f"encoder {n_enc:,}); {cfg.compute_dtype} compute; generation: {WHISPER_LANES} lanes, "
+        f"a {WHISPER_PROMPT}-token prompt, enc_embeds {tuple(batch['enc_embeds'].shape)}, "
+        f"max_len {WHISPER_MAX_LEN}, {WHISPER_TICKS} greedy ticks")
+    _reset_launch_counts()
+    first, outs, toks, pre_ms, tick_ms = _generate(cfg, params, batch, "auto")
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    L, E = cfg.n_layers, cfg.n_enc_layers
+    want = {"flash_attention_fwd": E + 2 * L, "flash_attention_fwd_wgmma": E + 2 * L,
+            "flash_attention_decode": 2 * L * WHISPER_TICKS, "flash_attention_bwd": 0}
+    got = {k: counts[k] for k in want}
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    log(f"[{WHISPER_TAG}] launches in one generation: " + ", ".join(
+        f"{k} {got[k]} (oracle {want[k]})" for k in want) + " (prefill: one per encoder "
+        f"layer, decoder self- and cross-attention; each tick: the self decode against the "
+        f"448-slot cache and the cross decode against the 1536 frames, per layer)")
+    check(got == want and not others, f"whisper generation launches {got}, others {others}; "
+          f"oracle {want}")
+    _, _, toks2, pre_ms, tick_ms = _generate(cfg, params, batch, "auto")
+    check(all(torch.equal(a, b) for a, b in zip(toks, toks2)),
+          "whisper: a second generation gave other tokens")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _generate(cfg, params, batch, "auto")
+    busy_ms, by_name = _device_busy(prof)
+    generated = WHISPER_LANES * (WHISPER_TICKS + 1)
+    attn_ms = sum(ms for name, (ms, _) in by_name.items() if "fa_" in name)
+    log(f"[{WHISPER_TAG}] generation: prefill {pre_ms:.2f} ms (8 lanes: the encoder over "
+        f"1536 frames and the 4-token decoder pass), {tick_ms:.3f} ms a tick (host clock, "
+        f"{WHISPER_TICKS} ticks, tokens kept on the card); device busy {busy_ms:.1f} ms "
+        f"(torch.profiler) of which attention kernels {attn_ms:.1f} ms -> "
+        f"{generated / (busy_ms / 1e3):.0f} generated tokens/s of device time ({generated} "
+        f"tokens: the prefill's and {WHISPER_TICKS} ticks' x {WHISPER_LANES} lanes), host "
+        f"{(pre_ms + WHISPER_TICKS * tick_ms) / 1e3:.3f} s -> busy share "
+        f"{busy_ms / (pre_ms + WHISPER_TICKS * tick_ms):.1%}; peak {_gib(peak)} GiB  "
+        f"[{power_note}]")
+    _device_time_by_kind(by_name, WHISPER_TAG)
+    del prof
+    p_first, p_outs, _, p_pre, p_tick = _generate(cfg, params, batch, "ref", forced=toks)
+    pre_rel = _rel(first, p_first)
+    tick_rel = max(_rel(a, b) for a, b in zip(outs, p_outs))
+    agree = sum(int((a[:, -1].argmax(-1) == b[:, -1].argmax(-1)).sum())
+                for a, b in zip(outs, p_outs))
+    log(f"[{WHISPER_TAG}] the plain versions on the card (impl=\"ref\", fed the kernel run's "
+        f"tokens; prefill {p_pre:.1f} ms, {p_tick:.2f} ms a tick): prefill logits "
+        f"{pre_rel:.3g} of their scale, the {WHISPER_TICKS} ticks' logits up to "
+        f"{tick_rel:.3g} (bound {BF16_MODEL_FRAC}); greedy tokens equal on {agree} of "
+        f"{WHISPER_TICKS * WHISPER_LANES} tick lanes")
+    check(all(bool(torch.isfinite(t).all()) for t in [first] + outs),
+          "whisper: non-finite logits")
+    check(pre_rel <= BF16_MODEL_FRAC and tick_rel <= BF16_MODEL_FRAC,
+          f"whisper generation, kernels vs plain: prefill {pre_rel:.3g}, ticks {tick_rel:.3g} "
+          f"of the logits' scale, bound {BF16_MODEL_FRAC}")
+    del params, outs, p_outs
+    torch.cuda.empty_cache()
+    return got
+
+
+def _whisper_training(device, power_note: str) -> dict:
+    """whisper-base at full size through ``launch/steps.build_train_step`` on
+    ``SyntheticStream`` at train_4k's sequence (S 4096) and enc_frames 1536,
+    batch 16, ``launch/train.py``'s OptConfig: first one step on the kernels
+    (``impl="cuda"``) held by ``cases.check_first_step`` to the same step
+    on the plain versions (``impl="ref"``), in float32 compute (the
+    CUDA-core kernels) at the f32 bounds and in bf16 compute (the
+    tensor-core kernels the cell runs) at ``BF16_WHISPER_FIRST_STEP``; the
+    kernels' bf16 mu no more than ``BF16_FAR_RATIO`` times as far from the
+    f32 plain step, or from the plain bf16 step, as the plain bf16 step
+    lies from the f32 one; then 4 bf16 steps on the kernels, the cell, the counters zeroed just
+    before and read just after; the loss finite and lower on step 0's
+    batch after them; one more step under the profiler. Returns the
+    launches of the 4 steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import archs
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.flash_attention import cases
+    from repro_torch.launch import steps
+    from repro_torch.launch.fl_train import batch_to_device
+    from repro_torch.models import registry
+    from repro_torch.models.config import SHAPES, ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.pytree import tree_leaves, tree_map
+
+    cfg = archs.get(WHISPER_ARCH)
+    base = SHAPES["train_4k"]
+    check(base.seq_len == WHISPER_TRAIN_SEQ, f"train_4k's sequence is {base.seq_len}")
+    shape = ShapeConfig(base.name, base.kind, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_BATCH)
+    opt_cfg = adamw.OptConfig(peak_lr=3e-3, warmup_steps=5,
+                              decay_steps=max(WHISPER_STEPS, 10))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    start = steps.init_state(0, cfg, opt_cfg, device)
+    stream = pipeline.SyntheticStream(cfg, shape, seed=0)
+    batches = [batch_to_device(stream.batch(i), device) for i in range(WHISPER_STEPS + 1)]
+    log(f"[{WHISPER_TAG}] training: B {WHISPER_TRAIN_BATCH} x S {WHISPER_TRAIN_SEQ} decoder "
+        f"tokens against enc_embeds {tuple(batches[0]['enc_embeds'].shape)} (f32, "
+        f"pipeline.host_batch), remat {cfg.remat}, loss_chunk {cfg.loss_chunk}; reduced: "
+        f"global batch 256 -> {WHISPER_TRAIN_BATCH}")
+    f32 = cfg.replace(compute_dtype="float32")
+    runs = {}
+    for key, c, impl in (("f32 cuda", f32, "cuda"), ("f32 ref", f32, "ref"),
+                         ("bf16 cuda", cfg, "cuda"), ("bf16 ref", cfg, "ref")):
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        runs[key] = steps.build_train_step(c, opt_cfg, impl)(
+            tree_map(lambda t: t.clone(), start), batches[0])
+        torch.cuda.synchronize()
+        runs[key] += (time.perf_counter() - t0, torch.cuda.max_memory_allocated(device))
+    total = sum(t.numel() for t in tree_leaves(start["params"]))
+    gap = {}
+    for dt, bounds in (("f32", F32_FIRST_STEP), ("bf16", BF16_WHISPER_FIRST_STEP)):
+        got, want = runs[f"{dt} cuda"], runs[f"{dt} ref"]
+        try:
+            read = cases.check_first_step(*got[:2], *want[:2], opt_cfg, loss_rtol=bounds[0],
+                                          gnorm_rtol=bounds[1], mu_rtol=bounds[2])
+        except AssertionError as exc:
+            raise SmokeFailure(f"whisper {dt} first step, kernels vs plain: {exc}") from exc
+        gap[dt] = read["mu_frac"]
+        log(f"[{WHISPER_TAG}] first step in {dt} compute on the kernels ({got[2]:.1f} s, peak "
+            f"{_gib(got[3])} GiB) against the plain versions ({want[2]:.1f} s, peak "
+            f"{_gib(want[3])} GiB): loss rel {read['loss_rel']:.2e}, grad norm rel "
+            f"{read['gnorm_rel']:.2e}, mu max |diff| {read['mu_frac']:.2e} of its leaf's scale "
+            f"({read['mu_leaf']}), params max |diff| {read['param_gap']:.2e}, {read['flips']} "
+            f"of {total} entries off by more than 1e-6 (bounds {bounds}; every entry within "
+            f"what its mu's tolerance lets Adam move it)")
+    # the bf16 steps' distance from the f32 plain step: the kernels' no
+    # larger than the plain versions' own, and the kernels' gap from the
+    # plain bf16 step no larger than that step's own gap from f32
+    far = {k: cases.step_gap(*runs[f"bf16 {k}"][:2], *runs["f32 ref"][:2])
+           for k in ("cuda", "ref")}
+    own = far["ref"]["mu_frac"]
+    log(f"[{WHISPER_TAG}] each bf16 first step against the f32 plain one: " + "; ".join(
+        f"{'kernels' if k == 'cuda' else 'plain'}: loss rel {r['loss_rel']:.2e}, grad norm rel "
+        f"{r['gnorm_rel']:.2e}, mu {r['mu_frac']:.2e} ({r['mu_leaf']})" for k, r in far.items())
+        + f"; ratios {far['cuda']['mu_frac'] / own:.3f} and (bf16 kernels vs plain over plain "
+        f"vs f32) {gap['bf16'] / own:.3f}, bound {BF16_FAR_RATIO}")
+    check(far["cuda"]["mu_frac"] <= BF16_FAR_RATIO * own and gap["bf16"] <= BF16_FAR_RATIO * own,
+          f"whisper bf16 first step: the kernels' mu lies {far['cuda']['mu_frac']:.3g} of its "
+          f"scale from the f32 step and {gap['bf16']:.3g} from the plain bf16 step, which lies "
+          f"{own:.3g} from the f32 step")
+    del runs
+    train_step = steps.build_train_step(cfg, opt_cfg)
+    attn = cfg.n_enc_layers + 2 * cfg.n_layers
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_launch_counts()
+    state, losses = start, []
+    for i in range(WHISPER_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batches[i])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses.append(float(metrics["loss"]))
+        log(f"[{WHISPER_TAG}] step {i}: loss {losses[-1]:.4f}, grad norm "
+            f"{float(metrics['grad_norm']):.4f}, host step time {dt:.3f} s (ends in "
+            f"torch.cuda.synchronize()), {WHISPER_TRAIN_BATCH * WHISPER_TRAIN_SEQ / dt:.0f} "
+            f"decoder tokens/s  [{power_note}]")
+    counts = _launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    per = 2 if cfg.remat == "full" else 1
+    want = {"flash_attention_fwd": per * attn * WHISPER_STEPS,
+            "flash_attention_fwd_wgmma": per * attn * WHISPER_STEPS,
+            "flash_attention_bwd": attn * WHISPER_STEPS, "flash_attention_decode": 0}
+    got = {k: counts[k] for k in want}
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    log(f"[{WHISPER_TAG}] launches in {WHISPER_STEPS} steps: " + ", ".join(
+        f"{k} {got[k]} (oracle {want[k]})" for k in want) + f" ({attn} attention calls a "
+        f"forward: {cfg.n_enc_layers} encoder, {cfg.n_layers} decoder self, {cfg.n_layers} "
+        f"cross); peak {_gib(peak)} GiB")
+    check(got == want and not others, f"whisper training launches {got}, others {others}")
+    loss_fn = registry.bundle(cfg).loss_fn
+    with torch.no_grad():
+        again = float(loss_fn(state["params"], batches[0])[0])
+    log(f"[{WHISPER_TAG}] step 0's batch after {WHISPER_STEPS} steps: loss {again:.4f} "
+        f"(step 0: {losses[0]:.4f})")
+    check(all(math.isfinite(x) for x in losses + [again]), f"non-finite loss: {losses}")
+    check(again < losses[0], f"whisper loss did not fall on step 0's batch: {losses[0]} -> "
+          f"{again}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = train_step(state, batches[WHISPER_STEPS])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    busy, by_name = _device_busy(prof)
+    fa = {k: sum(ms for name, (ms, _) in by_name.items() if k in name)
+          for k in ("fa_prefill", "fa_bwd")}
+    log(f"[{WHISPER_TAG}] profiled step: host {dt:.3f} s, device busy {busy / 1e3:.3f} s "
+        f"({busy / 1e3 / dt:.1%}); attention forward {fa['fa_prefill']:.1f} ms, backward "
+        f"{fa['fa_bwd']:.1f} ms  [{power_note}]")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"[{WHISPER_TAG}]   {_short(name)}: {ms:.1f} ms in {n} launches")
+    del state, batches, prof, start
+    torch.cuda.empty_cache()
+    return got
+
+
+def _sdpa_run(q, k, v, grad=None, causal: bool = False):
+    """``F.scaled_dot_product_attention`` on the same tensors (heads moved
+    to dim 1, no softcap; causal with the mask aligned top-left, which
+    ``is_causal`` gives at Sq == Skv), pinned to one
+    backend (flash, then memory-efficient, then cuDNN, the first that
+    runs): (a function running it, or with ``grad`` its backward alone,
+    the backend's name), or (None, why). A yardstick only, never called by
+    the port."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    errors = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        try:
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(grad is not None)
+                          for t in (q, k, v))
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                     enable_gqa=True)
+            if grad is None:
+                def run(qt=qt, kt=kt, vt=vt, backend=backend):
+                    with sdpa_kernel(backend):
+                        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                              enable_gqa=True)
+            else:
+                gt = grad.transpose(1, 2).contiguous()
+
+                def run(out=out, qt=qt, kt=kt, vt=vt, gt=gt):
+                    return torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+            run()
+            torch.cuda.synchronize()
+            return run, backend.name
+        except Exception as exc:  # noqa: BLE001 - a backend may refuse the shape
+            errors.append(f"{backend.name}: {type(exc).__name__}")
+    return None, "; ".join(errors)
+
+
+def _rect_rows(device, power_note: str) -> None:
+    """The kernels at whisper-base's shapes and kimi-k2's head dim, bf16,
+    each beside its bound (the larger of its bytes at 3.35 TB/s and its
+    products at 989 TFLOP/s), its plain version and, at whisper's shapes
+    (no softcap, no window, non-causal), ``scaled_dot_product_attention``
+    on one backend, which computes the same function: the encoder's
+    forward and backward (1536 x 1536, 8 and 16 lanes), the
+    cross-attention's forward (Sq 4 against 1536 at 8 lanes, Sq 4096 at 16)
+    and backward (Sq 4096), the decodes (G 1, hd 64: cross against 1536
+    frames, self against 448 slots at the 197 tokens a generation ends
+    with, ``sdpa`` on those 197); at hd 112 (64 / 8 heads, causal) the
+    padded prefill and decode beside the kernel on inputs padded beforehand
+    (the padding's copy) and ``sdpa`` (causal, GQA) on the unpadded ones."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kern
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    gen = torch.Generator(device=device).manual_seed(47)
+    bf = torch.bfloat16
+
+    def bound(flops, nbytes):
+        op_ms, byte_ms = flops / BF16_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
+
+    def row(what, ms, plain, flops, nbytes, lib, extra=""):
+        b, by = bound(flops, nbytes)
+        log(f"[{WHISPER_TAG}] {what}: {ms:.4f} ms by CUDA events, bound {b:.4f} ms by {by} "
+            f"({b / ms:.1%}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), plain "
+            f"{plain:.3f} ms, library {lib}{extra}  [{power_note}]")
+
+    def lib_note(run, name, reps):
+        return "null" if run is None else f"{time_ms(run, reps=reps):.4f} ms ({name})"
+
+    H, KV, hd = 8, 8, 64
+    for B, Sq, Skv in ((8, 1536, 1536), (16, 1536, 1536), (8, 4, 1536), (16, 4096, 1536)):
+        q, k, v = _fa_inputs(gen, (B, Sq, H, hd), (B, Skv, KV, hd), bf, device)
+        kernel = lambda: ops.flash_attention(q, k, v, causal=False, impl="cuda")  # noqa: E731
+        _fa_vs_plain(kernel(), ops.flash_attention(q, k, v, causal=False, impl="ref"),
+                     f"rect forward {B, Sq, Skv}")
+        ms, graph = time_ms(kernel, reps=20), _graph_ms(kernel, 20)
+        plain = time_ms(lambda: ops.flash_attention(q, k, v, causal=False, impl="ref"), reps=2)
+        run, name = _sdpa_run(q, k, v)
+        what = "encoder" if Sq == Skv else "cross-attention"
+        row(f"flash_attention_fwd, {what} (B {B}, Sq {Sq}, Skv {Skv}, 8 / 8 x 64, non-causal)",
+            ms, plain, 4 * B * H * Sq * Skv * hd, 2 * (2 * B * Sq * H * hd + 2 * B * Skv * KV * hd),
+            lib_note(run, name, 20), f"; {graph:.4f} ms device by graph replay")
+        if B == 16 and Sq >= 1536:
+            out, lse = ops.flash_attention(q, k, v, causal=False, impl="cuda", lse=True)
+            g = torch.randn(B, Sq, H, hd, generator=gen, device=device).to(bf)
+            kb = lambda: ops.flash_attention_bwd(q, k, v, out, lse, g, causal=False,  # noqa: E731
+                                                 impl="cuda")
+            got = kb()
+            want = ops.flash_attention_bwd(q, k, v, out, lse, g, causal=False, impl="ref")
+            for nm, a, w in zip(("dq", "dk", "dv"), got, want):
+                ok, e = fa_ref.bwd_close(a, w)
+                check(ok, f"rect backward {B, Sq, Skv}: {nm} outside bwd_tolerance ({e})")
+            del got, want
+            ms = time_ms(kb, reps=5)
+            plain = time_ms(lambda: ops.flash_attention_bwd(q, k, v, out, lse, g, causal=False,
+                                                            impl="ref"), reps=1)
+            run, name = _sdpa_run(q, k, v, grad=g)
+            row(f"flash_attention_bwd, {what} (B {B}, Sq {Sq}, Skv {Skv}, non-causal)", ms, plain,
+                5 * 2 * B * H * Sq * Skv * hd,
+                2 * (4 * B * Sq * H * hd + 4 * B * Skv * KV * hd) + B * H * Sq * 4,
+                lib_note(run, f"{name} backward alone", 5))
+            del out, lse, g
+        del q, k, v
+        torch.cuda.empty_cache()
+    for L, n in ((1536, 1536), (448, 197)):
+        B = WHISPER_LANES
+        q, k, v = _fa_inputs(gen, (B, 1, H, hd), (B, L, KV, hd), bf, device)
+        kv_len = torch.full((B,), n, dtype=torch.int32, device=device)
+        kernel = lambda: ops.flash_attention_decode(q, k, v, kv_len, impl="cuda")  # noqa: E731
+        _fa_vs_plain(kernel(), ops.flash_attention_decode(q, k, v, kv_len, impl="ref"),
+                     f"decode L {L}")
+        ms, graph = time_ms(kernel, reps=50), _graph_ms(kernel, 50)
+        plain = time_ms(lambda: ops.flash_attention_decode(q, k, v, kv_len, impl="ref"), reps=10)
+        # the first n slots are every key kv_len lets the decode read
+        run, name = _sdpa_run(q, k[:, :n], v[:, :n])
+        lib = lib_note(run, name, 50)
+        row(f"flash_attention_decode, {'cross' if L == 1536 else 'self'} (B {B}, Sq 1, L {L}, "
+            f"kv_len {n}, G 1, hd 64)", ms, plain, 4 * B * H * n * hd,
+            2 * (2 * B * n * KV * hd + 2 * B * H * hd) + 4 * B, lib,
+            f"; {graph:.4f} ms device by graph replay")
+        del q, k, v
+    # kimi-k2's head dim: the padded call against the kernel on inputs padded
+    # beforehand, the difference the padding's copy
+    H, KV, hd, hp = 64, 8, 112, 128
+    B, S = 2, 1024
+    q, k, v = _fa_inputs(gen, (B, S, H, hd), (B, S, KV, hd), bf, device)
+    qp, kp, vp = (fa_kern.pad_head_dim(x, hp) for x in (q, k, v))
+    padded = lambda: ops.flash_attention(q, k, v, impl="cuda")  # noqa: E731
+    _fa_vs_plain(padded(), ops.flash_attention(q, k, v, impl="ref"), "hd 112 prefill")
+    ms = time_ms(padded, reps=20)
+    pre = time_ms(lambda: fa_kern.flash_attention_fwd(qp, kp, vp), reps=20)
+    plain = time_ms(lambda: ops.flash_attention(q, k, v, impl="ref"), reps=2)
+    run, name = _sdpa_run(q, k, v, causal=True)
+    row(f"flash_attention_fwd at hd 112 (B {B}, S {S}, 64 / 8 heads, causal; padded to 128)",
+        ms, plain, B * H * (S * (S + 1) // 2) * 4 * hd,
+        2 * (2 * B * S * H * hd + 2 * B * S * KV * hd), lib_note(run, name, 20),
+        f"; the kernel on inputs padded beforehand {pre:.4f} ms, so the padding "
+        f"{ms - pre:.4f} ms")
+    B, L = 4, 529
+    q, k, v = _fa_inputs(gen, (B, 1, H, hd), (B, L, KV, hd), bf, device)
+    qp, kp, vp = (fa_kern.pad_head_dim(x, hp) for x in (q, k, v))
+    kv_len = torch.full((B,), L, dtype=torch.int32, device=device)
+    padded = lambda: ops.flash_attention_decode(q, k, v, kv_len, impl="cuda")  # noqa: E731
+    _fa_vs_plain(padded(), ops.flash_attention_decode(q, k, v, kv_len, impl="ref"),
+                 "hd 112 decode")
+    ms = time_ms(padded, reps=50)
+    pre = time_ms(lambda: fa_kern.flash_attention_decode(qp, kp, vp, kv_len), reps=50)
+    plain = time_ms(lambda: ops.flash_attention_decode(q, k, v, kv_len, impl="ref"), reps=10)
+    run, name = _sdpa_run(q, k, v)
+    row(f"flash_attention_decode at hd 112 (B {B}, Sq 1, L {L}, 64 / 8 heads; padded to 128)",
+        ms, plain, 4 * B * H * L * hd, 2 * (2 * B * L * KV * hd + 2 * B * H * hd) + 4 * B,
+        lib_note(run, name, 50), f"; the kernel on inputs padded beforehand {pre:.4f} ms, so the padding (a "
+        f"copy of the cache a call) {ms - pre:.4f} ms")
+    del q, k, v, qp, kp, vp
+    torch.cuda.empty_cache()
+
+
+def phase_whisper(device, power_note: str) -> dict:
+    """Slice 12, the encoder-decoder family: whisper-base generation and
+    training at full size, then the kernels' rows at its shapes. Returns
+    the attention launches of the generation and the training run."""
+    t0 = time.perf_counter()
+    gen = _whisper_generation(device, power_note)
+    train = _whisper_training(device, power_note)
+    _rect_rows(device, power_note)
+    log(f"[{WHISPER_TAG}] phase {time.perf_counter() - t0:.1f} s")
+    return {k: gen[k] + train[k] for k in gen}
+
+
+def _make_vlm_decoder(device):
+    """The torch ``ModelDecoder`` of qwen2-vl-72b at its published widths,
+    depth cut to ``VLM_LAYERS``, random weights from seed 0, its cache sized
+    as the other serving cells'."""
+    from repro_torch.configs import archs
+    from repro_torch.launch import serve_constellation as sc
+    from repro_torch.serving import ModelDecoder
+
+    cfg = archs.get(VLM_ARCH).replace(n_layers=VLM_LAYERS)
+    max_len = ModelDecoder._bucket(SERVE_PROMPT[1]) + SERVE_MAX_NEW + 1
+    return cfg, ModelDecoder(cfg, len(sc.REPLICAS), SERVE_BATCH, max_len, seed=0,
+                             device=device)
+
+
+def grid_positions(B: int, grid: int, text: int, t0: int = 0):
+    """Qwen2-VL's positions of one image of ``grid`` x ``grid`` patch tokens
+    then ``text`` tokens: (B, grid^2 + text, 3) int32, the image at ``(t0,
+    t0 + row, t0 + col)``, the text at ``max + 1 + i`` on all three."""
+    import numpy as np
+
+    rows, cols = np.divmod(np.arange(grid * grid), grid)
+    image = np.stack([np.full_like(rows, t0), t0 + rows, t0 + cols], axis=-1)
+    txt = np.repeat((int(image.max()) + 1 + np.arange(text))[:, None], 3, axis=1)
+    return np.concatenate([image, txt])[None].repeat(B, axis=0).astype(np.int32)
+
+
+def _vlm_grid_prefill(dec, device) -> None:
+    """One bundle prefill with image-grid positions (an 8 x 8 grid of patch
+    tokens at (t0, t0 + row, t0 + col), then 192 text tokens at max + 1 +
+    i) on 4 lanes, through the kernels and through the plain versions:
+    the last-token logits within ``BF16_MODEL_FRAC`` of their scale; and
+    against the same tokens at text positions, which must differ (the
+    positions reach the rope)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer
+
+    cfg = dec.cfg
+    S = VLM_GRID * VLM_GRID + VLM_TEXT
+    rng = np.random.default_rng(53)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE_BATCH, S))).to(device)
+    pos = torch.from_numpy(grid_positions(SERVE_BATCH, VLM_GRID, VLM_TEXT, t0=7)).to(device)
+    with torch.no_grad():
+        lk, _ = dec.bundle.prefill_fn(dec.params, {"tokens": tokens, "positions": pos},
+                                      dec.max_len)
+        lr, _ = transformer.prefill(dec.params, tokens, cfg, dec.max_len, impl="ref",
+                                    positions=pos)
+        lt, _ = dec.bundle.prefill_fn(dec.params, {"tokens": tokens}, dec.max_len)
+    rel, moved = _rel(lk, lr), _rel(lt, lk)
+    log(f"[{VLM_TAG}] image-grid prefill ({SERVE_BATCH} lanes, a {VLM_GRID} x {VLM_GRID} grid "
+        f"then {VLM_TEXT} text tokens, positions up to {int(pos.max())}): last-token logits, "
+        f"kernels vs plain, {rel:.3g} of their scale (bound {BF16_MODEL_FRAC}); the same "
+        f"tokens at text positions move them by {moved:.3g}")
+    check(bool(torch.isfinite(lk).all()) and rel <= BF16_MODEL_FRAC,
+          f"qwen2-vl image-grid prefill, kernels vs plain: {rel:.3g} of the logits' scale")
+    check(moved > BF16_MODEL_FRAC, f"qwen2-vl: image-grid positions moved the logits by "
+          f"{moved:.3g} only")
+
+
+def phase_vlm(device, power_note: str) -> dict:
+    """Slice 12, M-RoPE: qwen2-vl-72b at its published widths, 8 of 80
+    layers, through ``serve_constellation``'s entry points with the
+    ``ModelDecoder`` built directly (text positions, as the reference's
+    decoder gives), the launch counters zeroed just before and read just
+    after; a replay on a fresh decoder under the profiler, bit-identical;
+    one image-grid prefill kernels vs plain. Returns the attention launches
+    of the serving run."""
+    import gc
+
+    import torch
+
+    from repro_torch.pytree import tree_leaves
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    cfg, dec = _make_vlm_decoder(device)
+    torch.cuda.synchronize(device)
+    init_peak = torch.cuda.max_memory_allocated(device)
+    n_params = sum(t.numel() for t in tree_leaves(dec.params))
+    log(f"[{VLM_TAG}] {cfg.name}: {cfg.n_layers} of 80 layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads x {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size} (untied), qkv bias, rope theta {cfg.rope_theta:g}, M-RoPE sections "
+        f"{cfg.mrope_sections}; params {n_params:,} f32 ({n_params * 4 / 1e9:.2f} GB, seed 0); "
+        f"{cfg.compute_dtype} compute; decoder built in {time.perf_counter() - t0:.1f} s, peak "
+        f"{_gib(init_peak)} GiB while building")
+    check(cfg.n_layers == VLM_LAYERS and cfg.mrope_sections == (16, 24, 24) and cfg.qkv_bias,
+          f"{cfg.name}: {cfg.n_layers} layers, sections {cfg.mrope_sections}")
+    res, rec, counts, model_s = _run_serving(dec, cfg, device, VLM_TAG)
+    peak = max(init_peak, torch.cuda.max_memory_allocated(device))
+    prefill_calls = int(rec.get_counter("serve.prefill.calls"))
+    ticks = sum(1 for sp in rec.spans if sp.name == "serve.decode")
+    fwd, dcd = counts["flash_attention_fwd"], counts["flash_attention_decode"]
+    check(prefill_calls > 0 and fwd == cfg.n_layers * prefill_calls,
+          f"flash_attention_fwd launched {fwd} times for {prefill_calls} prefill calls")
+    check(ticks > 0 and dcd == cfg.n_layers * ticks,
+          f"flash_attention_decode launched {dcd} times for {ticks} decode ticks")
+    check(counts["flash_attention_fwd_wgmma"] == fwd,
+          f"{counts['flash_attention_fwd_wgmma']} of {fwd} prefill launches on tensor cores")
+    others = {k: v for k, v in counts.items() if not k.startswith("flash_attention") and v}
+    check(not others and counts["flash_attention_bwd"] == 0,
+          f"other kernels on the qwen2-vl serving path: {others}")
+    summ = res.report.summary()
+    log(f"[{VLM_TAG}] {summ['delivered']}/{summ['n_requests']} delivered x {SERVE_MAX_NEW} "
+        f"tokens, audit OK ({res.verdict.n_hops} hops), {summ['retries']} retries; "
+        f"flash_attention_fwd launches {fwd} = {cfg.n_layers} x {prefill_calls} prefill calls "
+        f"(all on the tensor-core kernel), flash_attention_decode {dcd} = {cfg.n_layers} x "
+        f"{ticks} ticks; peak {_gib(peak)} GiB")
+    tokens = _tokens_by_request(res.report)
+    del dec, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(device)
+    check(left < 2**30, f"{_gib(left)} GiB still allocated after the first decoder")
+    torch.cuda.reset_peak_memory_stats(device)
+    dec2, res2, by_name = _profiled_replay(lambda: _make_vlm_decoder(device), cfg, device,
+                                           tokens, model_s, VLM_TAG)
+    log(f"[{VLM_TAG}] replay peak {_gib(torch.cuda.max_memory_allocated(device))} GiB")
+    _device_time_by_kind(by_name, VLM_TAG)
+    _split_one_call(dec2, res2.report, device, VLM_TAG, "fa_")
+    _vlm_grid_prefill(dec2, device)
+    del dec2, res2
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{VLM_TAG}] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"flash_attention_fwd": fwd, "flash_attention_decode": dcd}
+
+
 def main() -> int:
     try:
         import torch
@@ -2999,6 +3688,7 @@ def main() -> int:
     phase_kernels_small(device)
     phase_ssd_small(device)
     phase_fa_small(device)
+    phase_fa_rect(device)
     _profiler_check(device, dev["card"])
     mark("small kernel cases")
     phase_dense_edges(device)
@@ -3009,6 +3699,10 @@ def main() -> int:
     mark("serving, gemma2-9b")
     moe_launches = phase_serving_moe(device, dev["card"])
     mark("serving, qwen3-moe-30b-a3b")
+    whisper_launches = phase_whisper(device, dev["card"])
+    mark("whisper-base, generation and training")
+    vlm_launches = phase_vlm(device, dev["card"])
+    mark("serving, qwen2-vl-72b")
     launches, buf, k_b = phase_slice(device)
     mark("slice 1")
     gs_launches = phase_groundseg(device)
@@ -3028,9 +3722,11 @@ def main() -> int:
     kernels.append(ssd_row)
     for row in phase_fa_slice(device, dev["card"]):
         row["launches"] = (dense_launches[row["name"]] + moe_launches[row["name"]]
-                           + train_launches[row["name"]])
+                           + train_launches[row["name"]] + whisper_launches[row["name"]]
+                           + vlm_launches[row["name"]])
         kernels.append(row)
-    bwd_row["launches"] = train_launches["flash_attention_bwd"]
+    bwd_row["launches"] = (train_launches["flash_attention_bwd"]
+                           + whisper_launches["flash_attention_bwd"])
     kernels.append(bwd_row)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -20,12 +20,19 @@
 //   out[q]  = sum_t softmax(s[q])_t v_t
 // in float32 (scores, softmax and sums), the output in the inputs' type.
 //
-// - flash_attention_fwd (prefill, q_offset 0, Sq = Skv = S): causal
-//   (t <= q) and/or window (t > q - window) masks; any S, the ragged last
-//   tiles masked here (keys t >= S, zero-filled on load) and not written
-//   (queries q >= S).
+// - flash_attention_fwd (prefill, q_offset 0): Sq query rows against Skv
+//   keys, any Sq and Skv, as the Pallas kernel takes them (the encoder's and
+//   a decoder's self-attention have Sq = Skv; cross-attention has Sq
+//   decoder tokens against Skv encoder frames). Causal (t <= q) and/or
+//   window (t > q - window) masks, aligned top-left as the reference's
+//   (query i and key i share a position; not the bottom-right alignment of
+//   other flash-attention libraries); the ragged last tiles masked here
+//   (keys t >= Skv, zero-filled on load) and not written (queries q >= Sq).
+//   A query tile whose window holds no key below Skv copies and computes
+//   nothing and writes zeros, as the Pallas kernel's skipped blocks leave
+//   its accumulator.
 //   Asked for it (a non-null lse), the prefill also writes each row's
-//   log-sum-exp m + log(max(l, 1e-30)), (B, H, S) f32: the training
+//   log-sum-exp m + log(max(l, 1e-30)), (B, H, Sq) f32: the training
 //   forward's residual. Serving passes null and launches what it did.
 // - flash_attention_bwd (training backward, q_offset 0): the gradients of
 //   the prefill from its output and lse. It replaces no Pallas kernel: the
@@ -38,10 +45,12 @@
 //   never read (kv_len must be in [1, L]). kv_len is read on the card only,
 //   so a decode step never waits for the host.
 //
-// Layout: the model's own. q and out (B, S, H, hd), k and v (B, L, KV, hd),
-// all contiguous; kv head g = h / (H / KV) serves G = H / KV query heads, so
-// K and V are never repeated in memory. head_dim is a template parameter
-// (16, 32, 64, 128 or 256), so every per-thread array lives in registers.
+// Layout: the model's own. q and out (B, Sq, H, hd), k and v (B, Skv, KV,
+// hd) (the decode's cache: Skv = L), all contiguous; kv head g = h / (H /
+// KV) serves G = H / KV query heads, so K and V are never repeated in
+// memory. head_dim is a template parameter (16, 32, 64, 128 or 256), so
+// every per-thread array lives in registers; the wrapper zero-pads any
+// other head dim up to the next of these and passes the true hd's scale.
 //
 // Bounds at gemma2-9b's serving shapes (16 heads / 8 kv heads x 256, bf16,
 // softcap 50), H100 SXM (3.35 TB/s, 989 TFLOP/s bf16 dense):
@@ -238,8 +247,8 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 fa_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ out,
-                  float* __restrict__ lse, int S, int H, int KV, int causal,
-                  int window, float scale, float softcap) {
+                  float* __restrict__ lse, int Sq, int Skv, int H, int KV,
+                  int causal, int window, float scale, float softcap) {
   constexpr int LD = HD + 1;
   constexpr int kCols = HD / 16;       // accumulator columns per thread
   extern __shared__ float smem[];
@@ -257,16 +266,16 @@ fa_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
   const int g = h / (H / KV);
-  const int q_rows = min(kBQ, S - q_lo);
+  const int q_rows = min(kBQ, Sq - q_lo);
   const int64_t q_stride = static_cast<int64_t>(H) * HD;
   const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
-  const T* qb = q + (static_cast<int64_t>(b) * S + q_lo) * q_stride +
+  const T* qb = q + (static_cast<int64_t>(b) * Sq + q_lo) * q_stride +
                 static_cast<int64_t>(h) * HD;
-  const T* kb = k + static_cast<int64_t>(b) * S * kv_stride +
+  const T* kb = k + static_cast<int64_t>(b) * Skv * kv_stride +
                 static_cast<int64_t>(g) * HD;
-  const T* vb = v + static_cast<int64_t>(b) * S * kv_stride +
+  const T* vb = v + static_cast<int64_t>(b) * Skv * kv_stride +
                 static_cast<int64_t>(g) * HD;
-  T* ob = out + (static_cast<int64_t>(b) * S + q_lo) * q_stride +
+  T* ob = out + (static_cast<int64_t>(b) * Sq + q_lo) * q_stride +
           static_cast<int64_t>(h) * HD;
 
   load_rows<T, HD>(sQ, LD, qb, q_stride, q_rows, kBQ);
@@ -275,11 +284,12 @@ fa_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     sL[r] = 0.0f;
   }
 
-  // the keys any row of this tile may see (_kv_block_range)
-  int lo = 0, hi = S;
+  // the keys any row of this tile may see (_kv_block_range), below Skv;
+  // none when the window starts at or past the last of them
+  int lo = 0, hi = Skv;
   if (causal) hi = min(hi, q_lo + q_rows);
   if (window > 0) lo = max(lo, q_lo - window + 1);
-  const int t_begin = lo / kBK, t_end = (hi + kBK - 1) / kBK;
+  const int t_begin = lo / kBK, t_end = lo < hi ? (hi + kBK - 1) / kBK : t_begin;
 
   float acc[4][kCols];
 #pragma unroll
@@ -289,7 +299,7 @@ fa_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int kt = t_begin; kt < t_end; ++kt) {
     const int k_lo = kt * kBK;
-    const int k_rows = min(kBK, S - k_lo);
+    const int k_rows = min(kBK, Skv - k_lo);
     __syncthreads();  // the previous tile's sK, sV and sP are consumed
     load_rows<T, HD>(sK, LD, kb + k_lo * kv_stride, kv_stride, k_rows, kBK);
     load_rows<T, HD>(sV, HD, vb + k_lo * kv_stride, kv_stride, k_rows, kBK);
@@ -317,7 +327,7 @@ fa_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < 2; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
         const int qpos = q_lo + r, kpos = k_lo + c;
-        bool ok = kpos < S;
+        bool ok = kpos < Skv;
         if (causal) ok = ok && kpos <= qpos;
         if (window > 0) ok = ok && kpos > qpos - window;
         sP[r * kLdP + c] = ok ? cap_score(s[i][j], scale, softcap) : kNegInf;
@@ -364,7 +374,7 @@ fa_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
         ob[r * q_stride + tx + 16 * j] = from_f32<T>(acc[i][j] / l);
       // the row's log-sum-exp for the backward: m + log(max(l, 1e-30))
       if (lse != nullptr && tx == 0)
-        lse[static_cast<int64_t>(bh) * S + q_lo + r] = sM[r] + logf(l);
+        lse[static_cast<int64_t>(bh) * Sq + q_lo + r] = sM[r] + logf(l);
     }
   }
 }
@@ -391,7 +401,7 @@ constexpr size_t prefill_tc_smem_bytes() {
          sizeof(__nv_bfloat16);
 }
 
-// Grid (B * H / NWG, ceil(S / 64)); block NWG warpgroups; warpgroup w serves
+// Grid (B * H / NWG, ceil(Sq / 64)); block NWG warpgroups; warpgroup w serves
 // query head h0 + w of kv head g, rows q_lo .. q_lo + 63.
 template <int HD, int NWG>
 __global__ void __launch_bounds__(NWG * 128, 1)
@@ -399,8 +409,8 @@ fa_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-                     int S, int H, int KV, int causal, int window, float scale,
-                     float softcap) {
+                     int Sq, int Skv, int H, int KV, int causal, int window,
+                     float scale, float softcap) {
   constexpr int NT = NWG * 128;
   constexpr uint32_t kTile = kTcRows * HD * 2;     // bytes of one tile
   constexpr uint32_t kRows8 = HD * 16;              // bytes of 8 rows
@@ -421,19 +431,20 @@ fa_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int g = h0 / (H / KV);
   const int64_t q_stride = static_cast<int64_t>(H) * HD;
   const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
-  const __nv_bfloat16* qb = q + (static_cast<int64_t>(b) * S + q_lo) * q_stride +
+  const __nv_bfloat16* qb = q + (static_cast<int64_t>(b) * Sq + q_lo) * q_stride +
                             static_cast<int64_t>(h0) * HD;
-  const __nv_bfloat16* kb = k + static_cast<int64_t>(b) * S * kv_stride +
+  const __nv_bfloat16* kb = k + static_cast<int64_t>(b) * Skv * kv_stride +
                             static_cast<int64_t>(g) * HD;
-  const __nv_bfloat16* vb = v + static_cast<int64_t>(b) * S * kv_stride +
+  const __nv_bfloat16* vb = v + static_cast<int64_t>(b) * Skv * kv_stride +
                             static_cast<int64_t>(g) * HD;
 
-  // the key tiles any row of this query tile may see (_kv_block_range)
-  int lo = 0, hi = S;
+  // the key tiles any row of this query tile may see (_kv_block_range),
+  // below Skv; none when a window ends before key 0 or starts past Skv
+  int lo = 0, hi = Skv;
   if (causal) hi = min(hi, q_lo + kTcRows);
   if (window > 0) lo = max(lo, q_lo - window + 1);
   const int t_begin = lo / kTcKeys;
-  const int n_tiles = (hi + kTcKeys - 1) / kTcKeys - t_begin;
+  const int n_tiles = lo < hi ? (hi + kTcKeys - 1) / kTcKeys - t_begin : 0;
 
   // the ring's barriers: full[s] completes when every thread's copies of
   // the tile in stage s have landed (NT cp.async arrivals), empty[s] when
@@ -455,13 +466,15 @@ fa_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int k_lo = (t_begin + i) * kTcKeys;
     const uint32_t st = sKV + 2 * (i % kTcStages) * kTile;
     if (NWG == 1 || wg == 0)
-      load_tile_async<HD>(st, kb + k_lo * kv_stride, kv_stride, S - k_lo, t);
+      load_tile_async<HD>(st, kb + k_lo * kv_stride, kv_stride, Skv - k_lo, t);
     if (NWG == 1 || wg == 1)
-      load_tile_async<HD>(st + kTile, vb + k_lo * kv_stride, kv_stride, S - k_lo, t);
+      load_tile_async<HD>(st + kTile, vb + k_lo * kv_stride, kv_stride, Skv - k_lo, t);
     mbar_arrive_cp_async(full0 + 8 * (i % kTcStages));
   };
-  load_tile_async<HD>(sQ + wg * kTile, qb + wg * HD, q_stride, S - q_lo, t);
-  load_kv(0);                      // full[0] covers this warpgroup's Q too
+  if (n_tiles > 0) {               // else no copy is issued, and none waited on
+    load_tile_async<HD>(sQ + wg * kTile, qb + wg * HD, q_stride, Sq - q_lo, t);
+    load_kv(0);                    // full[0] covers this warpgroup's Q too
+  }
   if (n_tiles > 1) load_kv(1);
 
   // this thread's fragment rows: r0 and r0 + 8 of the warpgroup's 64
@@ -507,7 +520,7 @@ fa_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
     // scale, softcap, masks, log2 units; entry 4j + 2i + e is (row r0 + 8i,
     // key k_lo + 8j + cq + e)
-    const bool full = k_lo + kTcKeys <= S &&
+    const bool full = k_lo + kTcKeys <= Skv &&
                       (!causal || k_lo + kTcKeys - 1 <= q_lo) &&
                       (window <= 0 || k_lo > q_lo + kTcRows - 1 - window);
 #pragma unroll
@@ -517,7 +530,7 @@ fa_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
       if (!full) {
         const int qpos = q_lo + r0 + 8 * ((x >> 1) & 1);
         const int kpos = k_lo + 8 * (x >> 2) + cq + (x & 1);
-        bool ok = kpos < S;
+        bool ok = kpos < Skv;
         if (causal) ok = ok && kpos <= qpos;
         if (window > 0) ok = ok && kpos > qpos - window;
         if (!ok) sc = kNegInf;
@@ -609,7 +622,7 @@ fa_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
 
   // finish: quad-sum l, scale by 1 / l (one IEEE division per row, not
   // one per entry: the entries move by an f32 ulp, far inside
-  // fa_tolerance), store the rows below S
+  // fa_tolerance), store the rows below Sq
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     float l = l_run[hr];
@@ -619,11 +632,11 @@ fa_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
     const int row = r0 + 8 * hr;
     // the row's log-sum-exp for the backward, back in natural units:
     // m_run ln 2 + log(max(l, 1e-30)), written once by the quad's first thread
-    if (lse != nullptr && (lane & 3) == 0 && q_lo + row < S)
-      lse[(static_cast<int64_t>(b) * H + h0 + wg) * S + q_lo + row] =
+    if (lse != nullptr && (lane & 3) == 0 && q_lo + row < Sq)
+      lse[(static_cast<int64_t>(b) * H + h0 + wg) * Sq + q_lo + row] =
           m_run[hr] * 0.6931471805599453f + logf(fmaxf(l, 1e-30f));
-    if (q_lo + row < S) {
-      __nv_bfloat16* orow = out + (static_cast<int64_t>(b) * S + q_lo + row) * q_stride +
+    if (q_lo + row < Sq) {
+      __nv_bfloat16* orow = out + (static_cast<int64_t>(b) * Sq + q_lo + row) * q_stride +
                             static_cast<int64_t>(h0 + wg) * HD;
 #pragma unroll
       for (int sl = 0; sl < NSL; ++sl)
@@ -960,8 +973,10 @@ fa_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // - fa_bwd_dq_kernel: one block per (lane, head, 32-row query tile). dQ (32
 //   x hd f32) stays in registers while the block walks the key tiles of
 //   _kv_block_range, recomputing S, dP and dS as above: dQ += dS K.
-// Masked entries (causal, window, keys or queries at or past S) get s =
-// -1e30, so p = 0 and ds = 0; the ragged tiles are zero-filled on load.
+// Masked entries (causal, window, queries at or past Sq, keys at or past
+// Skv) get s = -1e30, so p = 0 and ds = 0; the ragged tiles are zero-filled
+// on load. A key tile that no query sees (causal, at or past Sq) writes
+// zero dK and dV.
 //
 // Bound at gemma2-9b's training shape (B 2, S 4096, 16 heads / 8 kv heads x
 // 256, causal, bf16): the five products of the causal triangle, 5 x 2 x
@@ -1001,7 +1016,7 @@ template <int HD>
 __device__ __forceinline__ void bwd_scores(
     const float* sQ, const float* sG, const float* sK, const float* sV,
     const float* sLse, const float* sDelta, float* sP, float* sDS, int q_lo,
-    int k_lo, int S, int causal, int window, float scale, float softcap) {
+    int k_lo, int Sq, int Skv, int causal, int window, float scale, float softcap) {
   constexpr int LD = HD + 1;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   float s[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
@@ -1030,7 +1045,7 @@ __device__ __forceinline__ void bwd_scores(
     for (int j = 0; j < 2; ++j) {
       const int r = ty + 16 * i, c = tx + 16 * j;
       const int qpos = q_lo + r, kpos = k_lo + c;
-      bool ok = kpos < S && qpos < S;
+      bool ok = kpos < Skv && qpos < Sq;
       if (causal) ok = ok && kpos <= qpos;
       if (window > 0) ok = ok && kpos > qpos - window;
       // the reference's order: s = scale qk; t = tanh(s / cap); s = cap t;
@@ -1054,7 +1069,7 @@ __device__ __forceinline__ void bwd_scores(
 template <typename T>
 __global__ void __launch_bounds__(kBwdThreads)
 fa_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ g,
-                    float* __restrict__ delta, int64_t rows, int S, int H,
+                    float* __restrict__ delta, int64_t rows, int Sq, int H,
                     int HD) {
   const int64_t row = (static_cast<int64_t>(blockIdx.x) * kBwdThreads + threadIdx.x) / 32;
   const int lane = threadIdx.x & 31;
@@ -1064,20 +1079,20 @@ fa_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ g,
   float acc = 0.0f;
   for (int d = lane; d < HD; d += 32) acc = fmaf(to_f32(gg[d]), to_f32(o[d]), acc);
   acc = warp_sum(acc);
-  // row = (b * S + q) * H + h  ->  delta[(b * H + h) * S + q]
+  // row = (b * Sq + q) * H + h  ->  delta[(b * H + h) * Sq + q]
   const int64_t h = row % H, bq = row / H;
-  const int64_t b = bq / S, qq = bq - b * S;
-  if (lane == 0) delta[(b * H + h) * S + qq] = acc;
+  const int64_t b = bq / Sq, qq = bq - b * Sq;
+  if (lane == 0) delta[(b * H + h) * Sq + qq] = acc;
 }
 
-// Grid (ceil(S / 32), B * KV).
+// Grid (ceil(Skv / 32), B * KV).
 template <typename T, int HD>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ g,
                    const float* __restrict__ lse, const float* __restrict__ delta,
-                   T* __restrict__ dk, T* __restrict__ dv, int S, int H, int KV,
-                   int causal, int window, float scale, float softcap) {
+                   T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int H,
+                   int KV, int causal, int window, float scale, float softcap) {
   constexpr int LD = HD + 1;
   constexpr int kCols = HD / 16;
   extern __shared__ float smem[];
@@ -1092,19 +1107,19 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int k_lo = blockIdx.x * kBwdRows;
-  const int k_rows = min(kBwdRows, S - k_lo);
+  const int k_rows = min(kBwdRows, Skv - k_lo);
   const int b = blockIdx.y / KV, kvh = blockIdx.y - b * KV;
   const int G = H / KV;
   const int64_t q_stride = static_cast<int64_t>(H) * HD;
   const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
-  const int64_t kv_off = (static_cast<int64_t>(b) * S + k_lo) * kv_stride +
+  const int64_t kv_off = (static_cast<int64_t>(b) * Skv + k_lo) * kv_stride +
                          static_cast<int64_t>(kvh) * HD;
   load_rows_bwd<T, HD>(sK, k + kv_off, kv_stride, k_rows);
   load_rows_bwd<T, HD>(sV, v + kv_off, kv_stride, k_rows);
 
   // the queries that see a key of this tile: causal q >= k_lo; window
-  // q <= last key + window - 1
-  int q_first = causal ? k_lo : 0, q_last = S - 1;
+  // q <= last key + window - 1; none past Sq
+  int q_first = causal ? k_lo : 0, q_last = Sq - 1;
   if (window > 0) q_last = min(q_last, k_lo + k_rows - 1 + window - 1);
   const int qt_begin = q_first / kBwdRows, qt_end = q_last / kBwdRows + 1;
 
@@ -1116,12 +1131,12 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int hh = 0; hh < G; ++hh) {
     const int h = kvh * G + hh;
-    const float* lse_h = lse + (static_cast<int64_t>(b) * H + h) * S;
-    const float* delta_h = delta + (static_cast<int64_t>(b) * H + h) * S;
+    const float* lse_h = lse + (static_cast<int64_t>(b) * H + h) * Sq;
+    const float* delta_h = delta + (static_cast<int64_t>(b) * H + h) * Sq;
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q_lo = qt * kBwdRows;
-      const int q_rows = min(kBwdRows, S - q_lo);
-      const int64_t q_off = (static_cast<int64_t>(b) * S + q_lo) * q_stride +
+      const int q_rows = min(kBwdRows, Sq - q_lo);
+      const int64_t q_off = (static_cast<int64_t>(b) * Sq + q_lo) * q_stride +
                             static_cast<int64_t>(h) * HD;
       __syncthreads();  // the previous tile's sQ, sG, sP and sDS are consumed
       load_rows_bwd<T, HD>(sQ, q + q_off, q_stride, q_rows);
@@ -1131,7 +1146,7 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sDelta[tid] = tid < q_rows ? delta_h[q_lo + tid] : 0.0f;
       }
       __syncthreads();
-      bwd_scores<HD>(sQ, sG, sK, sV, sLse, sDelta, sP, sDS, q_lo, k_lo, S, causal,
+      bwd_scores<HD>(sQ, sG, sK, sV, sLse, sDelta, sP, sDS, q_lo, k_lo, Sq, Skv, causal,
                      window, scale, softcap);
       __syncthreads();
       // dV[c] += sum_r P[r, c] dO[r]; dK[c] += sum_r dS[r, c] Q[r]
@@ -1169,13 +1184,13 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Grid (ceil(S / 32), B * H).
+// Grid (ceil(Sq / 32), B * H).
 template <typename T, int HD>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ g,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 T* __restrict__ dq, int S, int H, int KV, int causal,
+                 T* __restrict__ dq, int Sq, int Skv, int H, int KV, int causal,
                  int window, float scale, float softcap) {
   constexpr int LD = HD + 1;
   constexpr int kCols = HD / 16;
@@ -1190,26 +1205,28 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int q_lo = blockIdx.x * kBwdRows;
-  const int q_rows = min(kBwdRows, S - q_lo);
+  const int q_rows = min(kBwdRows, Sq - q_lo);
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
   const int kvh = h / (H / KV);
   const int64_t q_stride = static_cast<int64_t>(H) * HD;
   const int64_t kv_stride = static_cast<int64_t>(KV) * HD;
-  const int64_t q_off = (static_cast<int64_t>(b) * S + q_lo) * q_stride +
+  const int64_t q_off = (static_cast<int64_t>(b) * Sq + q_lo) * q_stride +
                         static_cast<int64_t>(h) * HD;
   load_rows_bwd<T, HD>(sQ, q + q_off, q_stride, q_rows);
   load_rows_bwd<T, HD>(sG, g + q_off, q_stride, q_rows);
   if (tid < kBwdRows) {
-    sLse[tid] = tid < q_rows ? lse[static_cast<int64_t>(bh) * S + q_lo + tid] : 0.0f;
-    sDelta[tid] = tid < q_rows ? delta[static_cast<int64_t>(bh) * S + q_lo + tid] : 0.0f;
+    sLse[tid] = tid < q_rows ? lse[static_cast<int64_t>(bh) * Sq + q_lo + tid] : 0.0f;
+    sDelta[tid] = tid < q_rows ? delta[static_cast<int64_t>(bh) * Sq + q_lo + tid] : 0.0f;
   }
 
-  // the keys any row of this tile may see (_kv_block_range)
-  int lo = 0, hi = S;
+  // the keys any row of this tile may see (_kv_block_range), below Skv;
+  // none when the window starts at or past the last of them
+  int lo = 0, hi = Skv;
   if (causal) hi = min(hi, q_lo + q_rows);
   if (window > 0) lo = max(lo, q_lo - window + 1);
-  const int t_begin = lo / kBwdRows, t_end = (hi + kBwdRows - 1) / kBwdRows;
+  const int t_begin = lo / kBwdRows;
+  const int t_end = lo < hi ? (hi + kBwdRows - 1) / kBwdRows : t_begin;
 
   float aq[2][kCols];
 #pragma unroll
@@ -1217,15 +1234,15 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < kCols; ++j) aq[i][j] = 0.0f;
 
-  const T* kb = k + static_cast<int64_t>(b) * S * kv_stride + static_cast<int64_t>(kvh) * HD;
-  const T* vb = v + static_cast<int64_t>(b) * S * kv_stride + static_cast<int64_t>(kvh) * HD;
+  const T* kb = k + static_cast<int64_t>(b) * Skv * kv_stride + static_cast<int64_t>(kvh) * HD;
+  const T* vb = v + static_cast<int64_t>(b) * Skv * kv_stride + static_cast<int64_t>(kvh) * HD;
   for (int kt = t_begin; kt < t_end; ++kt) {
     const int k_lo = kt * kBwdRows;
     __syncthreads();  // the previous tile's sK and sDS are consumed
-    load_rows_bwd<T, HD>(sK, kb + k_lo * kv_stride, kv_stride, min(kBwdRows, S - k_lo));
-    load_rows_bwd<T, HD>(sV, vb + k_lo * kv_stride, kv_stride, min(kBwdRows, S - k_lo));
+    load_rows_bwd<T, HD>(sK, kb + k_lo * kv_stride, kv_stride, min(kBwdRows, Skv - k_lo));
+    load_rows_bwd<T, HD>(sV, vb + k_lo * kv_stride, kv_stride, min(kBwdRows, Skv - k_lo));
     __syncthreads();
-    bwd_scores<HD>(sQ, sG, sK, sV, sLse, sDelta, nullptr, sDS, q_lo, k_lo, S, causal,
+    bwd_scores<HD>(sQ, sG, sK, sV, sLse, sDelta, nullptr, sDS, q_lo, k_lo, Sq, Skv, causal,
                    window, scale, softcap);
     __syncthreads();
     // dQ[r] += sum_c dS[r, c] K[c]
@@ -1284,7 +1301,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // operands of the two score products; the other side's 64-row tiles (Q and
 // dO with their lse and delta, or K and V) stream through a two-stage ring.
 // At hd >= 64 one thread copies every tile with TMA (boxes of 64 rows x 64
-// dims, 128-byte swizzled, rows past S zero-filled) and each stage's
+// dims, 128-byte swizzled, rows past Sq or Skv zero-filled) and each stage's
 // mbarrier counts its bytes; the lse and delta rows, which need not be
 // 16-byte aligned, come by 4-byte cp.async copies that arrive on the same
 // barrier. Copied by cp.async, 16 bytes a thread, the tiles of a pass took
@@ -1350,8 +1367,8 @@ constexpr int kBwThreads = 256;                   // two consumer warpgroups
 constexpr int kBwStages = 2;                      // streamed-tile ring depth
 constexpr uint32_t kBwScore = 64 * 64 * 2;        // bytes of a 64 x 64 bf16 tile
 
-// The row tiles' tensor maps (q and g over (B, S, H, hd), k and v over (B,
-// S, KV, hd); boxes of 64 rows x 64 dims, 128-byte swizzled), read by TMA
+// The row tiles' tensor maps (q and g over (B, Sq, H, hd), k and v over (B,
+// Skv, KV, hd); boxes of 64 rows x 64 dims, 128-byte swizzled), read by TMA
 // where kBwTma (hd >= 64); below, the tiles are copied by cp.async and these
 // are unused.
 struct BwdMaps {
@@ -1396,15 +1413,15 @@ __device__ __forceinline__ uint64_t bw_desc_mn(uint32_t base, int dim0, int kk) 
 }
 
 // The pass DQ of the block (blockIdx.x, blockIdx.y); see above. q, g, out,
-// dq (B, S, H, hd); k, v, dk, dv (B, S, KV, hd); lse, delta (B, H, S).
+// dq (B, Sq, H, hd); k, v, dk, dv (B, Skv, KV, hd); lse, delta (B, H, Sq).
 template <int HD, bool DQ>
 __device__ __forceinline__ void bwd_wgmma_pass(
     const BwdMaps& maps, const __nv_bfloat16* __restrict__ q,
     const __nv_bfloat16* __restrict__ k, const __nv_bfloat16* __restrict__ v,
     const __nv_bfloat16* __restrict__ out, const __nv_bfloat16* __restrict__ g,
     const float* __restrict__ lse, float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
-    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S, int H, int KV,
-    int causal, int window, float scale, float softcap) {
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H,
+    int KV, int causal, int window, float scale, float softcap) {
   using Geo = BwdWg<HD, DQ>;
   constexpr uint32_t kTile = Geo::kTile;
   constexpr int NH = HD / 2;                        // output dims per warpgroup
@@ -1437,24 +1454,26 @@ __device__ __forceinline__ void bwd_wgmma_pass(
     h = kvh * G;
     r_lo = static_cast<int>(blockIdx.x) * 64;
   }
-  const int r_last = min(S, r_lo + 64) - 1;
+  const int r_rows = DQ ? Sq : Skv;                 // rows of the block's own tensors
+  const int r_last = min(r_rows, r_lo + 64) - 1;
 
-  // the streamed tiles: dq, the key tiles of _kv_block_range; dk/dv, for
-  // each of the G heads, the query tiles that see a key of this tile
+  // the streamed tiles: dq, the key tiles of _kv_block_range below Skv;
+  // dk/dv, for each of the G heads, the query tiles below Sq that see a key
+  // of this tile (none when causal and the tile starts at or past Sq)
   int c_begin, n_c;
   if (DQ) {
-    int lo = 0, hi = S;
+    int lo = 0, hi = Skv;
     if (causal) hi = min(hi, r_lo + 64);
     if (window > 0) lo = max(lo, r_lo - window + 1);
     c_begin = lo / 64;
-    n_c = (hi + 63) / 64 - c_begin;
+    n_c = lo < hi ? (hi + 63) / 64 - c_begin : 0;
   } else {
-    int q_first = causal ? r_lo : 0, q_last = S - 1;
+    int q_first = causal ? r_lo : 0, q_last = Sq - 1;
     if (window > 0) q_last = min(q_last, r_last + window - 1);
     c_begin = q_first / 64;
     n_c = q_last / 64 + 1 - c_begin;
   }
-  const int n_items = DQ ? n_c : G * n_c;
+  const int n_items = DQ ? n_c : G * n_c;      // <= 0: nothing to stream
 
   if (tid == 0) {
     for (int st = 0; st < kBwStages; ++st) mbar_init(full0 + 8 * st, Geo::kArrivals);
@@ -1469,17 +1488,18 @@ __device__ __forceinline__ void bwd_wgmma_pass(
     hi_ = DQ ? h : kvh * G + hh;
     c_lo = (c_begin + (DQ ? i : n_c - 1 - (i - hh * n_c))) * 64;
   };
-  // rows row0 .. row0 + 63 of one head of a tensor into the tile at dst:
-  // by TMA (the calling thread), else by this warpgroup's cp.async copies
+  // rows row0 .. row0 + 63 of one head of a tensor of `rows` rows into the
+  // tile at dst: by TMA (the calling thread; the map zero-fills past its
+  // rows), else by this warpgroup's cp.async copies
   auto load_tile = [&](uint32_t dst, const CUtensorMap& map, const __nv_bfloat16* x,
-                       int64_t stride, int head, int row0, uint32_t bar) {
+                       int64_t stride, int rows, int head, int row0, uint32_t bar) {
     if constexpr (Geo::kTma) {
 #pragma unroll
       for (int a = 0; a < HD / 64; ++a) tma_load_4d(dst + a * 8192, &map, bar, 64 * a, head, row0, b);
     } else {
-      load_tile_async<HD>(dst, x + (static_cast<int64_t>(b) * S + row0) * stride +
+      load_tile_async<HD>(dst, x + (static_cast<int64_t>(b) * rows + row0) * stride +
                                    static_cast<int64_t>(head) * HD,
-                          stride, S - row0, t);
+                          stride, rows - row0, t);
     }
   };
   // copy item i into its stage (item 0 with the resident tiles): with TMA
@@ -1497,6 +1517,7 @@ __device__ __forceinline__ void bwd_wgmma_pass(
     const __nv_bfloat16* x0 = DQ ? k : q;
     const __nv_bfloat16* x1 = DQ ? v : g;
     const int64_t stride = DQ ? kv_stride : q_stride;
+    const int rows = DQ ? Skv : Sq;
     const int head = DQ ? kvh : hi_;
     if (Geo::kTma ? tid == 0 : true) {
       if (Geo::kTma) mbar_arrive_expect_tx(bar, (i == 0 ? 4 : 2) * kTile);
@@ -1507,16 +1528,18 @@ __device__ __forceinline__ void bwd_wgmma_pass(
         const __nv_bfloat16* y0 = DQ ? q : k;
         const __nv_bfloat16* y1 = DQ ? g : v;
         const int64_t rstride = DQ ? q_stride : kv_stride;
-        if (Geo::kTma || wg == 0) load_tile(sA, r0, y0, rstride, DQ ? h : kvh, r_lo, bar);
-        if (Geo::kTma || wg == 1) load_tile(sA + kTile, r1, y1, rstride, DQ ? h : kvh, r_lo, bar);
+        if (Geo::kTma || wg == 0)
+          load_tile(sA, r0, y0, rstride, r_rows, DQ ? h : kvh, r_lo, bar);
+        if (Geo::kTma || wg == 1)
+          load_tile(sA + kTile, r1, y1, rstride, r_rows, DQ ? h : kvh, r_lo, bar);
       }
-      if (Geo::kTma || wg == 0) load_tile(dst, m0, x0, stride, head, c_lo, bar);
-      if (Geo::kTma || wg == 1) load_tile(dst + kTile, m1, x1, stride, head, c_lo, bar);
+      if (Geo::kTma || wg == 0) load_tile(dst, m0, x0, stride, rows, head, c_lo, bar);
+      if (Geo::kTma || wg == 1) load_tile(dst + kTile, m1, x1, stride, rows, head, c_lo, bar);
     }
     if (!DQ && wg == 0) {
       const float* row = (t < 64 ? lse : delta) +
-                         (static_cast<int64_t>(b) * H + hi_) * S + c_lo + (t & 63);
-      const bool ok = c_lo + (t & 63) < S;
+                         (static_cast<int64_t>(b) * H + hi_) * Sq + c_lo + (t & 63);
+      const bool ok = c_lo + (t & 63) < Sq;
       cp_async4(smem_addr(sRow + st * 128 + t), ok ? row : lse, ok);
     }
     if (!Geo::kTma || (!DQ && wg == 0)) mbar_arrive_cp_async(bar);
@@ -1530,7 +1553,7 @@ __device__ __forceinline__ void bwd_wgmma_pass(
     // the tile's lse, and its delta = rowsum(g * out) written for the dk/dv
     // pass, while the copies are in flight; each warp 8 rows
     const int64_t bh = static_cast<int64_t>(b) * H + h;
-    if (tid < 64) sRow[tid] = r_lo + tid < S ? lse[bh * S + r_lo + tid] : 0.0f;
+    if (tid < 64) sRow[tid] = r_lo + tid < Sq ? lse[bh * Sq + r_lo + tid] : 0.0f;
     const int warp = tid >> 5;
     float acc[8];
 #pragma unroll
@@ -1539,8 +1562,8 @@ __device__ __forceinline__ void bwd_wgmma_pass(
       // of g and of out each, all rows' loads in flight together
       const int r = warp * 8 + j;
       acc[j] = 0.0f;
-      if (8 * lane < HD && r_lo + r < S) {
-        const int64_t off = (static_cast<int64_t>(b) * S + r_lo + r) * q_stride +
+      if (8 * lane < HD && r_lo + r < Sq) {
+        const int64_t off = (static_cast<int64_t>(b) * Sq + r_lo + r) * q_stride +
                             static_cast<int64_t>(h) * HD + 8 * lane;
         float gf[8], of[8];
         unpack16(*reinterpret_cast<const uint4*>(g + off), gf);
@@ -1554,8 +1577,8 @@ __device__ __forceinline__ void bwd_wgmma_pass(
       const int r = warp * 8 + j;
       const float sum = warp_sum(acc[j]);
       if (lane == 0) {
-        sRow[64 + r] = r_lo + r < S ? sum : 0.0f;
-        if (r_lo + r < S) delta[bh * S + r_lo + r] = sum;
+        sRow[64 + r] = r_lo + r < Sq ? sum : 0.0f;
+        if (r_lo + r < Sq) delta[bh * Sq + r_lo + r] = sum;
       }
     }
     __syncthreads();
@@ -1611,7 +1634,7 @@ __device__ __forceinline__ void bwd_wgmma_pass(
     // p and ds of entry x: (row r0 + 8 ((x >> 1) & 1), column 32 wg + 8 (x >> 2)
     // + cq + (x & 1)); rows are queries in dq, keys in dk/dv
     const int q_lo = DQ ? r_lo : c_lo, k_lo = DQ ? c_lo : r_lo;
-    const bool full = q_lo + 64 <= S && k_lo + 64 <= S &&
+    const bool full = q_lo + 64 <= Sq && k_lo + 64 <= Skv &&
                       (!causal || k_lo + 63 <= q_lo) &&
                       (window <= 0 || k_lo > q_lo + 63 - window);
     const float* rows = DQ ? sRow : sRow + st * 128;   // lse, then delta at + 64
@@ -1628,7 +1651,7 @@ __device__ __forceinline__ void bwd_wgmma_pass(
       }
       if (!full) {
         const int qpos = q_lo + qi, kpos = k_lo + (DQ ? n : m);
-        bool ok = kpos < S && qpos < S;
+        bool ok = kpos < Skv && qpos < Sq;
         if (causal) ok = ok && kpos <= qpos;
         if (window > 0) ok = ok && kpos > qpos - window;
         if (!ok) sc = kNegInf;
@@ -1689,16 +1712,17 @@ __device__ __forceinline__ void bwd_wgmma_pass(
 #pragma unroll
     for (int sl = 0; sl < NSL; ++sl) fence_regs(acc[a][sl]);
 
-  // rows below S: dQ (query rows of head h), or dK and dV (keys of kv head kvh)
+  // rows below Sq: dQ (query rows of head h); below Skv: dK and dV (keys of
+  // kv head kvh)
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = r_lo + r0 + 8 * hr;
-    if (row >= S) continue;
+    if (row >= r_rows) continue;
 #pragma unroll
     for (int a = 0; a < NACC; ++a) {
       __nv_bfloat16* dst =
-          DQ ? dq + (static_cast<int64_t>(b) * S + row) * q_stride + static_cast<int64_t>(h) * HD
-             : (a == 0 ? dk : dv) + (static_cast<int64_t>(b) * S + row) * kv_stride +
+          DQ ? dq + (static_cast<int64_t>(b) * Sq + row) * q_stride + static_cast<int64_t>(h) * HD
+             : (a == 0 ? dk : dv) + (static_cast<int64_t>(b) * Skv + row) * kv_stride +
                    static_cast<int64_t>(kvh) * HD;
 #pragma unroll
       for (int sl = 0; sl < NSL; ++sl)
@@ -1712,7 +1736,7 @@ __device__ __forceinline__ void bwd_wgmma_pass(
   }
 }
 
-// Grid (ceil(S / 64), B * H); kBwThreads threads.
+// Grid (ceil(Sq / 64), B * H); kBwThreads threads.
 template <int HD>
 __global__ void __launch_bounds__(kBwThreads, 1)
 fa_bwd_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
@@ -1720,13 +1744,14 @@ fa_bwd_dq_wgmma_kernel(const __grid_constant__ BwdMaps maps,
                        const __nv_bfloat16* __restrict__ v,
                        const __nv_bfloat16* __restrict__ out,
                        const __nv_bfloat16* __restrict__ g, const float* __restrict__ lse,
-                       float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int S,
-                       int H, int KV, int causal, int window, float scale, float softcap) {
-  bwd_wgmma_pass<HD, true>(maps, q, k, v, out, g, lse, delta, dq, nullptr, nullptr, S, H, KV,
-                           causal, window, scale, softcap);
+                       float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int Sq,
+                       int Skv, int H, int KV, int causal, int window, float scale,
+                       float softcap) {
+  bwd_wgmma_pass<HD, true>(maps, q, k, v, out, g, lse, delta, dq, nullptr, nullptr, Sq, Skv,
+                           H, KV, causal, window, scale, softcap);
 }
 
-// Grid (ceil(S / 64), B * KV); kBwThreads threads. Reads the dq pass's delta.
+// Grid (ceil(Skv / 64), B * KV); kBwThreads threads. Reads the dq pass's delta.
 template <int HD>
 __global__ void __launch_bounds__(kBwThreads, 1)
 fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ BwdMaps maps,
@@ -1735,10 +1760,10 @@ fa_bwd_dkdv_wgmma_kernel(const __grid_constant__ BwdMaps maps,
                          const __nv_bfloat16* __restrict__ v,
                          const __nv_bfloat16* __restrict__ g, const float* __restrict__ lse,
                          float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int S, int H, int KV, int causal,
-                         int window, float scale, float softcap) {
-  bwd_wgmma_pass<HD, false>(maps, q, k, v, nullptr, g, lse, delta, nullptr, dk, dv, S, H, KV,
-                            causal, window, scale, softcap);
+                         __nv_bfloat16* __restrict__ dv, int Sq, int Skv, int H, int KV,
+                         int causal, int window, float scale, float softcap) {
+  bwd_wgmma_pass<HD, false>(maps, q, k, v, nullptr, g, lse, delta, nullptr, dk, dv, Sq, Skv,
+                            H, KV, causal, window, scale, softcap);
 }
 
 // ---------------------------------------------------------------------------
@@ -1761,19 +1786,19 @@ int allow_smem(K* kernel, size_t bytes) {
 
 template <int HD>
 int launch_prefill_f32(const void* q, const void* k, const void* v, void* out,
-                       void* lse, int64_t B, int64_t S, int64_t H, int64_t KV,
-                       int64_t causal, int64_t window, double scale,
+                       void* lse, int64_t B, int64_t Sq, int64_t Skv, int64_t H,
+                       int64_t KV, int64_t causal, int64_t window, double scale,
                        double softcap, cudaStream_t stream) {
   constexpr size_t smem = prefill_smem_bytes<HD>();
   static int configured = allow_smem(fa_prefill_kernel<float, HD>, smem);
   if (configured != 0) return configured;
-  const dim3 grid(static_cast<unsigned>((S + kBQ - 1) / kBQ),
+  const dim3 grid(static_cast<unsigned>((Sq + kBQ - 1) / kBQ),
                   static_cast<unsigned>(B * H));
   fa_prefill_kernel<float, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out),
-      static_cast<float*>(lse), static_cast<int>(S), static_cast<int>(H),
-      static_cast<int>(KV),
+      static_cast<float*>(lse), static_cast<int>(Sq), static_cast<int>(Skv),
+      static_cast<int>(H), static_cast<int>(KV),
       static_cast<int>(causal), static_cast<int>(window),
       static_cast<float>(scale), static_cast<float>(softcap));
   g_fwd_launched = kFwdCudaCores;
@@ -1782,19 +1807,19 @@ int launch_prefill_f32(const void* q, const void* k, const void* v, void* out,
 
 template <int HD, int NWG>
 int launch_prefill_tc(const void* q, const void* k, const void* v, void* out,
-                      void* lse, int64_t B, int64_t S, int64_t H, int64_t KV,
-                      int64_t causal, int64_t window, double scale,
+                      void* lse, int64_t B, int64_t Sq, int64_t Skv, int64_t H,
+                      int64_t KV, int64_t causal, int64_t window, double scale,
                       double softcap, cudaStream_t stream) {
   constexpr size_t smem = prefill_tc_smem_bytes<HD, NWG>();
   static int configured = allow_smem(fa_prefill_tc_kernel<HD, NWG>, smem);
   if (configured != 0) return configured;
   const dim3 grid(static_cast<unsigned>(B * H / NWG),
-                  static_cast<unsigned>((S + kTcRows - 1) / kTcRows));
+                  static_cast<unsigned>((Sq + kTcRows - 1) / kTcRows));
   fa_prefill_tc_kernel<HD, NWG><<<grid, NWG * 128, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), static_cast<int>(S), static_cast<int>(H),
-      static_cast<int>(KV),
+      static_cast<float*>(lse), static_cast<int>(Sq), static_cast<int>(Skv),
+      static_cast<int>(H), static_cast<int>(KV),
       static_cast<int>(causal), static_cast<int>(window),
       static_cast<float>(scale), static_cast<float>(softcap));
   g_fwd_launched = kFwdTensorCores;
@@ -1803,20 +1828,20 @@ int launch_prefill_tc(const void* q, const void* k, const void* v, void* out,
 
 template <int HD>
 int prefill_tc_by_groups(const void* q, const void* k, const void* v, void* out,
-                         void* lse, int64_t B, int64_t S, int64_t H, int64_t KV,
-                         int64_t causal, int64_t window, double scale,
+                         void* lse, int64_t B, int64_t Sq, int64_t Skv, int64_t H,
+                         int64_t KV, int64_t causal, int64_t window, double scale,
                          double softcap, cudaStream_t stream) {
   if ((H / KV) % 2 == 0)
-    return launch_prefill_tc<HD, 2>(q, k, v, out, lse, B, S, H, KV, causal, window,
+    return launch_prefill_tc<HD, 2>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, window,
                                     scale, softcap, stream);
-  return launch_prefill_tc<HD, 1>(q, k, v, out, lse, B, S, H, KV, causal, window,
+  return launch_prefill_tc<HD, 1>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, window,
                                   scale, softcap, stream);
 }
 
 template <typename T, int HD>
 int launch_bwd(const void* q, const void* k, const void* v, const void* out,
                const void* lse, const void* g, void* dq, void* dk, void* dv,
-               void* delta, int64_t B, int64_t S, int64_t H, int64_t KV,
+               void* delta, int64_t B, int64_t Sq, int64_t Skv, int64_t H, int64_t KV,
                int64_t causal, int64_t window, double scale, double softcap,
                cudaStream_t stream) {
   constexpr size_t smem = bwd_smem_bytes<HD>();
@@ -1824,31 +1849,32 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* out,
   static int configured_dq = allow_smem(fa_bwd_dq_kernel<T, HD>, smem);
   if (configured_dkdv != 0) return configured_dkdv;
   if (configured_dq != 0) return configured_dq;
-  const int64_t rows = B * S * H;
+  const int64_t rows = B * Sq * H;
   const unsigned rows_per_block = kBwdThreads / 32;
   fa_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + rows_per_block - 1) / rows_per_block),
                            kBwdThreads, 0, stream>>>(
       static_cast<const T*>(out), static_cast<const T*>(g), static_cast<float*>(delta),
-      rows, static_cast<int>(S), static_cast<int>(H), HD);
+      rows, static_cast<int>(Sq), static_cast<int>(H), HD);
   int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  const unsigned tiles = static_cast<unsigned>((S + kBwdRows - 1) / kBwdRows);
-  fa_bwd_dkdv_kernel<T, HD><<<dim3(tiles, static_cast<unsigned>(B * KV)), kBwdThreads,
+  const unsigned k_tiles = static_cast<unsigned>((Skv + kBwdRows - 1) / kBwdRows);
+  fa_bwd_dkdv_kernel<T, HD><<<dim3(k_tiles, static_cast<unsigned>(B * KV)), kBwdThreads,
                               smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv),
-      static_cast<int>(S), static_cast<int>(H), static_cast<int>(KV),
+      static_cast<int>(Sq), static_cast<int>(Skv), static_cast<int>(H), static_cast<int>(KV),
       static_cast<int>(causal), static_cast<int>(window), static_cast<float>(scale),
       static_cast<float>(softcap));
   rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  fa_bwd_dq_kernel<T, HD><<<dim3(tiles, static_cast<unsigned>(B * H)), kBwdThreads, smem,
+  const unsigned q_tiles = static_cast<unsigned>((Sq + kBwdRows - 1) / kBwdRows);
+  fa_bwd_dq_kernel<T, HD><<<dim3(q_tiles, static_cast<unsigned>(B * H)), kBwdThreads, smem,
                             stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), static_cast<int>(S),
-      static_cast<int>(H), static_cast<int>(KV), static_cast<int>(causal),
+      static_cast<const float*>(delta), static_cast<T*>(dq), static_cast<int>(Sq),
+      static_cast<int>(Skv), static_cast<int>(H), static_cast<int>(KV), static_cast<int>(causal),
       static_cast<int>(window), static_cast<float>(scale), static_cast<float>(softcap));
   return static_cast<int>(cudaGetLastError());
 }
@@ -1874,7 +1900,8 @@ EncodeTiledFn tensor_map_encoder() {
 
 // The row tiles of a (B, S, NH, HD) bf16 tensor for TMA: dims (HD, NH, S, B)
 // innermost first, boxes of 64 dims x 1 head x 64 rows x 1 lane, 128-byte
-// swizzled; rows at or past S are zero-filled.
+// swizzled; rows at or past S (the tensor's own: Sq for q and g, Skv for k
+// and v) are zero-filled.
 int encode_row_tiles(CUtensorMap* map, const void* x, int64_t B, int64_t S, int64_t NH,
                      int HD) {
   const EncodeTiledFn encode = tensor_map_encoder();
@@ -1896,9 +1923,9 @@ int encode_row_tiles(CUtensorMap* map, const void* x, int64_t B, int64_t S, int6
 template <int HD>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* out,
                      const void* lse, const void* g, void* dq, void* dk, void* dv,
-                     void* delta, int64_t B, int64_t S, int64_t H, int64_t KV,
-                     int64_t causal, int64_t window, double scale, double softcap,
-                     cudaStream_t stream) {
+                     void* delta, int64_t B, int64_t Sq, int64_t Skv, int64_t H,
+                     int64_t KV, int64_t causal, int64_t window, double scale,
+                     double softcap, cudaStream_t stream) {
   using T = __nv_bfloat16;
   constexpr size_t smem_dq = BwdWg<HD, true>::smem, smem_kv = BwdWg<HD, false>::smem;
   static int configured_dq = allow_smem(fa_bwd_dq_wgmma_kernel<HD>, smem_dq);
@@ -1907,29 +1934,31 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* ou
   if (configured_dkdv != 0) return configured_dkdv;
   BwdMaps maps = {};
   if (BwdWg<HD, true>::kTma) {
-    int rc = encode_row_tiles(&maps.q, q, B, S, H, HD);
-    if (rc == 0) rc = encode_row_tiles(&maps.g, g, B, S, H, HD);
-    if (rc == 0) rc = encode_row_tiles(&maps.k, k, B, S, KV, HD);
-    if (rc == 0) rc = encode_row_tiles(&maps.v, v, B, S, KV, HD);
+    int rc = encode_row_tiles(&maps.q, q, B, Sq, H, HD);
+    if (rc == 0) rc = encode_row_tiles(&maps.g, g, B, Sq, H, HD);
+    if (rc == 0) rc = encode_row_tiles(&maps.k, k, B, Skv, KV, HD);
+    if (rc == 0) rc = encode_row_tiles(&maps.v, v, B, Skv, KV, HD);
     if (rc != 0) return rc;
   }
-  const unsigned tiles = static_cast<unsigned>((S + 63) / 64);
   // the dq pass first: its prologue writes delta, which the dk/dv pass reads
-  fa_bwd_dq_wgmma_kernel<HD><<<dim3(tiles, static_cast<unsigned>(B * H)), kBwThreads,
-                               smem_dq, stream>>>(
+  fa_bwd_dq_wgmma_kernel<HD><<<dim3(static_cast<unsigned>((Sq + 63) / 64),
+                                    static_cast<unsigned>(B * H)),
+                               kBwThreads, smem_dq, stream>>>(
       maps, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(out), static_cast<const T*>(g), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<T*>(dq), static_cast<int>(S),
-      static_cast<int>(H), static_cast<int>(KV), static_cast<int>(causal),
+      static_cast<float*>(delta), static_cast<T*>(dq), static_cast<int>(Sq),
+      static_cast<int>(Skv), static_cast<int>(H), static_cast<int>(KV), static_cast<int>(causal),
       static_cast<int>(window), static_cast<float>(scale), static_cast<float>(softcap));
   const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  fa_bwd_dkdv_wgmma_kernel<HD><<<dim3(tiles, static_cast<unsigned>(B * KV)), kBwThreads,
-                                 smem_kv, stream>>>(
+  fa_bwd_dkdv_wgmma_kernel<HD><<<dim3(static_cast<unsigned>((Skv + 63) / 64),
+                                      static_cast<unsigned>(B * KV)),
+                                 kBwThreads, smem_kv, stream>>>(
       maps, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), static_cast<const float*>(lse), static_cast<float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<int>(S), static_cast<int>(H),
-      static_cast<int>(KV), static_cast<int>(causal), static_cast<int>(window),
+      static_cast<T*>(dk), static_cast<T*>(dv), static_cast<int>(Sq), static_cast<int>(Skv),
+      static_cast<int>(H), static_cast<int>(KV), static_cast<int>(causal),
+      static_cast<int>(window),
       static_cast<float>(scale), static_cast<float>(softcap));
   return static_cast<int>(cudaGetLastError());
 }
@@ -1984,34 +2013,35 @@ int decode_by_rows(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// q and out (B, Sq, H, hd), k and v (B, Skv, KV, hd), lse (B, H, Sq);
 // softcap <= 0 means none; window <= 0 means none; causal is 0 or 1.
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
                                        const void* v, void* out, void* lse,
-                                       int64_t B,
-                                       int64_t S, int64_t H, int64_t KV,
+                                       int64_t B, int64_t Sq, int64_t Skv,
+                                       int64_t H, int64_t KV,
                                        int64_t hd, int64_t causal,
                                        int64_t window, double scale,
                                        double softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   g_fwd_launched = kFwdNone;
 #define FA_CALL(HD) \
-  launch_prefill_f32<HD>(q, k, v, out, lse, B, S, H, KV, causal, window, scale, softcap, \
-                         st)
+  launch_prefill_f32<HD>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, window, scale, \
+                         softcap, st)
   FA_BY_HD(hd, FA_CALL)
 #undef FA_CALL
 }
 
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
                                         const void* v, void* out, void* lse,
-                                        int64_t B,
-                                        int64_t S, int64_t H, int64_t KV,
+                                        int64_t B, int64_t Sq, int64_t Skv,
+                                        int64_t H, int64_t KV,
                                         int64_t hd, int64_t causal,
                                         int64_t window, double scale,
                                         double softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   g_fwd_launched = kFwdNone;
 #define FA_CALL(HD) \
-  prefill_tc_by_groups<HD>(q, k, v, out, lse, B, S, H, KV, causal, window, scale, \
+  prefill_tc_by_groups<HD>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, window, scale, \
                            softcap, st)
   FA_BY_HD(hd, FA_CALL)
 #undef FA_CALL
@@ -2050,19 +2080,19 @@ extern "C" int flash_attention_decode_bf16(
 #undef FA_CALL
 }
 
-// The backward of the prefill (flash_attention_bwd): q, k, v, out, g in the
-// inputs' type, lse (B, H, S) f32 from the forward; dq, dk, dv written in
-// the inputs' type; delta (B, H, S) f32 scratch. Three launches on
+// The backward of the prefill (flash_attention_bwd): q, out, g, dq (B, Sq,
+// H, hd) and k, v, dk, dv (B, Skv, KV, hd) in the inputs' type, lse (B, H,
+// Sq) f32 from the forward; delta (B, H, Sq) f32 scratch. Three launches on
 // `stream` in f32, two in bf16 (the dq pass writes delta); returns the
 // first error.
 extern "C" int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* out, const void* lse,
-    const void* g, void* dq, void* dk, void* dv, void* delta, int64_t B, int64_t S,
-    int64_t H, int64_t KV, int64_t hd, int64_t causal, int64_t window, double scale,
-    double softcap, void* stream) {
+    const void* g, void* dq, void* dk, void* dv, void* delta, int64_t B, int64_t Sq,
+    int64_t Skv, int64_t H, int64_t KV, int64_t hd, int64_t causal, int64_t window,
+    double scale, double softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FA_CALL(HD)                                                                  \
-  launch_bwd<float, HD>(q, k, v, out, lse, g, dq, dk, dv, delta, B, S, H, KV, causal, \
+#define FA_CALL(HD)                                                                      \
+  launch_bwd<float, HD>(q, k, v, out, lse, g, dq, dk, dv, delta, B, Sq, Skv, H, KV, causal, \
                         window, scale, softcap, st)
   FA_BY_HD(hd, FA_CALL)
 #undef FA_CALL
@@ -2070,12 +2100,12 @@ extern "C" int flash_attention_bwd_f32(
 
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* out, const void* lse,
-    const void* g, void* dq, void* dk, void* dv, void* delta, int64_t B, int64_t S,
-    int64_t H, int64_t KV, int64_t hd, int64_t causal, int64_t window, double scale,
-    double softcap, void* stream) {
+    const void* g, void* dq, void* dk, void* dv, void* delta, int64_t B, int64_t Sq,
+    int64_t Skv, int64_t H, int64_t KV, int64_t hd, int64_t causal, int64_t window,
+    double scale, double softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FA_CALL(HD)                                                                   \
-  launch_bwd_wgmma<HD>(q, k, v, out, lse, g, dq, dk, dv, delta, B, S, H, KV, causal, \
+#define FA_CALL(HD)                                                                       \
+  launch_bwd_wgmma<HD>(q, k, v, out, lse, g, dq, dk, dv, delta, B, Sq, Skv, H, KV, causal, \
                        window, scale, softcap, st)
   FA_BY_HD(hd, FA_CALL)
 #undef FA_CALL

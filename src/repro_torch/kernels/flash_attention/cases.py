@@ -16,6 +16,20 @@ the two launches of each bit-identical; the lse within ``ref.lse_close`` of
 ``ref.attention_ref``; dq, dk and dv within ``ref.bwd_tolerance`` of
 ``ref.attention_bwd_ref`` on the same (q, k, v, out, lse, g).
 
+Rectangular and padded (:func:`check_rect_case`): Sq queries against Skv
+keys (whisper-base's encoder, its cross-attention in serving and training,
+against its 1536 padded frames and its true 1500, its decoder's causal
+self-attention in training, and causal rectangles both ways, masks
+aligned top-left), and head dims outside the kernels' own
+(kimi-k2's 112, padded to 128 by the wrapper; 40, padded to 64): the
+prefill without lse (bf16 on the tensor-core kernel), the same with lse
+(its output the same bits), then the backward, each launched twice
+bit-identical and held as the training cases; the decode cases of
+whisper-base (the cross-attention against its frozen encoder cache, G 1 at
+hd 64, and its self-attention against 448 slots), of kimi-k2's heads
+(64 / 8 x 112) and of qwen2-vl-72b's (64 / 8 x 128) by
+:func:`check_decode_case`.
+
 :func:`check_first_step` holds one train step taken on the kernels to the
 same step taken on their plain versions.
 """
@@ -65,6 +79,43 @@ SERVE_PREFILL_CASES = [
 ]
 SERVE_DECODE_CASES = [
     (8, 529, 32, 4, 128, (1, 2, 129, 256, 257, 400, 528, 529)),
+]
+
+
+# (B, Sq, Skv, H, KV, hd, causal, window, softcap): whisper-base (8 / 8
+# heads x 64, no softcap): the encoder's non-causal self-attention at 8
+# lanes x 1536 frames; the cross-attention of the serving prefill (a
+# 4-token prompt, and 17 tokens) against 1536 frames and against 1500
+# (not a multiple of any tile); the cross-attention of the training cell
+# (B 16, S 4096 against 1536 frames) and its decoder self-attention (B 16,
+# S 4096, causal); a causal rectangle each way (96 x 160, 160 x 96) and one
+# with a window (every row sees a key); kimi-k2's heads (64 / 8 x 112,
+# causal) and a hd-40 one with a non-causal window
+RECT_CASES = [
+    (8, 1536, 1536, 8, 8, 64, False, None, None),
+    (8, 4, 1536, 8, 8, 64, False, None, None),
+    (8, 17, 1536, 8, 8, 64, False, None, None),
+    (8, 4, 1500, 8, 8, 64, False, None, None),
+    (8, 17, 1500, 8, 8, 64, False, None, None),
+    (16, 4096, 1536, 8, 8, 64, False, None, None),
+    (16, 4096, 4096, 8, 8, 64, True, None, None),
+    (2, 96, 160, 4, 2, 64, True, None, None),
+    (2, 160, 96, 4, 2, 64, True, None, None),
+    (1, 100, 77, 8, 2, 128, True, 40, 50.0),
+    (2, 200, 200, 64, 8, 112, True, None, None),
+    (1, 33, 65, 4, 4, 40, False, 20, 50.0),
+]
+# decode: (B, L, H, KV, hd, kv_len of each row): whisper-base's cross
+# decode against its frozen encoder cache (1536 frames, and 1500), its self
+# decode against the 448-slot text cache, kimi-k2's heads against 529
+# slots, and qwen2-vl-72b's served decode (64 / 8 heads x 128, 8 lanes
+# against its 529-slot cache, ragged kv_len)
+RECT_DECODE_CASES = [
+    (8, 1536, 8, 8, 64, (1536,) * 8),
+    (8, 1500, 8, 8, 64, (1500,) * 8),
+    (8, 448, 8, 8, 64, (1, 2, 5, 64, 100, 200, 447, 448)),
+    (4, 529, 64, 8, 112, (1, 100, 528, 529)),
+    (8, 529, 64, 8, 128, (1, 2, 129, 256, 257, 400, 528, 529)),
 ]
 
 
@@ -120,15 +171,47 @@ def check_bwd_case(case, dtype: torch.dtype, device, seed: int = 0) -> Dict[str,
     """Run one case; raise AssertionError on any failed check. Returns the
     max |diff| of the output, the lse and each gradient."""
     B, S, H, KV, hd, causal, window, cap = case
+    return _check_train((B, S, S, H, KV, hd, causal, window, cap), dtype, device, seed,
+                        f"{case} {dtype}")
+
+
+def check_rect_case(case, dtype: torch.dtype, device, seed: int = 0) -> Dict[str, float]:
+    """Run one rectangular or padded case ``(B, Sq, Skv, H, KV, hd, causal,
+    window, softcap)``: the prefill without lse twice (bit-identical, bf16 on
+    the tensor-core kernel), then :func:`check_bwd_case`'s checks, the lse
+    forward's output equal to the lse-less one bit for bit. Raises
+    AssertionError on any failed check; returns the max |diff| of the
+    output, the lse and each gradient."""
+    from repro_torch.kernels.flash_attention import flash_attention as kern
+
+    B, Sq, Skv, H, KV, hd, causal, window, cap = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = _draw(gen, dtype, device, B, Sq, H, hd)
+    k, v = (_draw(gen, dtype, device, B, Skv, KV, hd) for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=cap)
+    what = f"rect {case} {dtype}"
+    before = kern.launch_counts()
+    plain = [ops.flash_attention(q, k, v, impl="cuda", **kw) for _ in range(2)]
+    after = kern.launch_counts()
+    torch.cuda.synchronize(device)
+    assert torch.equal(plain[0], plain[1]), f"{what}: two launches differ"
+    wgmma = after["flash_attention_fwd_wgmma"] - before["flash_attention_fwd_wgmma"]
+    assert wgmma == (2 if dtype == torch.bfloat16 else 0), f"{what}: {wgmma} on tensor cores"
+    with_lse = ops.flash_attention(q, k, v, impl="cuda", lse=True, **kw)[0]
+    assert torch.equal(with_lse, plain[0]), f"{what}: the lse forward's output differs"
+    return _check_train(case, dtype, device, seed, what)
+
+
+def _check_train(case, dtype, device, seed: int, what: str) -> Dict[str, float]:
+    B, Sq, Skv, H, KV, hd, causal, window, cap = case
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def draw(*shape):
         return torch.randn(*shape, generator=gen, device=device).to(dtype)
 
-    q, k, v = draw(B, S, H, hd), draw(B, S, KV, hd), draw(B, S, KV, hd)
-    g = draw(B, S, H, hd)
+    q, k, v = draw(B, Sq, H, hd), draw(B, Skv, KV, hd), draw(B, Skv, KV, hd)
+    g = draw(B, Sq, H, hd)
     kw = dict(causal=causal, window=window, softcap=cap)
-    what = f"{case} {dtype}"
     fwd = [ops.flash_attention(q, k, v, impl="cuda", lse=True, **kw) for _ in range(2)]
     bwd = [ops.flash_attention_bwd(q, k, v, *fwd[0], g, impl="cuda", **kw) for _ in range(2)]
     torch.cuda.synchronize(device)
@@ -150,7 +233,7 @@ def check_bwd_case(case, dtype: torch.dtype, device, seed: int = 0) -> Dict[str,
 
 def check_first_step(got: Dict[str, Any], got_metrics: Dict[str, Any],
                      want: Dict[str, Any], want_metrics: Dict[str, Any], opt_cfg, *,
-                     loss_rtol: float, gnorm_rtol: float, mu_rtol: float) -> Dict[str, float]:
+                     loss_rtol: float, gnorm_rtol: float, mu_rtol: float) -> Dict[str, Any]:
     """Hold the train state ``got`` after one AdamW step from zero float32
     moments to ``want``, the same step from the same state and batch on
     another path; raise AssertionError on any failed check:
@@ -166,10 +249,9 @@ def check_first_step(got: Dict[str, Any], got_metrics: Dict[str, Any],
       so an entry whose x lies within the tolerance of zero may flip its
       sign (up to 2 lr) and any other moves by ``lr * |f(x +- tol) - f(x)|``.
 
-    Returns the readings: ``loss_rel``, ``gnorm_rel``, ``mu_frac`` (the
-    largest |mu diff| over its leaf's largest |mu|), ``param_gap`` (the
-    largest |param diff|), ``param_slack`` (the smallest of bound minus
-    |param diff|) and ``flips`` (entries more than 1e-6 apart)."""
+    Returns :func:`step_gap`'s readings and ``param_gap`` (the largest
+    |param diff|), ``param_slack`` (the smallest of bound minus |param
+    diff|) and ``flips`` (entries more than 1e-6 apart)."""
     assert int(got["opt"]["count"]) == int(want["opt"]["count"]) == 1, "not a first step"
     f64 = torch.float64
     lr = float(want_metrics["lr"])
@@ -178,18 +260,13 @@ def check_first_step(got: Dict[str, Any], got_metrics: Dict[str, Any],
     def adam_step(y):
         return y / (y.abs() + opt_cfg.eps)
 
-    read = {"loss_rel": abs(float(got_metrics["loss"]) / float(want_metrics["loss"]) - 1.0),
-            "gnorm_rel": abs(float(got_metrics["grad_norm"]) / float(want_metrics["grad_norm"])
-                             - 1.0),
-            "mu_frac": 0.0, "param_gap": 0.0, "param_slack": float("inf"), "flips": 0}
+    read = step_gap(got, got_metrics, want, want_metrics)
+    read.update(param_gap=0.0, param_slack=float("inf"), flips=0)
     leaves = zip(tree_leaves(got["params"]), tree_leaves(want["params"]),
-                 tree_leaves(got["opt"]["mu"]), tree_leaves(want["opt"]["mu"]))
-    for p_got, p_want, mu_got, mu_want in leaves:
-        assert mu_got.dtype == mu_want.dtype == torch.float32, "moments not float32"
+                 tree_leaves(want["opt"]["mu"]))
+    for p_got, p_want, mu_want in leaves:
         mu_w = mu_want.to("cpu", f64)
         scale = max(float(mu_w.abs().max()), 1e-30)
-        read["mu_frac"] = max(read["mu_frac"],
-                              float((mu_got.to("cpu", f64) - mu_w).abs().max()) / scale)
         x, tol = mu_w / lead, mu_rtol * scale / lead
         at = adam_step(x)
         bound = lr * torch.maximum((adam_step(x + tol) - at).abs(),
@@ -204,4 +281,38 @@ def check_first_step(got: Dict[str, Any], got_metrics: Dict[str, Any],
         (f"mu > {mu_rtol} of its leaf's scale", read["mu_frac"] <= mu_rtol),
         ("a param entry past its bound", read["param_slack"] >= 0)) if not ok]
     assert not failed, f"first step: {', '.join(failed)}; readings {read}"
+    return read
+
+
+def _named_leaves(tree, path: str = ""):
+    """(path, leaf) in ``tree_leaves``' order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            yield from _named_leaves(t, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def step_gap(got: Dict[str, Any], got_metrics: Dict[str, Any],
+             want: Dict[str, Any], want_metrics: Dict[str, Any]) -> Dict[str, Any]:
+    """How far one train step's state ``got`` lies from ``want`` (float32
+    moments), read and not checked: ``loss_rel`` and ``gnorm_rel``
+    (relative), ``mu_frac`` (the largest |mu diff| over its leaf's largest
+    |mu|) and ``mu_leaf``, that leaf's path in the params."""
+    f64 = torch.float64
+    read = {"loss_rel": abs(float(got_metrics["loss"]) / float(want_metrics["loss"]) - 1.0),
+            "gnorm_rel": abs(float(got_metrics["grad_norm"]) / float(want_metrics["grad_norm"])
+                             - 1.0),
+            "mu_frac": 0.0, "mu_leaf": ""}
+    for (name, mu_got), mu_want in zip(_named_leaves(got["opt"]["mu"]),
+                                       tree_leaves(want["opt"]["mu"])):
+        assert mu_got.dtype == mu_want.dtype == torch.float32, "moments not float32"
+        mu_w = mu_want.to("cpu", f64)
+        scale = max(float(mu_w.abs().max()), 1e-30)
+        frac = float((mu_got.to("cpu", f64) - mu_w).abs().max()) / scale
+        if frac > read["mu_frac"]:
+            read["mu_frac"], read["mu_leaf"] = frac, name
     return read

@@ -8,17 +8,25 @@ is refused, and adds one to its launch counter (:data:`LAUNCHES`). The
 library is built with ``nvcc`` on first use (:mod:`repro_torch.kernels.build`),
 never at import.
 
-Layout is the model's: q and the output (B, S, H, hd), k and v (B, Skv, KV,
-hd); query head h reads kv head h // (H // KV), and K and V are never
-repeated in memory. The scale is ``hd ** -0.5`` of the true head dim (the
-reference's wrapper pads hd to the TPU's 128 lanes and pre-scales q to
-compensate; nothing here is padded).
+Layout is the model's: q and the output (B, Sq, H, hd), k and v (B, Skv,
+KV, hd), any Sq and Skv (cross-attention: Sq decoder tokens against Skv
+encoder frames), masks aligned top-left as the reference's (q_offset 0:
+query i sees key j when ``j <= i`` under ``causal`` and ``j > i - window``
+under a window); query head h reads kv head h // (H // KV), and K and V are
+never repeated in memory. The kernels are built for the head dims of
+``HEAD_DIMS``; any other head dim up to 256 (kimi-k2's 112) is zero-padded
+to the next of them (:func:`pad_head_dim`: q, k and v, and in the backward
+out and g) and the outputs sliced back. Zero lanes change neither q . k nor
+p . v, so this is the same function; the scale passed is ``hd ** -0.5`` of
+the true head dim (the reference's wrapper pads to the TPU's 128 lanes and
+pre-scales q by ``sqrt(hd_pad / hd)`` in q's dtype instead, which adds a
+rounding). Padding costs one copy of each padded tensor per call.
 
 The prefill has two kernels, chosen by dtype in the C entry points: bf16 on
 tensor cores (``wgmma``), float32 on CUDA cores. The C side reports which
 one it launched, and the bf16 tensor-core launches count also under
 ``flash_attention_fwd_wgmma``. Asked for it (``lse=True``, the training
-forward), either also writes each row's log-sum-exp, (B, H, S) float32.
+forward), either also writes each row's log-sum-exp, (B, H, Sq) float32.
 
 The backward (:func:`flash_attention_bwd`) recomputes p from that lse. In
 bf16 it is two ``wgmma`` passes: a dq pass (one block per lane, head and
@@ -83,8 +91,8 @@ def launch_counts() -> Dict[str, int]:
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _D = ctypes.c_double
-_FWD_SIGNATURE = [_P] * 5 + [_I] * 7 + [_D, _D, _P]
-_BWD_SIGNATURE = [_P] * 10 + [_I] * 7 + [_D, _D, _P]
+_FWD_SIGNATURE = [_P] * 5 + [_I] * 8 + [_D, _D, _P]
+_BWD_SIGNATURE = [_P] * 10 + [_I] * 8 + [_D, _D, _P]
 _DEC_SIGNATURE = [_P] * 8 + [_I] * 8 + [_D, _D, _P]
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 FWD_TENSOR_CORES = 1            # flash_attention_fwd_launched(): the wgmma kernel
@@ -192,6 +200,22 @@ def _check(t: torch.Tensor, name: str, dtypes, shape, aligned: bool = True) -> N
         raise ValueError(f"{name} must start on a 16-byte boundary (16-byte loads)")
 
 
+def padded_head_dim(hd: int) -> int:
+    """The head dim the kernels run ``hd`` at: the smallest entry of
+    ``HEAD_DIMS`` that holds it."""
+    for size in HEAD_DIMS:
+        if hd <= size:
+            return size
+    raise ValueError(f"head dim {hd} above the largest kernel head dim {HEAD_DIMS[-1]}")
+
+
+def pad_head_dim(x: torch.Tensor, hd_pad: int) -> torch.Tensor:
+    """``x`` (..., hd) with zeros appended to ``hd_pad`` lanes (a contiguous
+    copy), or ``x`` itself when it has them already."""
+    hd = x.shape[-1]
+    return x if hd == hd_pad else torch.nn.functional.pad(x, (0, hd_pad - hd))
+
+
 def _heads(q: torch.Tensor, k: torch.Tensor):
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"q and k must be 4-d, got {tuple(q.shape)}, {tuple(k.shape)}")
@@ -200,7 +224,7 @@ def _heads(q: torch.Tensor, k: torch.Tensor):
     if KV < 1 or H % KV:
         raise ValueError(f"{H} query heads do not split over {KV} kv heads")
     if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS} (pad_head_dim first)")
     return B, Sq, H, KV, hd
 
 
@@ -212,31 +236,41 @@ def _cap(softcap: Optional[float]) -> float:
     return float(softcap)
 
 
-def _prefill_checks(q, k, v, causal, window, softcap):
-    B, S, H, KV, hd = _heads(q, k)
+def _prefill_checks(q, k, v, causal, window, softcap, hd: int):
+    """The checks of a prefill or backward call on head-dim-padded q, k
+    and v; ``hd`` is the true head dim, whose scale the kernel takes."""
+    B, Sq, H, KV, hd_pad = _heads(q, k)
+    Skv = k.shape[1]
     cap = _cap(softcap)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
-    if B * H > _MAX_GRID_Y or -(-S // 32) > _MAX_GRID_Y:
-        raise ValueError(f"{B * H} (lane, head) rows or S {S} exceed the launch grid")
+    if Sq < 1 or Skv < 1:
+        raise ValueError(f"empty attention: Sq {Sq}, Skv {Skv}")
+    if B * H > _MAX_GRID_Y or -(-max(Sq, Skv) // 32) > _MAX_GRID_Y:
+        raise ValueError(f"{B * H} (lane, head) rows or Sq {Sq} / Skv {Skv} exceed the "
+                         "launch grid")
     dtypes = (q.dtype,) if q.dtype in _SUFFIX else tuple(_SUFFIX)
-    _check(q, "q", dtypes, (B, S, H, hd))
-    _check(k, "k", dtypes, (B, S, KV, hd))
-    _check(v, "v", dtypes, (B, S, KV, hd))
-    return (B, S, H, KV, hd, int(causal), 0 if window is None else int(window),
+    _check(q, "q", dtypes, (B, Sq, H, hd_pad))
+    _check(k, "k", dtypes, (B, Skv, KV, hd_pad))
+    _check(v, "v", dtypes, (B, Skv, KV, hd_pad))
+    return (B, Sq, Skv, H, KV, hd_pad, int(causal), 0 if window is None else int(window),
             hd ** -0.5, cap)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None, lse: bool = False):
-    """Prefill attention (q_offset 0, Sq == Skv) -> (B, S, H, hd) in q's
-    dtype; with ``lse=True`` the pair (output, rows' log-sum-exp (B, H, S)
-    float32). One launch (bf16: the tensor-core kernel)."""
-    args = _prefill_checks(q, k, v, causal, window, softcap)
-    B, S, H = args[:3]
+    """Prefill attention (q_offset 0), q (B, Sq, H, hd) against k and v
+    (B, Skv, KV, hd) -> (B, Sq, H, hd) in q's dtype; with ``lse=True`` the
+    pair (output, rows' log-sum-exp (B, H, Sq) float32). One launch (bf16:
+    the tensor-core kernel); a head dim outside ``HEAD_DIMS`` is padded."""
+    hd = q.shape[-1]
+    hd_pad = padded_head_dim(hd)
+    q, k, v = (pad_head_dim(x, hd_pad) for x in (q, k, v))
+    args = _prefill_checks(q, k, v, causal, window, softcap, hd)
+    B, Sq, _, H = args[:4]
     out = torch.empty_like(q)
-    lse_t = torch.empty((B, H, S), dtype=torch.float32, device=q.device) if lse else None
+    lse_t = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if lse else None
     lib = library()
     rc = getattr(lib, f"flash_attention_fwd_{_SUFFIX[q.dtype]}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -246,6 +280,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     LAUNCHES["flash_attention_fwd"] += 1
     if lib.flash_attention_fwd_launched() == FWD_TENSOR_CORES:
         LAUNCHES["flash_attention_fwd_wgmma"] += 1
+    out = out[..., :hd]
     return out if lse_t is None else (out, lse_t)
 
 
@@ -254,17 +289,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None):
     """Gradients of the prefill attention -> (dq, dk, dv) in the inputs'
-    dtype, from its output ``out`` (B, S, H, hd), its lse (B, H, S) float32
-    and the output gradient ``g`` (B, S, H, hd). Two launches in bf16 (dq
-    with delta, then dk and dv), three in float32 (delta, dk and dv, dq),
-    counted as one call."""
-    args = _prefill_checks(q, k, v, causal, window, softcap)
-    B, S, H, KV, hd = args[:5]
-    _check(out, "out", (q.dtype,), (B, S, H, hd))
-    _check(g, "g", (q.dtype,), (B, S, H, hd))
-    _check(lse, "lse", (torch.float32,), (B, H, S))
+    dtype, from its output ``out`` (B, Sq, H, hd), its lse (B, H, Sq)
+    float32 and the output gradient ``g`` (B, Sq, H, hd); k and v (B, Skv,
+    KV, hd). Two launches in bf16 (dq with delta, then dk and dv), three in
+    float32 (delta, dk and dv, dq), counted as one call; a head dim outside
+    ``HEAD_DIMS`` is padded."""
+    hd = q.shape[-1]
+    hd_pad = padded_head_dim(hd)
+    for name, t in (("out", out), ("g", g)):
+        if not isinstance(t, torch.Tensor) or t.shape[-1:] != q.shape[-1:]:
+            raise ValueError(f"{name}: head dim {tuple(t.shape)[-1:]} != q's {hd}")
+    q, k, v, out, g = (pad_head_dim(x, hd_pad) for x in (q, k, v, out, g))
+    args = _prefill_checks(q, k, v, causal, window, softcap, hd)
+    B, Sq, _, H = args[:4]
+    _check(out, "out", (q.dtype,), tuple(q.shape))
+    _check(g, "g", (q.dtype,), tuple(q.shape))
+    _check(lse, "lse", (torch.float32,), (B, H, Sq))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     rc = getattr(library(), f"flash_attention_bwd_{_SUFFIX[q.dtype]}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
@@ -272,30 +314,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd: CUDA launch failed with error {rc}")
     LAUNCHES["flash_attention_bwd"] += 1
-    return dq, dk, dv
+    return dq[..., :hd], dk[..., :hd], dv[..., :hd]
 
 
-def _plan_decode(q, k, v, kv_len, softcap) -> tuple:
-    """The full checks of a decode call, its plan and its entry point."""
-    B, Sq, H, KV, hd = _heads(q, k)
+def _plan_decode(q, k, v, kv_len, softcap, hd: int) -> tuple:
+    """The full checks of a decode call on head-dim-padded q, k and v (the
+    true head dim ``hd`` gives the scale), its plan and its entry point."""
+    B, Sq, H, KV, hd_pad = _heads(q, k)
     cap = _cap(softcap)
     L = k.shape[1]
     if (H // KV) * Sq > MAX_DECODE_ROWS:
         raise ValueError(f"{H // KV} heads per kv head x {Sq} queries exceed "
                          f"{MAX_DECODE_ROWS} rows per block")
     dtypes = (q.dtype,) if q.dtype in _SUFFIX else tuple(_SUFFIX)
-    _check(q, "q", dtypes, (B, Sq, H, hd))
-    _check(k, "k", dtypes, (B, L, KV, hd))
-    _check(v, "v", dtypes, (B, L, KV, hd))
+    _check(q, "q", dtypes, (B, Sq, H, hd_pad))
+    _check(k, "k", dtypes, (B, L, KV, hd_pad))
+    _check(v, "v", dtypes, (B, L, KV, hd_pad))
     _check(kv_len, "kv_len", (torch.int32,), (B,), aligned=False)
-    n_split, chunk, acc_shape, ml_shape = decode_plan(B, KV, L, (H // KV) * Sq, hd,
+    n_split, chunk, acc_shape, ml_shape = decode_plan(B, KV, L, (H // KV) * Sq, hd_pad,
                                                       _sm_count(q))
     if n_split > _MAX_GRID_Y:
         raise ValueError(f"{n_split} cache chunks exceed the launch grid")
     fn = getattr(library(), f"flash_attention_decode_{_SUFFIX[q.dtype]}")
     acc = acc_shape[0] * acc_shape[1] * acc_shape[2] * acc_shape[3]
     ml = ml_shape[0] * ml_shape[1] * ml_shape[2] * ml_shape[3]
-    return (fn, (B, Sq, L, H, KV, hd, chunk, n_split, hd ** -0.5, cap), n_split, acc,
+    return (fn, (B, Sq, L, H, KV, hd_pad, chunk, n_split, hd ** -0.5, cap), n_split, acc,
             acc + ml, B * KV)
 
 
@@ -305,12 +348,18 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Decode attention against a cache of length L: no causal or window
     mask, keys at or past ``kv_len[b]`` (int32 (B,), on the card, each in
     [1, L]) masked -> (B, Sq, H, hd) in q's dtype; one launch, split over
-    the cache as :func:`decode_plan` says."""
+    the cache as :func:`decode_plan` says. A head dim outside ``HEAD_DIMS``
+    is padded (the cache too, a copy per call), and the plan is kept for the
+    padded shapes."""
+    hd = q.shape[-1]
+    hd_pad = padded_head_dim(hd)
+    if hd_pad != hd:
+        q, k, v = (pad_head_dim(x, hd_pad) for x in (q, k, v))
     key = (q.shape, k.shape, v.shape, kv_len.shape, q.dtype, k.dtype, v.dtype,
-           kv_len.dtype, q.device, k.device, v.device, kv_len.device, softcap)
+           kv_len.dtype, q.device, k.device, v.device, kv_len.device, softcap, hd)
     launch = _decode_launches.get(key)
     if launch is None:
-        launch = _decode_launches[key] = _plan_decode(q, k, v, kv_len, softcap)
+        launch = _decode_launches[key] = _plan_decode(q, k, v, kv_len, softcap, hd)
     elif not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
               and kv_len.is_contiguous()):
         raise ValueError("q, k, v and kv_len must be contiguous")
@@ -328,4 +377,4 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention_decode: CUDA launch failed with error {rc}")
     LAUNCHES["flash_attention_decode"] += 1
-    return out
+    return out if hd_pad == hd else out[..., :hd]

@@ -1,5 +1,5 @@
-"""Dispatch for attention, in the model's layout (q (B, S, H, hd), k and v
-(B, Skv, KV, hd)).
+"""Dispatch for attention, in the model's layout (q (B, Sq, H, hd), k and v
+(B, Skv, KV, hd), any Sq and Skv, any head dim up to 256).
 
 ``impl="auto"``: a CPU tensor goes to the plain version (:mod:`.ref`), a
 CUDA tensor to the CUDA kernels (:mod:`.flash_attention`), which raise on
@@ -22,8 +22,8 @@ from repro_torch.kernels.flash_attention import ref
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None, impl: str = "auto", lse: bool = False):
-    """Prefill attention (q_offset 0) -> (B, S, H, hd) in q's dtype; with
-    ``lse=True`` also the rows' log-sum-exp, (B, H, S) float32 (the
+    """Prefill attention (q_offset 0) -> (B, Sq, H, hd) in q's dtype; with
+    ``lse=True`` also the rows' log-sum-exp, (B, H, Sq) float32 (the
     training forward's residual)."""
     if not use_ref(q, impl):
         return kernel.flash_attention_fwd(q, k, v, causal=causal, window=window,
@@ -39,7 +39,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: Optional[int] = None,
                         softcap: Optional[float] = None, impl: str = "auto"):
     """The prefill attention's gradients (dq, dk, dv) in the inputs' dtype,
-    from its output, its lse (B, H, S) float32 and the output gradient."""
+    from its output, its lse (B, H, Sq) float32 and the output gradient."""
     if not use_ref(q, impl):
         return kernel.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
                                           window=window, softcap=softcap)

@@ -13,7 +13,11 @@ reference's decode applies (``models/attention.py`` ``naive_attention`` and
 reference's XLA attention (``naive_attention``, its blocked forward and its
 decode) rounds p to v's dtype. With ``p_dtype=torch.bfloat16`` this is the
 reference's model attention, the yardstick for how far that rounding alone
-moves a bf16 model's output.
+moves a bf16 model's output. Sq and Skv are any lengths, the masks aligned
+top-left (query i and key i share a position), as the reference's
+``attention_ref`` and ``naive_attention`` index them. ``scale`` defaults to
+``hd ** -0.5`` of the inputs' head dim; a caller that zero-pads the head dim
+(as the kernels' wrapper does) passes the true head dim's.
 
 - :func:`attention_lse_ref`: the row log-sum-exp of the masked scores,
   ``(B, H, Sq)`` float32, which the prefill kernel writes beside its output
@@ -50,13 +54,14 @@ def attention_ref(
     q_offset: int = 0,
     kv_len: Optional[torch.Tensor] = None,   # (B,) integer
     p_dtype: Optional[torch.dtype] = None,   # round p to this before PV
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     B, Sq, H, hd = q.shape
     _, Skv, KV, _ = k.shape
     G = H // KV
     f32 = torch.float32
     dev = q.device
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     q5 = q.reshape(B, Sq, KV, G, hd).to(f32)
     s = torch.einsum("bqkgh,bskh->bkgqs", q5, k.to(f32)) * scale
     if softcap is not None:
@@ -81,13 +86,14 @@ def attention_ref(
 
 
 def _masked_scores(q5: torch.Tensor, k: torch.Tensor, *, causal: bool,
-                   window: Optional[int], softcap: Optional[float]):
+                   window: Optional[int], softcap: Optional[float],
+                   scale: Optional[float] = None):
     """(s (B, KV, G, Sq, Skv) float32 after scale, softcap and the causal /
     window masks (q_offset 0), tanh of the capped argument or None)."""
     Sq, Skv, hd = q5.shape[1], k.shape[1], q5.shape[-1]
     dev = q5.device
     s = torch.einsum("bqkgh,bskh->bkgqs", q5.to(torch.float32),
-                     k.to(torch.float32)) * hd ** -0.5
+                     k.to(torch.float32)) * (hd ** -0.5 if scale is None else scale)
     t = None
     if softcap is not None:
         t = torch.tanh(s / softcap)
@@ -104,25 +110,26 @@ def _masked_scores(q5: torch.Tensor, k: torch.Tensor, *, causal: bool,
 
 
 def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
-                      window: Optional[int] = None,
-                      softcap: Optional[float] = None) -> torch.Tensor:
+                      window: Optional[int] = None, softcap: Optional[float] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
     """Row log-sum-exp of the masked scores (q_offset 0): (B, H, Sq) float32,
     head h = kv head * G + its index in the group."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     s, _ = _masked_scores(q.reshape(B, Sq, KV, H // KV, hd), k, causal=causal,
-                          window=window, softcap=softcap)
+                          window=window, softcap=softcap, scale=scale)
     return torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
 
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor, *,
                       causal: bool = True, window: Optional[int] = None,
-                      softcap: Optional[float] = None
+                      softcap: Optional[float] = None, scale: Optional[float] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of the prefill attention (q_offset 0) from the forward's
-    output ``out`` (B, S, H, hd) and its row lse (B, H, S) float32, for the
-    output gradient ``g``: (dq, dk, dv) in q's, k's and v's dtypes. The
+    output ``out`` (B, Sq, H, hd) and its row lse (B, H, Sq) float32, for the
+    output gradient ``g``, k and v (B, Skv, KV, hd): (dq, dk, dv) in q's,
+    k's and v's dtypes. The
     reference's ``_flash_backward`` with a single block, in float32:
     ``delta = rowsum(g * out)``, ``p = exp(s - lse)`` from the capped and
     masked s, ``dp = g v^T``, ``ds = p (dp - delta)``, times ``1 - tanh^2``
@@ -132,16 +139,17 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KV = k.shape[2]
     G = H // KV
     f32 = torch.float32
+    scale = hd ** -0.5 if scale is None else scale
     q5 = q.reshape(B, Sq, KV, G, hd)
     g5 = g.reshape(B, Sq, KV, G, hd).to(f32)
-    s, t = _masked_scores(q5, k, causal=causal, window=window, softcap=softcap)
+    s, t = _masked_scores(q5, k, causal=causal, window=window, softcap=softcap, scale=scale)
     delta = torch.einsum("bqkgh,bqkgh->bkgq", g5, out.reshape(B, Sq, KV, G, hd).to(f32))
     p = torch.exp(s - lse.reshape(B, KV, G, Sq)[..., None])
     dp = torch.einsum("bqkgh,bskh->bkgqs", g5, v.to(f32))
     ds = p * (dp - delta[..., None])
     if t is not None:
         ds = ds * (1.0 - t * t)
-    ds = ds * hd ** -0.5
+    ds = ds * scale
     dq = torch.einsum("bkgqs,bskh->bqkgh", ds, k.to(f32)).reshape(B, Sq, H, hd)
     dk = torch.einsum("bkgqs,bqkgh->bskh", ds, q5.to(f32))
     dv = torch.einsum("bkgqs,bqkgh->bskh", p, g5)

@@ -1,7 +1,7 @@
 """Base layers for the port: norms, embedding, tied LM head, init.
 
-Counterpart of the JAX package's ``models/layers.py`` (the parts the ssm,
-dense and moe families use; ``apply_mrope`` waits for qwen2-vl). Params are plain dicts of tensors. Inits draw from an explicit
+Counterpart of the JAX package's ``models/layers.py``. Params are plain
+dicts of tensors. Inits draw from an explicit
 ``torch.Generator`` and allocate on its device; they cannot reproduce
 ``jax.random`` draws, so parity tests load the reference's params instead
 (:mod:`repro_torch.weights`).
@@ -10,7 +10,7 @@ dense and moe families use; ``apply_mrope`` waits for qwen2-vl). Params are plai
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -81,7 +81,7 @@ def lm_logits(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor
 
 
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE and M-RoPE
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -94,10 +94,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)
     ang = positions[..., None].to(torch.float32) * freqs        # (B, S, hd/2)
+    return _rotate(x, ang)
+
+
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate the halves of x (B, S, N, hd) by the float32 angles (B, S,
+    hd/2)."""
     sin, cos = torch.sin(ang)[:, :, None, :], torch.cos(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: the rotary frequency pairs split into
+    (temporal, height, width) sections of ``sections`` pairs (summing to
+    hd/2), each rotated by its own position stream. x: (B, S, N, hd);
+    positions3: (B, S, 3) integer. Angles in float32."""
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to hd/2 = {hd // 2}")
+    freqs = rope_freqs(hd, theta, x.device)
+    comp = torch.cat([torch.full((n,), i, dtype=torch.long, device=x.device)
+                      for i, n in enumerate(sections)])            # (hd/2,)
+    pos = positions3.to(torch.float32)[..., comp]                 # (B, S, hd/2)
+    return _rotate(x, pos * freqs)
 
 
 # ---------------------------------------------------------------------------

@@ -31,10 +31,16 @@ class ModelBundle:
         return transformer.loss_fn(params, batch, self.cfg, impl)
 
     def prefill_fn(self, params, batch, max_len: int):
-        return transformer.prefill(params, batch["tokens"], self.cfg, max_len)
+        """Prefill of ``batch["tokens"]``, with its ``positions`` (M-RoPE:
+        Qwen2-VL's image-grid positions) and ``enc_embeds`` (an
+        encoder-decoder config's encoder input) where it has them."""
+        return transformer.prefill(params, batch["tokens"], self.cfg, max_len,
+                                   positions=batch.get("positions"),
+                                   enc_embeds=batch.get("enc_embeds"))
 
     def decode_fn(self, params, cache, batch):
-        return transformer.decode_step(params, cache, batch["token"], self.cfg)
+        return transformer.decode_step(params, cache, batch["token"], self.cfg,
+                                       positions=batch.get("positions"))
 
     def init_cache(self, batch: int, max_len: int, device=None):
         return transformer.init_cache(self.cfg, batch, max_len, device)

@@ -1,19 +1,35 @@
-"""The LM decoder stack, ssm (mamba2), dense (gemma2, granite, qwen2) and
-moe (qwen3-moe, kimi-k2) families: init, prefill and decode, training
-forward and loss.
+"""The LM decoder stack, ssm (mamba2), dense (gemma2, granite, qwen2,
+qwen2-vl), moe (qwen3-moe, kimi-k2) and encoder-decoder (whisper)
+families: init, prefill and decode, training forward and loss.
 
 Counterpart of the JAX package's ``models/transformer.py``. A config is
 compiled to a list of :class:`LayerDesc` per *scan unit*:
 
 - ssm (mamba2):                    unit = [mamba],               L units
-- dense (granite/qwen2):           unit = [attn+mlp],            L units
+- dense (granite/qwen2/qwen2-vl):  unit = [attn+mlp],            L units
 - gemma2:                          unit = [attn(local)+mlp,
                                            attn(global)+mlp],    L/2 units
 - moe (qwen3-moe/kimi-k2):         unit = [attn+moe],            L units
+- whisper decoder:                 unit = [attn+cross+mlp],      L units
 
-Hybrid and encoder-decoder configs, and M-RoPE (qwen2-vl), raise
-``NotImplementedError``. Units are stacked on a leading layer axis as in the
-reference (its ``lax.scan`` layout), and the forward loops over them.
+The hybrid family (jamba) raises ``NotImplementedError``. Units are stacked
+on a leading layer axis as in the reference (its ``lax.scan`` layout), and
+the forward loops over them.
+
+Encoder-decoder (whisper): :func:`encoder_forward` runs the bidirectional
+encoder over the stub frame embeddings ``enc_embeds`` (B, F, D) (rope at
+``arange(F)``, non-causal self-attention through ``flash_attention_train``,
+each block checkpointed under ``remat == "full"``), and every decoder layer
+adds a cross-attention sub-layer against the encoder output's K/V (no rope,
+no mask: Sq decoder tokens against Skv = F frames). Its prefill keeps that
+K/V as the frozen ``cross{j}`` cache, which decode attends through
+``flash_attention_decode`` with every frame valid (the cache's ``enc_len``,
+the frame count of each lane, made once per cache). A prefill or loss of an
+encoder-decoder config without ``enc_embeds`` raises (the reference
+asserts). M-RoPE (qwen2-vl): positions are (B, S, 3), one stream per
+(temporal, height, width) component (:func:`~repro_torch.models.layers.apply_mrope`);
+without explicit positions they are the text positions on all three, as in
+the reference.
 Training: with ``cfg.remat == "full"`` (the default) each unit of
 :func:`forward_train` runs under ``torch.utils.checkpoint`` (recomputed in
 the backward, as the reference's ``jax.checkpoint`` of the scan body), and
@@ -27,7 +43,8 @@ Attention trains through :func:`~repro_torch.models.attention.flash_attention_tr
 
 Caches (``{"pos", "units"}`` as in the reference): per attention layer a
 :class:`KVCache` (length ``max_len``, or the window for local layers: a
-ring, slot ``t % L`` holding position t), per mamba layer a
+ring, slot ``t % L`` holding position t), per cross-attention layer the
+encoder's K/V (``enc_frames`` slots), per mamba layer a
 :class:`~repro_torch.models.mamba2.MambaCache`, each stacked on the layer
 axis. ``pos`` is the number of tokens the cache holds: a scalar, or one value
 per replica when a serving decoder folds several replicas' lanes into one
@@ -55,6 +72,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import AttnSpec, flash_attention_train
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
+    apply_mrope,
     apply_rope,
     dtype_of,
     embed_tokens,
@@ -76,12 +94,13 @@ class LayerDesc:
     mixer: str                  # "attn" | "mamba"
     local: bool = False         # sliding-window attention
     ffn: Optional[str] = None   # "dense" | "moe" | None
+    cross: bool = False         # cross-attention (whisper decoder)
 
 
-def _unported(cfg: ModelConfig, what: str = ""):
+def _unported(cfg: ModelConfig):
     return NotImplementedError(
-        f"model family {cfg.family!r} ({cfg.name}){what} is not ported yet; the "
-        "port covers the ssm, dense and moe families (ROADMAP queue 1, model zoo)"
+        f"model family {cfg.family!r} ({cfg.name}) is not ported yet; the port covers "
+        "the ssm, dense, moe and encoder-decoder families (ROADMAP queue 1, model zoo)"
     )
 
 
@@ -89,13 +108,13 @@ def scan_unit(cfg: ModelConfig) -> List[LayerDesc]:
     """The per-unit layer pattern for this config (see module docstring)."""
     if cfg.family == "ssm":
         return [LayerDesc("mamba", ffn=None if cfg.no_ffn else "dense")]
-    if cfg.family == "hybrid" or cfg.enc_dec:
+    if cfg.family == "hybrid":
         raise _unported(cfg)
     if cfg.local_global_alternate:
         return [LayerDesc("attn", local=True, ffn="moe" if cfg.ffn_is_moe(0) else "dense"),
                 LayerDesc("attn", local=False, ffn="moe" if cfg.ffn_is_moe(1) else "dense")]
     ffn = "moe" if (cfg.moe is not None and cfg.moe.every == 1) else "dense"
-    return [LayerDesc("attn", local=cfg.force_local, ffn=ffn)]
+    return [LayerDesc("attn", local=cfg.force_local, ffn=ffn, cross=cfg.enc_dec)]
 
 
 def n_units(cfg: ModelConfig) -> int:
@@ -136,8 +155,47 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
 
 def _rope_qk(q, k, positions, cfg: ModelConfig):
     if cfg.mrope_sections is not None:
-        raise _unported(cfg, " with M-RoPE")
+        return (apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
     return apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta)
+
+
+def _text_positions(B: int, S: int, cfg: ModelConfig, device, start=None) -> torch.Tensor:
+    """Text positions: ``arange(S)`` per lane, or one token per lane at
+    ``start`` (B,); (B, S), or (B, S, 3) under M-RoPE (the same value on
+    every component)."""
+    pos = torch.arange(S, device=device)[None].expand(B, S) if start is None else start[:, None]
+    if cfg.mrope_sections is not None:
+        pos = pos[..., None].expand(B, S, 3)
+    return pos
+
+
+def _cross_q(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)[None, None]
+    return q
+
+
+def enc_kv_for_cross(p: Params, enc_out: torch.Tensor, cfg: ModelConfig):
+    """The cross-attention's K and V (B, F, KV, hd) from the encoder output."""
+    cdt = enc_out.dtype
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(cdt))
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(cdt))
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(cdt)[None, None]
+        v = v + p["bv"].to(cdt)[None, None]
+    return k, v.contiguous()
+
+
+def cross_attn_train(p: Params, x: torch.Tensor, enc_kv, cfg: ModelConfig,
+                     impl: str = "auto") -> torch.Tensor:
+    """Cross-attention against the encoder's K/V (no rope, no mask), through
+    ``flash_attention_train``; its output (B, S, D) before the residual."""
+    k, v = enc_kv
+    spec = AttnSpec(causal=False, window=None, softcap=cfg.attn_softcap,
+                    block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
+    return _attn_out(p, flash_attention_train(_cross_q(p, x, cfg), k, v, spec, impl))
 
 
 def _attn_spec(cfg: ModelConfig, desc: LayerDesc, causal: bool = True) -> AttnSpec:
@@ -177,6 +235,9 @@ def init_unit(gen: torch.Generator, cfg: ModelConfig) -> Params:
             lp["attn"] = init_attention(gen, cfg)
         else:
             lp["mamba"] = mamba_lib.init_mamba(gen, cfg)
+        if d.cross:
+            lp["cross_ln"] = init_rmsnorm(cfg.d_model, pdt, gen.device)
+            lp["cross"] = init_attention(gen, cfg)
         if d.ffn is not None:
             lp["ln2"] = init_rmsnorm(cfg.d_model, pdt, gen.device)
             lp["ffn"] = (moe_lib.init_moe(gen, cfg) if d.ffn == "moe"
@@ -200,7 +261,25 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     del first
     params["units"] = units
     params["final_ln"] = init_rmsnorm(cfg.d_model, dtype_of(cfg.param_dtype), gen.device)
+    if cfg.enc_dec:
+        params["encoder"] = init_encoder(gen, cfg)
     return params
+
+
+def init_encoder(gen: torch.Generator, cfg: ModelConfig) -> Params:
+    """The whisper encoder: ``n_enc_layers`` blocks (norm, attention, norm,
+    MLP) stacked on a layer axis, and its final norm."""
+    pdt = dtype_of(cfg.param_dtype)
+
+    def one():
+        return {"ln": init_rmsnorm(cfg.d_model, pdt, gen.device),
+                "attn": init_attention(gen, cfg),
+                "ln2": init_rmsnorm(cfg.d_model, pdt, gen.device),
+                "ffn": init_mlp(gen, cfg, cfg.d_ff)}
+
+    blocks = [one() for _ in range(cfg.n_enc_layers)]
+    return {"blocks": _stack_units(blocks),
+            "final_ln": init_rmsnorm(cfg.d_model, pdt, gen.device)}
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +307,10 @@ def init_unit_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> 
             shape = (batch, layer_cache_len(cfg, d, max_len), cfg.n_kv_heads, cfg.head_dim)
             cache[f"kv{j}"] = KVCache(k=torch.zeros(shape, dtype=cdt, device=device),
                                       v=torch.zeros(shape, dtype=cdt, device=device))
+            if d.cross:
+                shape = (batch, cfg.enc_frames, cfg.n_kv_heads, cfg.head_dim)
+                cache[f"cross{j}"] = KVCache(k=torch.zeros(shape, dtype=cdt, device=device),
+                                             v=torch.zeros(shape, dtype=cdt, device=device))
             continue
         mb = cfg.mamba
         Hm = mb.n_heads(cfg.d_model)
@@ -245,7 +328,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> Dict:
     one = init_unit_cache(cfg, batch, max_len, device)
     U = n_units(cfg)
     units = tree_map(lambda x: x[None].expand((U,) + tuple(x.shape)).contiguous(), one)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=device), "units": units}
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=device), "units": units}
+    if cfg.enc_dec:
+        cache["enc_len"] = _enc_len(batch, cfg.enc_frames, device)
+    return cache
+
+
+def _enc_len(B: int, F: int, device) -> torch.Tensor:
+    """``kv_len`` of the cross decode, (B,) int32 of F (every frame valid):
+    made once per cache, not once per tick, as a decode tick is host-bound."""
+    return torch.full((B,), F, dtype=torch.int32, device=device)
 
 
 def _stack_units(caches: List[Dict]) -> Dict:
@@ -284,14 +376,40 @@ def attn_prefill(p: Params, hn: torch.Tensor, positions: torch.Tensor, cfg: Mode
     return _attn_out(p, out), _prefill_kv_cache(k, v, cfg, desc, max_len)
 
 
+def _need_enc(cfg: ModelConfig, enc_embeds, params: Params, impl: str):
+    """The encoder's output for an encoder-decoder config (None otherwise)."""
+    if not cfg.enc_dec:
+        return None
+    if enc_embeds is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder config: pass enc_embeds "
+                         f"(B, {cfg.enc_frames}, {cfg.d_model})")
+    return encoder_forward(params["encoder"], enc_embeds, cfg, impl)
+
+
+def cross_prefill(p: Params, hc: torch.Tensor, enc_out: torch.Tensor, cfg: ModelConfig,
+                  impl: str = "auto") -> Tuple[torch.Tensor, KVCache]:
+    """One cross-attention sub-layer over the prompt: (its output before the
+    residual add, the frozen ``cross`` cache of the encoder's K/V)."""
+    k, v = enc_kv_for_cross(p, enc_out, cfg)
+    out = fa_ops.flash_attention(_cross_q(p, hc, cfg), k, v, causal=False,
+                                 softcap=cfg.attn_softcap, impl=impl)
+    return _attn_out(p, out), KVCache(k=k, v=v)
+
+
 def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int,
-            impl: str = "auto") -> Tuple[torch.Tensor, Dict]:
+            impl: str = "auto", positions: Optional[torch.Tensor] = None,
+            enc_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
     """Run the prompt, build the decode cache. Returns (last-token logits
-    (B, 1, V) f32, cache). ``max_len`` sizes the attention caches."""
+    (B, 1, V) f32, cache). ``max_len`` sizes the attention caches;
+    ``positions`` (B, S) or, under M-RoPE, (B, S, 3) default to the text
+    positions; ``enc_embeds`` (B, F, D) is the encoder's input, required by
+    an encoder-decoder config."""
     B, S = tokens.shape
     descs = scan_unit(cfg)
     h = embed_tokens(params["embed"], tokens, cfg)
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    if positions is None:
+        positions = _text_positions(B, S, cfg, tokens.device)
+    enc_out = _need_enc(cfg, enc_embeds, params, impl)
     caches = []
     for u in range(n_units(cfg)):
         unit_p = tree_map(lambda t: t[u], params["units"])
@@ -306,13 +424,20 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int
                 out, entries[f"mamba{j}"] = mamba_lib.mamba_prefill(p["mamba"], hn, cfg,
                                                                     impl)
             h = h + out
+            if d.cross:
+                hc = rmsnorm(h, p["cross_ln"], cfg.norm_eps)
+                out, entries[f"cross{j}"] = cross_prefill(p["cross"], hc, enc_out, cfg, impl)
+                h = h + out
             if d.ffn is not None:
                 h = h + _ffn(p, h, cfg, d)[0]
         caches.append(entries)
     h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
     logits = lm_logits(params["embed"], h[:, -1:], cfg)
-    pos = torch.full((), S, dtype=torch.int32, device=tokens.device)
-    return logits, {"pos": pos, "units": _stack_units(caches)}
+    cache = {"pos": torch.full((), S, dtype=torch.int32, device=tokens.device),
+             "units": _stack_units(caches)}
+    if enc_out is not None:
+        cache["enc_len"] = _enc_len(B, enc_out.shape[1], tokens.device)
+    return logits, cache
 
 
 def lane_positions(pos: torch.Tensor, lanes: int) -> torch.Tensor:
@@ -324,30 +449,44 @@ def lane_positions(pos: torch.Tensor, lanes: int) -> torch.Tensor:
 
 
 def attn_decode(p: Params, hn: torch.Tensor, kv: KVCache, pos: torch.Tensor,
-                cfg: ModelConfig) -> torch.Tensor:
-    """One attention sub-layer for one new token per lane at positions
-    ``pos`` (B,): rope at ``pos``, the new K/V written in place at slot
-    ``pos % L`` of each lane's cache, and attention over its first
-    ``min(pos + 1, L)`` slots (no causal or window mask: a local layer's
-    window is its ring). Returns the output (B, 1, D) before the residual
-    add."""
+                cfg: ModelConfig, positions: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    """One attention sub-layer for one new token per lane at cache positions
+    ``pos`` (B,): rope at ``positions`` ((B, 1), or (B, 1, 3) under M-RoPE),
+    the new K/V written in place at slot ``pos % L`` of each lane's cache,
+    and attention over its first ``min(pos + 1, L)`` slots (no causal or
+    window mask: a local layer's window is its ring). Returns the output
+    (B, 1, D) before the residual add."""
     B = hn.shape[0]
     q, k, v = _qkv(p, hn, cfg)
-    q, k = _rope_qk(q, k, pos[:, None], cfg)
+    q, k = _rope_qk(q, k, positions, cfg)
     L = kv.k.shape[1]
     lanes = torch.arange(B, device=hn.device)
     slot = (pos % L).to(torch.long)
     kv.k[lanes, slot] = k[:, 0]
     kv.v[lanes, slot] = v[:, 0]
     kv_len = torch.clamp(pos + 1, max=L).to(torch.int32)
-    out = fa_ops.flash_attention_decode(q, kv.k, kv.v, kv_len, softcap=cfg.attn_softcap)
+    out = fa_ops.flash_attention_decode(q, kv.k, kv.v, kv_len, softcap=cfg.attn_softcap,
+                                        impl=impl)
     return _attn_out(p, out)
 
 
-def decode_step(params: Params, cache: Dict, token: torch.Tensor, cfg: ModelConfig
+def cross_decode(p: Params, hc: torch.Tensor, ckv: KVCache, enc_len: torch.Tensor,
+                 cfg: ModelConfig, impl: str = "auto") -> torch.Tensor:
+    """One cross-attention sub-layer for one new token per lane against the
+    frozen encoder cache, every one of its ``enc_len`` (B,) frames valid;
+    its output (B, 1, D) before the residual add."""
+    out = fa_ops.flash_attention_decode(_cross_q(p, hc, cfg), ckv.k, ckv.v, enc_len,
+                                        softcap=cfg.attn_softcap, impl=impl)
+    return _attn_out(p, out)
+
+
+def decode_step(params: Params, cache: Dict, token: torch.Tensor, cfg: ModelConfig,
+                positions: Optional[torch.Tensor] = None, impl: str = "auto"
                 ) -> Tuple[torch.Tensor, Dict]:
     """One serving step: next-token logits (B, 1, V) f32 and the cache.
-    ``token`` is (B, 1). The cache's tensors are updated in place (one K/V
+    ``token`` is (B, 1); ``positions``, the rope positions (B, 1) or (B, 1,
+    3) under M-RoPE, default to the cache's; ``impl`` as for
+    :func:`prefill`. The cache's tensors are updated in place (one K/V
     slot per lane of each attention layer, the whole state of each mamba
     layer) and returned; ``pos``, a scalar or one value per replica of a
     folded batch, comes back advanced by one. Each replica's lanes are one
@@ -357,6 +496,8 @@ def decode_step(params: Params, cache: Dict, token: torch.Tensor, cfg: ModelConf
     pos = lane_positions(cache["pos"], B)
     groups = cache["pos"].numel()
     h = embed_tokens(params["embed"], token, cfg)
+    if positions is None:
+        positions = _text_positions(B, 1, cfg, token.device, pos)
     for u in range(n_units(cfg)):
         unit_p = tree_map(lambda t: t[u], params["units"])
         unit_c = tree_map(lambda t: t[u], cache["units"])
@@ -364,17 +505,21 @@ def decode_step(params: Params, cache: Dict, token: torch.Tensor, cfg: ModelConf
             p = unit_p[f"L{j}"]
             hn = rmsnorm(h, p["ln"], cfg.norm_eps)
             if d.mixer == "attn":
-                out = attn_decode(p["attn"], hn, unit_c[f"kv{j}"], pos, cfg)
+                out = attn_decode(p["attn"], hn, unit_c[f"kv{j}"], pos, cfg, positions, impl)
             else:
                 out, new = mamba_lib.mamba_decode_step(p["mamba"], hn, unit_c[f"mamba{j}"],
                                                        cfg)
                 tree_map(lambda dst, src: dst.copy_(src), unit_c[f"mamba{j}"], new)
             h = h + out
+            if d.cross:
+                hc = rmsnorm(h, p["cross_ln"], cfg.norm_eps)
+                h = h + cross_decode(p["cross"], hc, unit_c[f"cross{j}"], cache["enc_len"],
+                                     cfg, impl)
             if d.ffn is not None:
                 h = h + _ffn(p, h, cfg, d, groups)[0]
     h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
     logits = lm_logits(params["embed"], h, cfg)
-    return logits, {"pos": cache["pos"] + 1, "units": cache["units"]}
+    return logits, {**cache, "pos": cache["pos"] + 1}
 
 
 # ---------------------------------------------------------------------------
@@ -386,11 +531,39 @@ def _zero_aux(device) -> Dict[str, torch.Tensor]:
             for k in ("moe_aux", "moe_zloss")}
 
 
+def encoder_forward(params: Params, enc_embeds: torch.Tensor, cfg: ModelConfig,
+                    impl: str = "auto") -> torch.Tensor:
+    """The bidirectional encoder over stub frame embeddings (B, F, D): each
+    block's self-attention (rope at ``arange(F)``, non-causal) through
+    ``flash_attention_train`` and its MLP, each block recomputed in the
+    backward under ``remat == "full"``, then the final norm."""
+    h = enc_embeds.to(dtype_of(cfg.compute_dtype))
+    B, F, _ = h.shape
+    positions = torch.arange(F, device=h.device)[None].expand(B, F)
+    spec = AttnSpec(causal=False, softcap=cfg.attn_softcap, block_q=cfg.attn_block_q,
+                    block_k=cfg.attn_block_k)
+
+    def block(h, p):
+        hn = rmsnorm(h, p["ln"], cfg.norm_eps)
+        q, k, v = _qkv(p["attn"], hn, cfg)
+        q, k = apply_rope(q, positions, cfg.rope_theta), apply_rope(k, positions, cfg.rope_theta)
+        h = h + _attn_out(p["attn"], flash_attention_train(q, k, v, spec, impl))
+        return h + mlp_apply(p["ffn"], rmsnorm(h, p["ln2"], cfg.norm_eps), cfg)
+
+    for i in range(cfg.n_enc_layers):
+        p = tree_map(lambda t: t[i], params["blocks"])
+        h = (checkpoint(block, h, p, use_reentrant=False) if cfg.remat == "full"
+             else block(h, p))
+    return rmsnorm(h, params["final_ln"], cfg.norm_eps)
+
+
 def _unit_forward(h: torch.Tensor, unit_p: Params, positions: torch.Tensor,
-                  cfg: ModelConfig, impl: str = "auto"
+                  cfg: ModelConfig, impl: str = "auto",
+                  enc_out: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Apply one unit: each layer's mixer (attention through
-    ``flash_attention_train``, or mamba) and FFN, with their residuals.
+    ``flash_attention_train``, or mamba), its cross-attention against
+    ``enc_out`` (encoder-decoder configs) and its FFN, with their residuals.
     Returns (h, the unit's summed MoE aux losses)."""
     aux = _zero_aux(h.device)
     for j, d in enumerate(scan_unit(cfg)):
@@ -403,6 +576,10 @@ def _unit_forward(h: torch.Tensor, unit_p: Params, positions: torch.Tensor,
             h = h + _attn_out(p["attn"], out)
         else:
             h = h + mamba_lib.mamba_forward(p["mamba"], hn, cfg)
+        if d.cross:
+            hc = rmsnorm(h, p["cross_ln"], cfg.norm_eps)
+            h = h + cross_attn_train(p["cross"], hc, enc_kv_for_cross(p["cross"], enc_out, cfg),
+                                     cfg, impl)
         if d.ffn is not None:
             out, a = _ffn(p, h, cfg, d)
             h = h + out
@@ -412,21 +589,28 @@ def _unit_forward(h: torch.Tensor, unit_p: Params, positions: torch.Tensor,
 
 
 def forward_train(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-                  impl: str = "auto") -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                  impl: str = "auto", positions: Optional[torch.Tensor] = None,
+                  enc_embeds: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Decoder forward: (hidden states (B, S, D), the MoE aux losses summed
     over layers). ``impl`` picks attention's path ("auto": the kernels on
-    the card; "ref": their plain versions)."""
+    the card; "ref": their plain versions); ``positions`` and
+    ``enc_embeds`` as for :func:`prefill`. The encoder's output enters each
+    checkpointed unit as an input, so its gradient flows back through every
+    unit's cross-attention."""
     B, S = tokens.shape
     h = embed_tokens(params["embed"], tokens, cfg)
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    if positions is None:
+        positions = _text_positions(B, S, cfg, tokens.device)
+    enc_out = _need_enc(cfg, enc_embeds, params, impl)
     aux = _zero_aux(h.device)
     for u in range(n_units(cfg)):
         unit_p = tree_map(lambda t: t[u], params["units"])
         if cfg.remat == "full":
-            h, a = checkpoint(_unit_forward, h, unit_p, positions, cfg, impl,
+            h, a = checkpoint(_unit_forward, h, unit_p, positions, cfg, impl, enc_out,
                               use_reentrant=False)
         else:
-            h, a = _unit_forward(h, unit_p, positions, cfg, impl)
+            h, a = _unit_forward(h, unit_p, positions, cfg, impl, enc_out)
         aux = {k: aux[k] + a[k] for k in aux}
     return rmsnorm(h, params["final_ln"], cfg.norm_eps), aux
 
@@ -447,7 +631,8 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     the backward), as the reference's chunk scan, plus the MoE aux losses.
     Returns (the total, {"ce_loss", "moe_aux", "moe_zloss"})."""
     tokens, labels = batch["tokens"], batch["labels"]
-    h, aux = forward_train(params, tokens, cfg, impl)
+    h, aux = forward_train(params, tokens, cfg, impl, positions=batch.get("positions"),
+                           enc_embeds=batch.get("enc_embeds"))
     B, S, _ = h.shape
     chunk = min(cfg.loss_chunk, S)
     total = torch.zeros((), dtype=torch.float32, device=h.device)

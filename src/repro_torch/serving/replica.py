@@ -115,6 +115,10 @@ class ModelDecoder:
         seed: int = 0,
         device=None,
     ):
+        if cfg.enc_dec:
+            # as the reference's decoder: its prefill passes only the tokens
+            raise ValueError(f"{cfg.name} is an encoder-decoder config; ModelDecoder "
+                             "serves decoder-only models (its prefill takes no enc_embeds)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_replicas = n_replicas

@@ -226,8 +226,8 @@ def test_wrappers_check_and_cpu_never_reaches_a_kernel():
     with pytest.raises(ValueError, match="CUDA tensor"):
         kern.flash_attention_decode(q[:, :1], k, k, kl)
     with pytest.raises(ValueError, match="head dim"):
-        kern.flash_attention_fwd(torch.zeros(1, 8, 4, 24), torch.zeros(1, 8, 2, 24),
-                                 torch.zeros(1, 8, 2, 24))
+        kern.flash_attention_fwd(torch.zeros(1, 8, 4, 320), torch.zeros(1, 8, 2, 320),
+                                 torch.zeros(1, 8, 2, 320))
     with pytest.raises(ValueError, match="kv heads"):
         kern.flash_attention_fwd(torch.zeros(1, 8, 3, 16), k, k)
     with pytest.raises(ValueError, match="rows per block"):

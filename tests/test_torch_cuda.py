@@ -37,7 +37,12 @@ qwen3-moe smoke ``ModelDecoder`` on the card against the CPU's. Training attenti
 forward's lse and ``flash_attention_bwd`` against their plain versions,
 f32 and bf16, each launched twice bit-identical; and one train step of the
 gemma2-9b smoke config on the kernels against the same step on the plain
-versions (``impl="ref"``) on the card.
+versions (``impl="ref"``) on the card. The rectangular and padded cases
+(``cases.RECT_CASES``: whisper-base's encoder and cross-attention shapes,
+its training cell's causal self-attention, Skv 1500, causal rectangles both
+ways, head dims 112 and 40; the decode at whisper-base's cross and self
+shapes, at hd 112 and at qwen2-vl-72b's heads), and the whisper-base
+smoke config's prefill, decode ticks and train step on the card.
 """
 
 from __future__ import annotations
@@ -47,6 +52,8 @@ import torch
 
 from repro_torch.kernels.flash_attention.cases import (
     BWD_CASES,
+    RECT_CASES,
+    RECT_DECODE_CASES,
     SERVE_DECODE_CASES,
     SERVE_PREFILL_CASES,
 )
@@ -725,3 +732,107 @@ def test_train_step_on_kernels_matches_plain(device, compute_dtype):
         total += diff.numel()
     assert off <= (1e-4 if compute_dtype == "float32" else 1e-2) * total, \
         f"{off} of {total} param entries off"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(range(len(RECT_CASES))))
+def test_flash_attention_rect_against_plain(device, case, dtype):
+    """Sq != Skv (whisper-base's encoder and cross-attention shapes, Skv 1500,
+    causal rectangles both ways; its training self-attention, causal 4096^2
+    at B 16) and padded head dims (112, 40): forward
+    with and without lse and backward against their plain versions."""
+    from repro_torch.kernels.flash_attention import cases
+
+    cases.check_rect_case(cases.RECT_CASES[case], dtype, device)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_flash_attention_query_tile_without_keys_writes_zeros(device, dtype):
+    """A non-causal window past the last key: queries 128.. see none of the
+    100 keys (their window starts at key 127, inside the last key tile of
+    both kernels' tilings), so their tile walks no key tile, its output rows
+    are zeros and so are their dq."""
+    from repro_torch.kernels.flash_attention import ops
+
+    kw = dict(causal=False, window=2, softcap=None)
+    q, k, v = _fa_inputs(device, (1, 192, 4, 64), (1, 100, 2, 64), dtype, 7)
+    g = torch.randn_like(q)
+    out, lse = ops.flash_attention(q, k, v, impl="cuda", lse=True, **kw)
+    dq, dk, dv = ops.flash_attention_bwd(q, k, v, out, lse, g, impl="cuda", **kw)
+    torch.cuda.synchronize()
+    assert not out[:, 128:].any() and not dq[:, 128:].any()
+    assert all(bool(t.float().isfinite().all()) for t in (out, lse, dq, dk, dv))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(range(len(RECT_DECODE_CASES))))
+def test_flash_attention_decode_rect_against_plain(device, case, dtype):
+    """whisper-base's cross decode (G 1, hd 64, every one of 1536 or 1500
+    frames valid) and self decode (448 slots), kimi-k2's heads (hd 112) and
+    qwen2-vl-72b's (64 / 8 x 128, 529 slots)."""
+    from repro_torch.kernels.flash_attention import cases
+
+    cases.check_decode_case(cases.RECT_DECODE_CASES[case], dtype, device)
+
+
+def test_whisper_smoke_on_kernels_matches_plain(device):
+    """whisper-base's smoke config, float32 compute, on the card: the prefill
+    (encoder, self- and cross-attention on the kernels) and 4 decode ticks
+    (self and cross decode) against the same calls on the CPU, logits and
+    caches within 2e-5 of their scale; the launches one forward per encoder
+    layer and two per decoder layer, two decodes per layer and tick; then
+    one train step on the kernels against one on their plain versions
+    (``cases.check_first_step`` at the f32 bounds of the gemma2-9b step)."""
+    import numpy as np
+
+    from repro_torch.configs import archs
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.flash_attention import cases
+    from repro_torch.kernels.flash_attention import flash_attention as fa_kern
+    from repro_torch.launch import steps
+    from repro_torch.launch.fl_train import batch_to_device
+    from repro_torch.models import registry
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.pytree import tree_leaves, tree_map
+
+    cfg = archs.smoke_cfg(archs.get("whisper-base")).replace(compute_dtype="float32")
+    b = registry.bundle(cfg)
+    params = b.init(torch.Generator(device=device).manual_seed(5))
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12)))
+    enc = torch.from_numpy(rng.standard_normal((2, cfg.enc_frames, cfg.d_model)).astype(
+        np.float32))
+    seen = {}
+    for dev in (device, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(dev), params)
+        fa_kern.reset_launch_counts()
+        with torch.no_grad():
+            logits, cache = b.prefill_fn(p, {"tokens": toks[:, :8].to(dev),
+                                             "enc_embeds": enc.to(dev)}, 16)
+            outs = [logits]
+            for t in range(8, 12):
+                logits, cache = b.decode_fn(p, cache, {"token": toks[:, t:t + 1].to(dev)})
+                outs.append(logits)
+        seen[dev.type] = (outs, cache, fa_kern.launch_counts())
+    for a, w in zip(seen["cuda"][0] + tree_leaves(seen["cuda"][1]["units"]),
+                    seen["cpu"][0] + tree_leaves(seen["cpu"][1]["units"])):
+        w = w.float()
+        assert float((a.cpu().float() - w).abs().max()) <= 2e-5 * float(w.abs().max())
+    counts = seen["cuda"][2]
+    assert counts["flash_attention_fwd"] == cfg.n_enc_layers + 2 * cfg.n_layers
+    assert counts["flash_attention_decode"] == 4 * 2 * cfg.n_layers
+
+    opt = adamw.OptConfig(peak_lr=3e-3, warmup_steps=5, decay_steps=10)
+    start = steps.init_state(0, cfg, opt, device)
+    batch = batch_to_device(
+        pipeline.SyntheticStream(cfg, ShapeConfig("c", "train", 40, 4), seed=1).batch(0),
+        device)
+    runs = {}
+    for impl in ("cuda", "ref"):
+        state = tree_map(lambda t: t.clone(), start)
+        state, metrics = steps.build_train_step(cfg, opt, impl)(state, batch)
+        runs[impl] = (state, metrics)
+    torch.cuda.synchronize()
+    cases.check_first_step(*runs["cuda"], *runs["ref"], opt, loss_rtol=1e-5, gnorm_rtol=1e-5,
+                           mu_rtol=1e-5)

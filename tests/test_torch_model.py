@@ -237,9 +237,11 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_families_raise():
-    """The hybrid family (jamba) and encoder-decoder configs are not
-    ported yet; the MoE family is."""
-    for name in ("jamba-1.5-large-398b", "whisper-base"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            transformer.scan_unit(archs.get(name))
+    """The hybrid family (jamba) is not ported yet; the MoE family and the
+    encoder-decoder family (whisper: one attention layer with
+    cross-attention per unit) are."""
+    with pytest.raises(NotImplementedError, match="not ported"):
+        transformer.scan_unit(archs.get("jamba-1.5-large-398b"))
     assert [d.ffn for d in transformer.scan_unit(archs.get("qwen3-moe-30b-a3b"))] == ["moe"]
+    assert [(d.mixer, d.cross) for d in transformer.scan_unit(archs.get("whisper-base"))] == \
+        [("attn", True)]

@@ -107,6 +107,25 @@ def test_moe_slice_modules_are_covered():
         "init_moe", "capacity", "route", "dispatch", "combine", "moe_apply", "count_drops"))
 
 
+def test_encdec_and_mrope_slice_is_covered():
+    """The port names the encoder-decoder family's pieces (the encoder, the
+    cross-attention's K/V, training, prefill and decode sub-layers), M-RoPE,
+    and the attention wrapper's head-dim padding and rectangular card
+    cases."""
+    from repro_torch.kernels.flash_attention import cases, flash_attention
+    from repro_torch.models import layers, transformer
+
+    for mod, names in (
+        (transformer, ("init_encoder", "encoder_forward", "enc_kv_for_cross",
+                       "cross_attn_train", "cross_prefill", "cross_decode")),
+        (layers, ("apply_mrope",)),
+        (flash_attention, ("padded_head_dim", "pad_head_dim")),
+        (cases, ("check_rect_case",)),
+    ):
+        assert all(callable(getattr(mod, n, None)) for n in names), mod.__name__
+    assert cases.RECT_CASES and cases.RECT_DECODE_CASES
+
+
 def test_imports_without_jax():
     """Every module of the port imports with ``jax`` made unimportable."""
     code = (

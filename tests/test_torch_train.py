@@ -297,6 +297,38 @@ def test_first_step_check(change, caught):
         assert read["flips"] == (change != "none")
 
 
+def test_step_gap_names_the_farthest_leaf():
+    """``cases.step_gap`` reads how far one step's mu lies from another's,
+    leaf by leaf against each leaf's own scale, and names the farthest leaf
+    by its path; it checks nothing."""
+    from repro_torch.kernels.flash_attention import cases
+
+    opt = adamw.OptConfig(peak_lr=3e-3, warmup_steps=5, decay_steps=10, clip_norm=1e3)
+    rng = np.random.default_rng(4)
+    g = {"a": torch.from_numpy(rng.standard_normal((4, 8)).astype(np.float32)),
+         "b": {"c": torch.from_numpy(rng.standard_normal(8).astype(np.float32) * 1e-3)}}
+    h = {"a": g["a"].clone(), "b": {"c": g["b"]["c"].clone()}}
+    h["b"]["c"][3] += 1e-6                 # 1e-3 of a small leaf's scale, 1e-6 of "a"'s
+
+    def step(grads):
+        params = tree_map_zeros(grads)
+        state = {"params": params, "opt": adamw.init_opt_state(params, opt)}
+        state["params"], state["opt"], metrics = adamw.apply_updates(params, grads,
+                                                                     state["opt"], opt)
+        metrics["loss"] = torch.tensor(2.0)
+        return state, metrics
+
+    def tree_map_zeros(t):
+        return {k: tree_map_zeros(v) for k, v in t.items()} if isinstance(t, dict) \
+            else torch.zeros_like(t)
+
+    read = cases.step_gap(*step(h), *step(g))
+    assert read["mu_leaf"] == "/b/c" and read["loss_rel"] == 0.0
+    scale = float(g["b"]["c"].abs().max())
+    assert read["mu_frac"] == pytest.approx(1e-6 / scale, rel=1e-3)
+    assert cases.step_gap(*step(g), *step(g))["mu_frac"] == 0.0
+
+
 # ---------------------------------------------------------------------------
 # the trainer's CLI
 # ---------------------------------------------------------------------------
