@@ -28,7 +28,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    its path;
    The SSD-scan kernel is held to its plain version on small and ragged
    cases (chunks 8, 64, 96 and 256, one to four chunks, groups 1, 2 and 4,
-   head dims 16 to 64, states 32 to 128, bf16 and float32 inputs) and on
+   head dims 16 to 64, states 32 to 128, bf16 and float32 inputs), at
+   jamba's 256 heads in 8 groups, each case launched twice bit-identical, and on
    strong decay at chunk 256 (A = -16, dt 0.05-0.1: the exponent above the
    diagonal passes 88, so exp before the mask would be inf): y and the state
    finite and within ``ssd_scan.ref.ssd_tolerance`` (1e-4 of the output's
@@ -152,6 +153,27 @@ Phases (any failure exits non-zero, and no result line is printed):
    and one image-grid prefill (an 8 x 8 grid, then 192 text tokens)
    through the kernels and the plain versions, last-token logits within
    1.5e-2 of their scale;
+4f. slice 13, the hybrid family (``[hybrid]`` lines): jamba-1.5-large-398b
+   at its published widths (d_model 8192, 64 / 8 heads x 128, d_ff 24 576,
+   Mamba-2 of 256 heads x 64 in 8 groups, d_state 128, chunk 256, top-2
+   MoE with capacity 1.25 on every second layer, vocab 65 536 tied), cut
+   by ``HYBRID_CUT`` to one unit (1 attention and 7 Mamba-2 layers, 4 MoE
+   FFNs) of 4 of 16 experts (15.72 B f32 params, 58.56 GiB), built with
+   ``ModelDecoder`` directly, random weights from seed 0, the same scenario
+   and workload as 4. Checks: every request delivered with 16 tokens, the
+   audit clean, ``ssd_scan`` launched 7 times per prefill call,
+   ``flash_attention_fwd`` once per prefill call (on the tensor-core
+   kernel) and ``flash_attention_decode`` once per tick, no other kernel,
+   the peak under 74 GiB; the dropped share of routed assignments at
+   prefill and decode; one wave's prefill layer by layer against the plain
+   versions (attention within ``fa_tolerance``, SSM states within
+   ``ssd_tolerance``, mixer outputs within 2 bf16 ulps at scale, K/V and
+   conv tails equal), then the whole prefill and 16 ticks within 4x the
+   plain path's own spread (chunk 128 and p in bf16); a replay on a fresh
+   decoder under the profiler, bit-identical, with device time by kind and
+   one prefill and tick split into host and device time. ``ssd_scan`` at
+   the cell's served shape (4 lanes x 256 heads in 8 groups) is timed in 7
+   beside its bound;
 5. slice 1: the port's TDM path through its user entry points
    (``repro_torch.launch.train_fl_constellation``): constellation-driven
    TDM-FLA rounds of mamba2-780m at its published widths, depth cut to 8
@@ -214,8 +236,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    shared-memory scatter paths at TOPK_SELECT_MAX_K + 1, each checked
    against its plain version and timed beside its bound and library call;
    ``ssd_scan`` at the serving prefill's shape with both replicas admitted
-   (8 lanes x 48 heads, S 512, chunk 256, bf16; the ``kernels`` row) and at
-   the served 4 lanes, each beside its bound: the larger of the bytes it
+   (8 lanes x 48 heads, S 512, chunk 256, bf16; the ``kernels`` row), at
+   the served 4 lanes and at jamba's served 4 lanes (256 heads in 8
+   groups), each beside its bound: the larger of the bytes it
    must move over 3.35 TB/s and its operations (the triangle s <= t only)
    over 989 TFLOP/s, the bf16 tensor-core rate (bytes; the float32 rate's
    67 TFLOP/s, which bounded the first port's kernel, logged beside it),
@@ -1245,15 +1268,19 @@ def _ssd_inputs(gen, case, device, strong=False):
 
 def _ssd_vs_plain(inputs, chunk: int, what: str) -> float:
     """The kernel against its plain version on the same inputs: y and the
-    state finite and within ``ssd_tolerance``. Returns the max |diff|."""
+    state finite and within ``ssd_tolerance``, a second launch bit-identical.
+    Returns the max |diff|."""
     import torch
 
     from repro_torch.kernels.ssd_scan import ops, ref
 
     y, s = ops.ssd_scan(*inputs, chunk=chunk, impl="cuda")
+    again = ops.ssd_scan(*inputs, chunk=chunk, impl="cuda")
     y_r, s_r = ops.ssd_scan(*inputs, chunk=chunk, impl="ref")
     torch.cuda.synchronize()
     check(y.dtype == inputs[0].dtype and s.dtype == torch.float32, f"{what}: dtypes")
+    check(torch.equal(y, again[0]) and torch.equal(s, again[1]),
+          f"{what}: a second launch differs")
     ok_y, err_y = ref.ssd_close(y, y_r)
     ok_s, err_s = ref.ssd_close(s, s_r)
     check(ok_y, f"{what}: y outside ssd_tolerance (max |diff| {err_y})")
@@ -1271,6 +1298,7 @@ SSD_CASES = [
     (1, 192, 4, 64, 1, 128, 96),
     (1, 256, 4, 64, 1, 128, 256),
     (2, 1024, 2, 64, 2, 128, 256),
+    (1, 512, 256, 64, 8, 128, 256),     # jamba-1.5-large: 256 heads in 8 groups of 32
 ]
 
 
@@ -1288,8 +1316,9 @@ def phase_ssd_small(device) -> None:
         full = (2, 512, 4, 64, 1, 128, 256, dtype)
         worst = max(worst, _ssd_vs_plain(_ssd_inputs(gen, full, device, strong=True), 256,
                                          f"ssd_scan strong decay {full}"))
-    log(f"[ssd_scan] {2 * len(SSD_CASES) + 2} small/ragged/strong-decay cases within "
-        f"ssd_tolerance of the plain version, y and state finite (max |diff| {worst:.3g})")
+    log(f"[ssd_scan] {2 * len(SSD_CASES) + 2} small/ragged/strong-decay cases and jamba's "
+        f"shape within ssd_tolerance of the plain version, y and state finite, each launched "
+        f"twice bit-identical (max |diff| {worst:.3g})")
 
 
 def _tokens_by_request(report) -> dict:
@@ -1308,6 +1337,14 @@ def _device_busy(prof):
             ms, n = by_name.get(e.name(), (0.0, 0))
             by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
     return sum(ms for ms, _ in by_name.values()), by_name
+
+
+def _scale_ulps(a, b) -> float:
+    """max |a - b| in bf16 ulps of max |b| (the ulp of the top binade)."""
+    a, b = a.float(), b.float()
+    top = float(b.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top > 0 else 2.0 ** -133
+    return float((a - b).abs().max()) / ulp
 
 
 def _wave_prefill_vs_plain(decoder, report, device) -> None:
@@ -1349,13 +1386,6 @@ def _wave_prefill_vs_plain(decoder, report, device) -> None:
         toks[lane, plen - len(p):] = p
     tokens = torch.from_numpy(toks).to(device)
 
-    def scale_ulps(a, b):
-        """max |a - b| in bf16 ulps of max |b| (the ulp of the top binade)."""
-        a, b = a.float(), b.float()
-        top = float(b.abs().max())
-        ulp = 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 2.0 ** -133
-        return float((a - b).abs().max()) / ulp
-
     worst_state = worst_out = 0.0
     with torch.no_grad():
         h = embed_tokens(params["embed"], tokens, cfg)
@@ -1365,7 +1395,7 @@ def _wave_prefill_vs_plain(decoder, report, device) -> None:
             out_k, c_k = mamba2.mamba_prefill(p["mamba"], hn, cfg, ssd_impl="cuda")
             out_r, c_r = mamba2.mamba_prefill(p["mamba"], hn, cfg, ssd_impl="ref")
             ok_s, err_s = ref.ssd_close(c_k.ssm, c_r.ssm)
-            err_o = scale_ulps(out_k, out_r)
+            err_o = _scale_ulps(out_k, out_r)
             check(ok_s and err_o <= OUT_ULPS and torch.equal(c_k.conv, c_r.conv),
                   f"wave prefill layer {u}, same input: state {err_s:.3g} (ssd_tolerance), "
                   f"output {err_o:.3g} bf16 ulps at scale (bound {OUT_ULPS}), or conv tails differ")
@@ -1608,6 +1638,7 @@ def _split_one_call(dec, report, device, tag: str, kernel_key: str) -> None:
 
 
 SSD_SLICE = (2 * SERVE_BATCH, 512, 48, 64, 1, 128, 256)   # (B, S, H, P, G, N, chunk)
+SSD_HYBRID = (SERVE_BATCH, 512, 256, 64, 8, 128, 256)     # jamba's served prefill (row 7j)
 # the three launches of a bf16 call, by kernel name (csrc/ssd_scan.cu)
 SSD_PASSES = ("ssd_scan_chunk_state", "ssd_scan_state_pass", "ssd_scan_chunk_scan")
 
@@ -1634,16 +1665,18 @@ def _ssd_bound(B_, S, H, P, G, N, Q):
 def phase_ssd_slice(device, power_note: str) -> dict:
     """``ssd_scan`` at the serving prefill's shape with both replicas
     admitted (mamba2-780m: 48 heads x 64, one group of state 128, S 512 in
-    chunks of 256; the ``kernels`` line's row) and at the served 4 lanes
-    (every prefill call of the serving cell), against its plain version,
+    chunks of 256; the ``kernels`` line's row), at the served 4 lanes
+    (every prefill call of the serving cell) and at jamba-1.5-large's
+    served 4 lanes (256 heads x 64 in 8 groups), against its plain version,
     timed, with its bound; and four launches on one input, bit-identical."""
     import torch
 
     from repro_torch.kernels.ssd_scan import ops
 
     row = None
-    for B_ in (SSD_SLICE[0], SERVE_BATCH):
-        _, S, H, P, G, N, Q = SSD_SLICE
+    shapes = (SSD_SLICE, (SERVE_BATCH,) + SSD_SLICE[1:], SSD_HYBRID)
+    for (B_, S, H, P, G, N, Q), key in zip(shapes, (None, "served_4_lanes",
+                                                    "jamba_served_4_lanes")):
         case = (B_, S, H, P, G, N, Q, torch.bfloat16)
         gen = torch.Generator(device=device).manual_seed(17)
         inputs = _ssd_inputs(gen, case, device)
@@ -1656,7 +1689,9 @@ def phase_ssd_slice(device, power_note: str) -> dict:
         ms = time_ms(lambda: ops.ssd_scan(*inputs, chunk=Q, impl="cuda"), reps=20)
         plain = time_ms(lambda: ops.ssd_scan(*inputs, chunk=Q, impl="ref"), reps=5)
         bound_ms, bound_by, f32_ms, gflop, mb = _ssd_bound(B_, S, H, P, G, N, Q)
-        log(f"[kernels] ssd_scan at the serving prefill shape, {B_} lanes (S {S}, H {H}, "
+        what = "jamba's served prefill shape" if key and key.startswith("jamba") else \
+            "the serving prefill shape"
+        log(f"[kernels] ssd_scan at {what}, {B_} lanes (S {S}, H {H}, "
             f"P {P}, G {G}, N {N}, chunk {Q}, bf16): {ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}; {bound_ms / ms:.1%}; {gflop:.2f} GFLOP at 989 TFLOP/s bf16, "
             f"{mb:.1f} MB at 3.35 TB/s; at the float32 rate {f32_ms:.3f} ms), plain "
@@ -1669,7 +1704,7 @@ def phase_ssd_slice(device, power_note: str) -> dict:
                    "replaces": REPLACES["ssd_scan"], "launches": 0, "library_ms": None,
                    **stats}
         else:
-            row[f"served_{B_}_lanes"] = stats
+            row[key] = stats
     return row
 
 
@@ -1885,12 +1920,6 @@ def _wave_prefill_dense(decoder, report, device) -> None:
     tokens = torch.from_numpy(toks).to(device)
     positions = torch.arange(plen, device=device)[None].expand(SERVE_BATCH, plen)
 
-    def scale_ulps(a, b):
-        a, b = a.float(), b.float()
-        top = float(b.abs().max())
-        ulp = 2.0 ** (np.floor(np.log2(top)) - 7) if top > 0 else 2.0 ** -133
-        return float((a - b).abs().max()) / ulp
-
     def rel(a, b):
         a, b = a.float(), b.float()
         return float((a - b).abs().max() / b.abs().max())
@@ -1922,7 +1951,7 @@ def _wave_prefill_dense(decoder, report, device) -> None:
                                                        max_len, impl="cuda")
                 out_r, kv_r = transformer.attn_prefill(p["attn"], hn, positions, cfg, d,
                                                        max_len, impl="ref")
-                err_o = scale_ulps(out_k, out_r)
+                err_o = _scale_ulps(out_k, out_r)
                 same_kv = torch.equal(kv_k.k, kv_r.k) and torch.equal(kv_k.v, kv_r.v)
                 check(ok_raw and err_o <= OUT_ULPS and same_kv,
                       f"wave prefill layer {2 * u + j}, same input: attention {err_raw:.3g} "
@@ -1963,12 +1992,14 @@ def _device_time_by_kind(by_name: dict, tag: str) -> None:
     """The replay's device time by kind of kernel."""
     index = "index ops (K/V slot writes, embedding rows)"
     routing = "sort, gather, scatter and search ops (MoE routing, dispatch, combine)"
-    kinds = {"attention (fa_prefill/fa_decode)": 0.0, "GEMMs": 0.0, index: 0.0, routing: 0.0,
-             "casts and copies": 0.0, "other": 0.0}
+    kinds = {"attention (fa_prefill/fa_decode)": 0.0, "SSD scan (ssd_scan_*)": 0.0,
+             "GEMMs": 0.0, index: 0.0, routing: 0.0, "casts and copies": 0.0, "other": 0.0}
     for name, (ms, _) in by_name.items():
         low = name.lower()
         if "fa_prefill" in name or "fa_decode" in name:
             kinds["attention (fa_prefill/fa_decode)"] += ms
+        elif "ssd_scan" in name:
+            kinds["SSD scan (ssd_scan_*)"] += ms
         elif any(t in low for t in ("gemm", "xmma", "nvjet", "cutlass", "cublas")):
             kinds["GEMMs"] += ms
         elif any(t in low for t in ("sort", "scatter", "gather", "search", "radix")):
@@ -1982,7 +2013,7 @@ def _device_time_by_kind(by_name: dict, tag: str) -> None:
     log(f"[{tag}] replay device time by kind: " + ", ".join(
         f"{k} {ms:.1f} ms" for k, ms in kinds.items()))
     for name, (ms, n) in sorted(by_name.items()):
-        if "fa_prefill" in name or "fa_decode" in name:
+        if "fa_prefill" in name or "fa_decode" in name or "ssd_scan" in name:
             short = name.replace("(anonymous namespace)::", "").split("(")[0]
             log(f"[{tag}]   {short[-60:]}: {ms:.1f} ms in {n} launches "
                 f"({ms / n * 1e3:.1f} us each)")
@@ -2383,20 +2414,33 @@ MOE_TAG = "moe"
 MOE_PEAK_GIB = 74.0         # the phase fails above this (then cut to 16 layers)
 MOE_BF16_FRAC = 2e-2        # a MoE layer's bf16 output, card vs CPU (tests/test_torch_moe.py)
 MOE_LAYER_S = 512           # the card-vs-CPU layer's tokens: one prefill bucket, B 1
+HYBRID_ARCH = "jamba-1.5-large-398b"
+# jamba-1.5-large cut to one card: n_layers 72 -> 8 (one scan unit: 1 attention
+# and 7 Mamba-2 layers, 4 MoE FFNs) and n_experts 16 -> 4 (top-2 still routes):
+# 15.72 B f32 params, 58.56 GiB; one unit of 16 experts is 44.71 B (166.6 GiB)
+HYBRID_CUT = {"n_layers": 8, "n_experts": 4}
+HYBRID_TAG = "hybrid"
+HYBRID_TICKS = 16           # decode ticks held against the plain versions
 
 
-def _make_moe_decoder(device):
-    """The torch ``ModelDecoder`` of qwen3-moe-30b-a3b at its published
-    widths, depth cut to ``MOE_LAYERS``, random weights from seed 0, its
-    cache sized as the other serving cells'."""
-    from repro_torch.configs import archs
+def _cut_decoder(cfg, device):
+    """``(cfg, the torch ModelDecoder of cfg)`` for the serving workload:
+    random weights from seed 0, its cache sized as the other serving
+    cells'."""
     from repro_torch.launch import serve_constellation as sc
     from repro_torch.serving import ModelDecoder
 
-    cfg = archs.get(MOE_ARCH).replace(n_layers=MOE_LAYERS)
     max_len = ModelDecoder._bucket(SERVE_PROMPT[1]) + SERVE_MAX_NEW + 1
     return cfg, ModelDecoder(cfg, len(sc.REPLICAS), SERVE_BATCH, max_len, seed=0,
                              device=device)
+
+
+def _make_moe_decoder(device):
+    """qwen3-moe-30b-a3b at its published widths, depth cut to
+    ``MOE_LAYERS``, through ``_cut_decoder``."""
+    from repro_torch.configs import archs
+
+    return _cut_decoder(archs.get(MOE_ARCH).replace(n_layers=MOE_LAYERS), device)
 
 
 def _moe_layer_card_vs_cpu(dec, device) -> None:
@@ -3529,17 +3573,11 @@ def phase_whisper(device, power_note: str) -> dict:
 
 
 def _make_vlm_decoder(device):
-    """The torch ``ModelDecoder`` of qwen2-vl-72b at its published widths,
-    depth cut to ``VLM_LAYERS``, random weights from seed 0, its cache sized
-    as the other serving cells'."""
+    """qwen2-vl-72b at its published widths, depth cut to ``VLM_LAYERS``,
+    through ``_cut_decoder``."""
     from repro_torch.configs import archs
-    from repro_torch.launch import serve_constellation as sc
-    from repro_torch.serving import ModelDecoder
 
-    cfg = archs.get(VLM_ARCH).replace(n_layers=VLM_LAYERS)
-    max_len = ModelDecoder._bucket(SERVE_PROMPT[1]) + SERVE_MAX_NEW + 1
-    return cfg, ModelDecoder(cfg, len(sc.REPLICAS), SERVE_BATCH, max_len, seed=0,
-                             device=device)
+    return _cut_decoder(archs.get(VLM_ARCH).replace(n_layers=VLM_LAYERS), device)
 
 
 def grid_positions(B: int, grid: int, text: int, t0: int = 0):
@@ -3659,6 +3697,242 @@ def phase_vlm(device, power_note: str) -> dict:
     return {"flash_attention_fwd": fwd, "flash_attention_decode": dcd}
 
 
+def _make_hybrid_decoder(device):
+    """jamba-1.5-large-398b at its published widths, cut by ``HYBRID_CUT``,
+    through ``_cut_decoder``."""
+    import dataclasses
+
+    from repro_torch.configs import archs
+
+    cfg = archs.get(HYBRID_ARCH)
+    return _cut_decoder(cfg.replace(
+        n_layers=HYBRID_CUT["n_layers"],
+        moe=dataclasses.replace(cfg.moe, n_experts=HYBRID_CUT["n_experts"])), device)
+
+
+def _wave_prefill_hybrid(dec, report, device) -> None:
+    """One wave (the first four requests' prompts, left-padded to their
+    bucket) through the kernels and through their plain versions:
+
+    - layer by layer, both fed the same input: the attention layer's raw
+      attention within ``fa_tolerance``, its K/V cache entries
+      bit-identical; each Mamba-2 layer's SSM state within
+      ``ssd_tolerance`` and its conv tail equal; every mixer output within
+      ``OUT_ULPS`` bf16 ulps of its largest magnitude (the mamba2 and
+      gemma2 phases' bound). The FFNs (MoE or dense) take no kernel and run
+      once on the plain path's output;
+    - the whole prefill and ``HYBRID_TICKS`` decode ticks (fed the kernel
+      path's greedy tokens): the logits within ``SERVE_SPREAD`` times the
+      plain path's own spread, i.e. its difference from the same plain path
+      with the scan chunked at 128 instead of 256 and attention's p rounded
+      to bf16 before the PV product at prefill and decode (the reference's
+      prefill attention; mathematically the same model, rounded in another
+      order). Later layers carry and amplify a layer's rounding
+      differences, and a token whose near-tied top-2 routing or capacity
+      drop flips moves its logits, so a bound in ulps does not apply."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.models import mamba2, transformer
+    from repro_torch.models.layers import embed_tokens, rmsnorm
+    from repro_torch.pytree import tree_map
+
+    cfg, params, max_len = dec.cfg, dec.params, dec.max_len
+    prompts = [r.prompt for r in sorted(report.requests, key=lambda r: r.rid)[:SERVE_BATCH]]
+    plen = dec._bucket(max(len(p) for p in prompts))
+    toks = np.zeros((SERVE_BATCH, plen), np.int64)
+    for lane, p in enumerate(prompts):
+        toks[lane, plen - len(p):] = p
+    tokens = torch.from_numpy(toks).to(device)
+    positions = torch.arange(plen, device=device)[None].expand(SERVE_BATCH, plen)
+    worst = {"attention": 0.0, "state": 0.0, "attn out": 0.0, "mamba out": 0.0}
+    with torch.no_grad():
+        h = embed_tokens(params["embed"], tokens, cfg)
+        for u in range(transformer.n_units(cfg)):
+            unit_p = tree_map(lambda t: t[u], params["units"])
+            for j, d in enumerate(transformer.scan_unit(cfg)):
+                p = unit_p[f"L{j}"]
+                hn = rmsnorm(h, p["ln"], cfg.norm_eps)
+                if d.mixer == "attn":
+                    q, k, v = transformer._qkv(p["attn"], hn, cfg)
+                    q, k = transformer._rope_qk(q, k, positions, cfg)
+                    spec = transformer._attn_spec(cfg, d)
+                    kw = dict(causal=spec.causal, window=spec.window, softcap=spec.softcap)
+                    ok_raw, err_raw = fa_ref.fa_close(
+                        fa_ops.flash_attention(q, k, v, impl="cuda", **kw),
+                        fa_ops.flash_attention(q, k, v, impl="ref", **kw))
+                    out_k, kv_k = transformer.attn_prefill(p["attn"], hn, positions, cfg, d,
+                                                           max_len, impl="cuda")
+                    out_r, kv_r = transformer.attn_prefill(p["attn"], hn, positions, cfg, d,
+                                                           max_len, impl="ref")
+                    err_o = _scale_ulps(out_k, out_r)
+                    check(ok_raw and err_o <= OUT_ULPS and torch.equal(kv_k.k, kv_r.k)
+                          and torch.equal(kv_k.v, kv_r.v),
+                          f"hybrid wave prefill layer {j}, same input: attention {err_raw:.3g}"
+                          f" (fa_tolerance), output {err_o:.3g} bf16 ulps at scale (bound "
+                          f"{OUT_ULPS}), or K/V cache entries differ")
+                    worst["attention"] = max(worst["attention"], err_raw)
+                    worst["attn out"] = max(worst["attn out"], err_o)
+                else:
+                    out_k, c_k = mamba2.mamba_prefill(p["mamba"], hn, cfg, ssd_impl="cuda")
+                    out_r, c_r = mamba2.mamba_prefill(p["mamba"], hn, cfg, ssd_impl="ref")
+                    ok_s, err_s = ssd_ref.ssd_close(c_k.ssm, c_r.ssm)
+                    err_o = _scale_ulps(out_k, out_r)
+                    check(ok_s and err_o <= OUT_ULPS and torch.equal(c_k.conv, c_r.conv),
+                          f"hybrid wave prefill layer {j}, same input: state {err_s:.3g} "
+                          f"(ssd_tolerance), output {err_o:.3g} bf16 ulps at scale (bound "
+                          f"{OUT_ULPS}), or conv tails differ")
+                    worst["state"] = max(worst["state"], err_s)
+                    worst["mamba out"] = max(worst["mamba out"], err_o)
+                h = h + out_r
+                h = h + transformer._ffn(p, h, cfg, d)[0]
+        del h, hn, out_k, out_r
+
+        def run(impl, chunk, forced=None):
+            c = cfg.replace(mamba=dataclasses.replace(cfg.mamba, chunk=chunk))
+            logits, cache = transformer.prefill(params, tokens, c, max_len, impl=impl)
+            outs, fed = [logits], []
+            for t in range(HYBRID_TICKS):
+                fed.append(forced[t] if forced else outs[-1][:, -1].argmax(-1)[:, None])
+                logits, cache = transformer.decode_step(params, cache, fed[-1], c, impl=impl)
+                outs.append(logits)
+            return outs, fed
+
+        kern, fed = run("cuda", cfg.mamba.chunk)
+        plain, _ = run("ref", cfg.mamba.chunk, fed)
+        attention_ref = fa_ref.attention_ref
+        fa_ref.attention_ref = lambda *a, **kw: attention_ref(*a, **kw, p_dtype=torch.bfloat16)
+        try:
+            plain2, _ = run("ref", cfg.mamba.chunk // 2, fed)
+        finally:
+            fa_ref.attention_ref = attention_ref
+    check(all(bool(torch.isfinite(t).all()) for t in kern + plain + plain2),
+          "hybrid wave: non-finite logits")
+    k_pre, s_pre = _rel(kern[0], plain[0]), _rel(plain2[0], plain[0])
+    k_tick = max(_rel(a, b) for a, b in zip(kern[1:], plain[1:]))
+    s_tick = max(_rel(a, b) for a, b in zip(plain2[1:], plain[1:]))
+    same = sum(bool((a[:, -1].argmax(-1) == b[:, -1].argmax(-1)).all())
+               for a, b in zip(kern, plain))
+    log(f"[{HYBRID_TAG}] wave prefill (4 lanes, bucket {plen}), kernels vs plain versions: "
+        f"layer by layer on the same input, attention max |diff| {worst['attention']:.3g} "
+        f"(fa_tolerance) and its output {worst['attn out']:.3g} bf16 ulps at scale, SSM states "
+        f"max |diff| {worst['state']:.3g} (ssd_tolerance) and Mamba outputs up to "
+        f"{worst['mamba out']:.3g} bf16 ulps (bound {OUT_ULPS}), K/V and conv tails equal; "
+        f"whole prefill last-token logits {k_pre:.3g} of their scale and {HYBRID_TICKS} ticks "
+        f"up to {k_tick:.3g}, against the plain path's own spread (chunk "
+        f"{cfg.mamba.chunk // 2} vs {cfg.mamba.chunk}, p in bf16) of {s_pre:.3g} and "
+        f"{s_tick:.3g} (bound "
+        f"{SERVE_SPREAD}x); greedy tokens equal in {same} of {len(kern)} calls")
+    check(k_pre <= SERVE_SPREAD * s_pre and k_tick <= SERVE_SPREAD * s_tick,
+          f"hybrid wave, kernels vs plain: prefill {k_pre:.3g}, ticks {k_tick:.3g} of the "
+          f"logits' scale, beyond {SERVE_SPREAD}x the plain path's spread ({s_pre:.3g}, "
+          f"{s_tick:.3g})")
+
+
+def phase_hybrid(device, power_note: str) -> dict:
+    """Slice 13, the hybrid family: jamba-1.5-large-398b at its published
+    widths cut by ``HYBRID_CUT`` (one unit, 4 experts), through
+    ``serve_constellation``'s entry points with the ``ModelDecoder`` built
+    directly, the launch counters zeroed just before and read just after and
+    the MoE drops tallied; one wave's prefill and ticks against the plain
+    versions; a replay on a fresh decoder under the profiler,
+    bit-identical. Returns the launches of the serving run."""
+    import gc
+
+    import torch
+
+    from repro_torch.models import moe, transformer
+    from repro_torch.pytree import tree_leaves
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    cfg, dec = _make_hybrid_decoder(device)
+    torch.cuda.synchronize(device)
+    init_peak = torch.cuda.max_memory_allocated(device)
+    n_params = sum(t.numel() for t in tree_leaves(dec.params))
+    cache_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(dec._cache))
+    m, mb = cfg.moe, cfg.mamba
+    descs = transformer.scan_unit(cfg)
+    n_mamba = sum(d.mixer == "mamba" for d in descs) * transformer.n_units(cfg)
+    n_attn = cfg.n_layers - n_mamba
+    log(f"[{HYBRID_TAG}] {cfg.name}: {cfg.n_layers} of 72 layers ({n_attn} attention, "
+        f"{n_mamba} Mamba-2; FFNs {[d.ffn for d in descs]}), d_model {cfg.d_model}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads x {cfg.head_dim}, d_ff {cfg.d_ff}, Mamba "
+        f"{mb.n_heads(cfg.d_model)} heads x {mb.head_dim} in {mb.n_groups} groups, d_state "
+        f"{mb.d_state}, chunk {mb.chunk}; {m.n_experts} of 16 experts top-{m.top_k}, capacity "
+        f"factor {m.capacity_factor}, vocab {cfg.vocab_size} (tied); params {n_params:,} f32 "
+        f"({n_params * 4 / 2**30:.2f} GiB, seed 0), caches {cache_bytes / 1e6:.1f} MB for 2 "
+        f"replicas (max_len {dec.max_len}); {cfg.compute_dtype} compute; decoder built in "
+        f"{time.perf_counter() - t0:.1f} s, peak {_gib(init_peak)} GiB while building")
+    check(n_params == cfg.param_count() and n_mamba == 7 and n_attn == 1
+          and m.n_experts == HYBRID_CUT["n_experts"] and m.top_k == 2,
+          f"{cfg.name}: {n_params} params, {n_mamba} Mamba layers, {m.n_experts} experts")
+    torch.cuda.reset_peak_memory_stats(device)
+    with moe.count_drops() as tally:
+        res, rec, counts, model_s = _run_serving(dec, cfg, device, HYBRID_TAG)
+    drops = {kind: torch.stack(calls).sum(0).tolist() for kind, calls in tally.items()}
+    del tally
+    peak = max(init_peak, torch.cuda.max_memory_allocated(device))
+    prefill_calls = int(rec.get_counter("serve.prefill.calls"))
+    ticks = sum(1 for sp in rec.spans if sp.name == "serve.decode")
+    ssd, fwd, dcd = (counts[k] for k in ("ssd_scan", "flash_attention_fwd",
+                                         "flash_attention_decode"))
+    check(prefill_calls > 0 and ssd == n_mamba * prefill_calls,
+          f"ssd_scan launched {ssd} times for {prefill_calls} prefill calls")
+    check(fwd == n_attn * prefill_calls,
+          f"flash_attention_fwd launched {fwd} times for {prefill_calls} prefill calls")
+    check(ticks > 0 and dcd == n_attn * ticks,
+          f"flash_attention_decode launched {dcd} times for {ticks} decode ticks")
+    check(counts["flash_attention_fwd_wgmma"] == fwd,
+          f"{counts['flash_attention_fwd_wgmma']} of {fwd} prefill launches on tensor cores")
+    others = {k: v for k, v in counts.items()
+              if not k.startswith("flash_attention") and k != "ssd_scan" and v}
+    check(not others and counts["flash_attention_bwd"] == 0,
+          f"other kernels on the hybrid serving path: {others}")
+    check(peak <= MOE_PEAK_GIB * 2 ** 30,
+          f"peak {_gib(peak)} GiB above {MOE_PEAK_GIB} GiB: find the transient, or cut to 3 "
+          "experts")
+    summ = res.report.summary()
+    log(f"[{HYBRID_TAG}] {summ['delivered']}/{summ['n_requests']} delivered x "
+        f"{SERVE_MAX_NEW} tokens, audit OK ({res.verdict.n_hops} hops), {summ['retries']} "
+        f"retries; ssd_scan launches {ssd} = {n_mamba} x {prefill_calls} prefill calls, "
+        f"flash_attention_fwd {fwd} = {n_attn} x {prefill_calls} (all on the tensor-core "
+        f"kernel), flash_attention_decode {dcd} = {n_attn} x {ticks} ticks; peak {_gib(peak)} "
+        f"GiB (bound {MOE_PEAK_GIB})")
+    for kind, (seen, dropped) in sorted(drops.items()):
+        log(f"[{HYBRID_TAG}] {kind}: {dropped} of {seen} routed assignments dropped over "
+            f"capacity ({dropped / seen:.2%}), all {cfg.n_layers // 2} MoE layers of "
+            f"{prefill_calls if kind == 'prefill' else ticks} calls")
+    check(set(drops) == {"prefill", "decode"}, f"drops tallied for {sorted(drops)}")
+    _wave_prefill_hybrid(dec, res.report, device)
+
+    tokens = _tokens_by_request(res.report)
+    del dec, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(device)
+    check(left < 2**30, f"{_gib(left)} GiB still allocated after the first decoder")
+    torch.cuda.reset_peak_memory_stats(device)
+    dec2, res2, by_name = _profiled_replay(lambda: _make_hybrid_decoder(device), cfg, device,
+                                           tokens, model_s, HYBRID_TAG)
+    log(f"[{HYBRID_TAG}] replay peak {_gib(torch.cuda.max_memory_allocated(device))} GiB")
+    _device_time_by_kind(by_name, HYBRID_TAG)
+    _split_one_call(dec2, res2.report, device, HYBRID_TAG, "ssd_scan")
+    del dec2, res2
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{HYBRID_TAG}] phase {time.perf_counter() - t_phase:.1f} s  [{power_note}]")
+    return {"ssd_scan": ssd, "flash_attention_fwd": fwd, "flash_attention_decode": dcd}
+
+
 def main() -> int:
     try:
         import torch
@@ -3703,6 +3977,8 @@ def main() -> int:
     mark("whisper-base, generation and training")
     vlm_launches = phase_vlm(device, dev["card"])
     mark("serving, qwen2-vl-72b")
+    hybrid_launches = phase_hybrid(device, dev["card"])
+    mark("serving, jamba-1.5-large-398b")
     launches, buf, k_b = phase_slice(device)
     mark("slice 1")
     gs_launches = phase_groundseg(device)
@@ -3718,12 +3994,12 @@ def main() -> int:
     train_launches, bwd_row = phase_dense_train(device, dev["card"])
     mark("slice 9, dense training")
     ssd_row = phase_ssd_slice(device, dev["card"])
-    ssd_row["launches"] = serve_launches["ssd_scan"]
+    ssd_row["launches"] = serve_launches["ssd_scan"] + hybrid_launches["ssd_scan"]
     kernels.append(ssd_row)
     for row in phase_fa_slice(device, dev["card"]):
         row["launches"] = (dense_launches[row["name"]] + moe_launches[row["name"]]
                            + train_launches[row["name"]] + whisper_launches[row["name"]]
-                           + vlm_launches[row["name"]])
+                           + vlm_launches[row["name"]] + hybrid_launches[row["name"]])
         kernels.append(row)
     bwd_row["launches"] = (train_launches["flash_attention_bwd"]
                            + whisper_launches["flash_attention_bwd"])

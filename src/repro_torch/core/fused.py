@@ -144,6 +144,23 @@ def cached_spec(params: Any, block: int = DEFAULT_BLOCK) -> FlatSpec:
     return spec
 
 
+def spec_cache_stats() -> Dict[str, int]:
+    """Hit and miss counts of the active recorder's run scope, and the
+    size of the process-wide layout cache."""
+    rec = telemetry.get_recorder()
+    return {
+        "hits": int(rec.get_counter(f"{SPEC_CACHE_COUNTER}.hits")),
+        "misses": int(rec.get_counter(f"{SPEC_CACHE_COUNTER}.misses")),
+        "size": len(_SPEC_CACHE),
+    }
+
+
+def clear_spec_cache() -> None:
+    """Empty the layout cache and drop its counters from the active recorder."""
+    _SPEC_CACHE.clear()
+    telemetry.get_recorder().pop_counters(SPEC_CACHE_COUNTER)
+
+
 def flatten_pytree(spec: FlatSpec, params: Any) -> Dict[str, torch.Tensor]:
     """Stacked pytree -> {dtype name: (n, padded) buffer}."""
     leaves, treedef = tree_flatten(params)

@@ -31,6 +31,15 @@ def quantize_scaled(x, scales, *, block: int = 1024, impl: str = "auto"):
     return kernel.quantize_scaled_fwd(x, scales, block=block)
 
 
+def quantize_payload(x, *, block: int = 1024, impl: str = "auto"):
+    """Any-shaped tensor -> (int8 payload, blockwise scales, its shape). The
+    payload holds exactly ``x.numel()`` codes (``quantize`` pads to the
+    block boundary inside)."""
+    shape = tuple(x.shape)
+    q, s = quantize(x.reshape(-1).to(torch.float32), block=block, impl=impl)
+    return q, s, shape
+
+
 def dequantize(q, scales, *, block: int = 1024, impl: str = "auto"):
     if use_ref(q, impl):
         return ref.dequantize_ref(q, scales, block=block)

@@ -17,8 +17,10 @@ Counterpart of the numpy part of the JAX package's ``launch/elastic.py``
    one regaining visibility is re-admitted after ``grace_slots`` of
    continuous visibility.
 
-The reference's ``restore_for_mesh`` (elastic reshard-on-restore of a
-checkpoint) waits for the port of ``checkpoint/`` (ROADMAP queue 1).
+4. **Elastic restart** -- :func:`restore_for_mesh` restores the latest
+   checkpoint into the trainer's state. The reference reshards it onto a
+   mesh of any size; on one card "for mesh" is placement onto a device.
+   Anything across cards waits for more than one card.
 """
 
 from __future__ import annotations
@@ -29,7 +31,12 @@ from typing import Dict, Iterable, Optional, Set
 
 import numpy as np
 
+from repro_torch.checkpoint import checkpoint as ckpt_lib
 from repro_torch.core.schedule import TDMSchedule
+from repro_torch.device import resolve_device
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models.config import ModelConfig
+from repro_torch.optim import adamw
 
 
 @dataclasses.dataclass
@@ -126,3 +133,15 @@ class ReplicaMembership:
                 self._streak[r] = 0
         self._active |= admitted
         return MembershipDelta(drained=drained, admitted=frozenset(admitted))
+
+
+def restore_for_mesh(ckpt_dir: str, cfg: ModelConfig, opt_cfg: adamw.OptConfig,
+                     device=None, step: Optional[int] = None):
+    """Elastic restart: ``(step, state)``, the checkpoint at ``step`` (the
+    latest by default) restored into the train state that
+    :func:`~repro_torch.launch.steps.init_state` builds for ``cfg`` /
+    ``opt_cfg`` (its structure and dtypes), on ``device`` (the card unless
+    asked otherwise)."""
+    target = steps_lib.state_target(cfg, opt_cfg)
+    return ckpt_lib.restore(ckpt_dir, step=step, target=target,
+                            device=resolve_device(device))

@@ -11,8 +11,11 @@ links, use :mod:`repro_torch.launch.serve_constellation`.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
         [--smoke] --requests 6 --max-new 12 [--device cuda|cpu]
 
-``--arch`` takes the ssm, dense and moe configs (mamba2-780m, gemma2-9b,
-qwen3-moe-30b-a3b, ...).
+``--arch`` takes every decoder-only config: ssm, dense, moe and hybrid
+(mamba2-780m, gemma2-9b, qwen3-moe-30b-a3b, jamba-1.5-large-398b, ...).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch jamba-1.5-large-398b --smoke --device cpu
 """
 
 from __future__ import annotations
@@ -88,7 +91,9 @@ class BatchedServer:
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", required=True)
+    p.add_argument("--arch", required=True,
+                   help="a decoder-only config of configs/archs.py: ssm, dense, moe or "
+                        "hybrid (e.g. jamba-1.5-large-398b)")
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--requests", type=int, default=4)
     p.add_argument("--batch", type=int, default=4)

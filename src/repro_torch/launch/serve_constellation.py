@@ -11,14 +11,18 @@ requests). The run exits non-zero on a lost request or an audit violation.
 
 The default decoder is the deterministic ``NullDecoder``. ``--model``
 decodes with the real ``ModelDecoder`` on ``--arch`` (default gemma2-9b, the
-reference example's model; mamba2-780m, the other dense configs and the MoE
-configs qwen3-moe-30b-a3b and kimi-k2-1t-a32b work as well) at its published config, or its smoke config with ``--smoke`` (the
-reference example's choice), with random weights from seed 0. Prompts are
+reference example's model; every decoder-only config works: mamba2-780m,
+the other dense configs, the MoE configs qwen3-moe-30b-a3b and
+kimi-k2-1t-a32b, and the hybrid jamba-1.5-large-398b) at its published
+config, or its smoke config with ``--smoke`` (the reference example's
+choice), with random weights from seed 0. Prompts are
 drawn over the model's vocabulary. ``run`` takes the batch, the prompt
 lengths and the number of new tokens for callers that serve other workloads.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_constellation \\
         [--model [--arch gemma2-9b] [--smoke] [--device cuda|cpu]] [--requests 10]
+    PYTHONPATH=src python -m repro_torch.launch.serve_constellation \\
+        --device cpu --model --smoke --arch jamba-1.5-large-398b
 """
 
 from __future__ import annotations
@@ -137,7 +141,10 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeRun:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", action="store_true",
                    help="decode with the real ModelDecoder (default: NullDecoder)")
-    p.add_argument("--arch", default="gemma2-9b")
+    p.add_argument("--arch", default="gemma2-9b",
+                   help="a decoder-only config of configs/archs.py for --model: ssm, dense, "
+                        "moe or hybrid (e.g. mamba2-780m, qwen3-moe-30b-a3b, "
+                        "jamba-1.5-large-398b)")
     p.add_argument("--smoke", action="store_true",
                    help="the arch's smoke config (default: its published config)")
     p.add_argument("--device", default=None,

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 import torch
+from torch.overrides import TorchFunctionMode
 
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
@@ -29,6 +30,26 @@ def init_state(seed: int, cfg: ModelConfig, opt_cfg: adamw.OptConfig, device=Non
     opt = adamw.init_opt_state(params, opt_cfg)
     return {"params": params, "opt": opt, "step": torch.zeros((), dtype=torch.int32,
                                                               device=dev)}
+
+
+class _OnMeta(TorchFunctionMode):
+    """Every tensor a call makes lands on the meta device, whatever device
+    it names: shapes and dtypes without memory (draws on meta tensors are
+    no-ops)."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if "device" in kwargs:
+            kwargs = {**kwargs, "device": torch.device("meta")}
+        return func(*args, **kwargs)
+
+
+def state_target(cfg: ModelConfig, opt_cfg: adamw.OptConfig):
+    """:func:`init_state`'s tree as meta tensors: its structure, shapes and
+    dtypes, with no memory taken and nothing drawn (the reference's
+    ``state_specs``). A restore's target."""
+    with _OnMeta():
+        return init_state(0, cfg, opt_cfg, "cpu")
 
 
 def build_train_step(cfg: ModelConfig, opt_cfg: adamw.OptConfig,

@@ -1,9 +1,10 @@
 """End-to-end training driver on one card.
 
-Counterpart of the JAX package's ``launch/train.py``: any ported arch (full
-or smoke config), global-batch training with checkpoint/restart, the same
-flags, plus ``--device`` (the card by default; ``cpu`` on request, the
-kernels' plain versions). There is one card, so no mesh.
+Counterpart of the JAX package's ``launch/train.py``: any arch of the
+configs (full or smoke config; every family is ported), global-batch
+training with checkpoint/restart, the same flags, plus ``--device`` (the
+card by default; ``cpu`` on request, the kernels' plain versions). There is
+one card, so no mesh.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma2-9b --smoke \\
@@ -31,7 +32,9 @@ from repro_torch.optim import adamw
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", required=True)
+    p.add_argument("--arch", required=True,
+                   help="any config of configs/archs.py (every family: ssm, dense, moe, "
+                        "hybrid, encoder-decoder)")
     p.add_argument("--smoke", action="store_true", help="reduced config")
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--batch", type=int, default=8)

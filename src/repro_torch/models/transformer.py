@@ -1,6 +1,7 @@
-"""The LM decoder stack, ssm (mamba2), dense (gemma2, granite, qwen2,
-qwen2-vl), moe (qwen3-moe, kimi-k2) and encoder-decoder (whisper)
-families: init, prefill and decode, training forward and loss.
+"""The LM decoder stack, every family of the configs: ssm (mamba2), dense
+(gemma2, granite, qwen2, qwen2-vl), moe (qwen3-moe, kimi-k2), hybrid
+(jamba) and encoder-decoder (whisper): init, prefill and decode, training
+forward and loss.
 
 Counterpart of the JAX package's ``models/transformer.py``. A config is
 compiled to a list of :class:`LayerDesc` per *scan unit*:
@@ -10,11 +11,15 @@ compiled to a list of :class:`LayerDesc` per *scan unit*:
 - gemma2:                          unit = [attn(local)+mlp,
                                            attn(global)+mlp],    L/2 units
 - moe (qwen3-moe/kimi-k2):         unit = [attn+moe],            L units
+- hybrid (jamba):                  unit = [attn+mlp, (mamba+moe, mamba+mlp)
+                                           alternating x7],      L/8 units
 - whisper decoder:                 unit = [attn+cross+mlp],      L units
 
-The hybrid family (jamba) raises ``NotImplementedError``. Units are stacked
-on a leading layer axis as in the reference (its ``lax.scan`` layout), and
-the forward loops over them.
+Units are stacked on a leading layer axis as in the reference (its
+``lax.scan`` layout), and the forward loops over them. The hybrid unit is
+the reference's as it computes it: Mamba-2 layers, rope on the attention
+layer, every attention layer windowed under ``force_local`` (jamba's
+long-context serving config).
 
 Encoder-decoder (whisper): :func:`encoder_forward` runs the bidirectional
 encoder over the stub frame embeddings ``enc_embeds`` (B, F, D) (rope at
@@ -97,19 +102,15 @@ class LayerDesc:
     cross: bool = False         # cross-attention (whisper decoder)
 
 
-def _unported(cfg: ModelConfig):
-    return NotImplementedError(
-        f"model family {cfg.family!r} ({cfg.name}) is not ported yet; the port covers "
-        "the ssm, dense, moe and encoder-decoder families (ROADMAP queue 1, model zoo)"
-    )
-
-
 def scan_unit(cfg: ModelConfig) -> List[LayerDesc]:
     """The per-unit layer pattern for this config (see module docstring)."""
     if cfg.family == "ssm":
         return [LayerDesc("mamba", ffn=None if cfg.no_ffn else "dense")]
     if cfg.family == "hybrid":
-        raise _unported(cfg)
+        return [LayerDesc("attn" if j == 0 else "mamba",
+                          local=cfg.layer_is_local(j) or cfg.force_local,
+                          ffn="moe" if cfg.ffn_is_moe(j) else "dense")
+                for j in range(cfg.attn_every)]
     if cfg.local_global_alternate:
         return [LayerDesc("attn", local=True, ffn="moe" if cfg.ffn_is_moe(0) else "dense"),
                 LayerDesc("attn", local=False, ffn="moe" if cfg.ffn_is_moe(1) else "dense")]
@@ -248,16 +249,22 @@ def init_unit(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
     """Random params on ``gen``'s device; units stacked on a layer axis.
-    Each unit is drawn and copied into the stacked tensors at once, so the
-    peak is one copy of the params plus one unit."""
+    With one unit the drawn unit becomes the stack as views (nothing is
+    copied, so the params are held once). With several, each unit is drawn
+    and copied into its slot of the stacked tensors at once, so the peak is
+    one copy of the params plus one unit. The draws are in unit order
+    either way."""
     params: Params = {"embed": init_embedding(gen, cfg)}
     U = n_units(cfg)
     first = init_unit(gen, cfg)
-    units = tree_map(lambda t: t.new_empty((U,) + tuple(t.shape)), first)
-    for u in range(U):
-        one = first if u == 0 else init_unit(gen, cfg)
-        tree_map(lambda dst, src: dst[u].copy_(src), units, one)
-        del one
+    if U == 1:
+        units = tree_map(lambda t: t.unsqueeze(0), first)
+    else:
+        units = tree_map(lambda t: t.new_empty((U,) + tuple(t.shape)), first)
+        for u in range(U):
+            one = first if u == 0 else init_unit(gen, cfg)
+            tree_map(lambda dst, src: dst[u].copy_(src), units, one)
+            del one
     del first
     params["units"] = units
     params["final_ln"] = init_rmsnorm(cfg.d_model, dtype_of(cfg.param_dtype), gen.device)

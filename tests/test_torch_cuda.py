@@ -306,7 +306,8 @@ def test_fl_round_through_kernels(device, compression):
 
 
 # (B, S, H, P, G, N, chunk): chunks 8 to 256 (96: a ragged last tile), 1 to 4
-# chunks, groups 1, 2 and 4, head dims 16 to 64, states 32 to 128
+# chunks, groups 1, 2, 4 and 8, head dims 16 to 64, states 32 to 128; each
+# case launched twice, bit-identical
 SSD_CASES = [
     (2, 8, 4, 64, 1, 128, 8),
     (3, 32, 4, 64, 2, 128, 8),
@@ -315,6 +316,7 @@ SSD_CASES = [
     (2, 192, 4, 32, 2, 64, 64),
     (1, 192, 4, 64, 1, 128, 96),
     (2, 1024, 2, 64, 2, 128, 256),
+    (1, 512, 256, 64, 8, 128, 256),     # jamba-1.5-large: 256 heads in 8 groups of 32
 ]
 
 
@@ -340,6 +342,8 @@ def _ssd_check(inputs, chunk):
     before = kern.launch_counts()["ssd_scan"]
     y, s = ops.ssd_scan(*inputs, chunk=chunk)
     assert kern.launch_counts()["ssd_scan"] == before + 1   # CUDA tensors: the kernel
+    again = ops.ssd_scan(*inputs, chunk=chunk)
+    assert _bits(y, again[0]) and _bits(s, again[1])        # a second launch, bit for bit
     y_r, s_r = ops.ssd_scan(*inputs, chunk=chunk, impl="ref")
     torch.cuda.synchronize()
     assert y.dtype == inputs[0].dtype and s.dtype == torch.float32

@@ -237,11 +237,17 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_families_raise():
-    """The hybrid family (jamba) is not ported yet; the MoE family and the
-    encoder-decoder family (whisper: one attention layer with
-    cross-attention per unit) are."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        transformer.scan_unit(archs.get("jamba-1.5-large-398b"))
+    """No family raises any more (the name is kept from when the hybrid
+    one did): the hybrid (jamba: 8 layers a unit, the reference's
+    ``(mixer, ffn)`` pairs), the MoE family and the encoder-decoder family
+    (whisper: one attention layer with cross-attention per unit) all have
+    their unit."""
+    jamba = archs.get("jamba-1.5-large-398b")
+    pairs = [(d.mixer, d.ffn) for d in transformer.scan_unit(jamba)]
+    assert pairs == [(d.mixer, d.ffn) for d in j_transformer.scan_unit(j_archs.get(jamba.name))]
+    assert pairs == [("attn", "dense")] + [("mamba", "moe" if j % 2 else "dense")
+                                           for j in range(1, 8)]
+    assert transformer.n_units(jamba) == 9
     assert [d.ffn for d in transformer.scan_unit(archs.get("qwen3-moe-30b-a3b"))] == ["moe"]
     assert [(d.mixer, d.cross) for d in transformer.scan_unit(archs.get("whisper-base"))] == \
         [("attn", True)]

@@ -29,7 +29,9 @@ with ``weights.params_from_jax``); the reference runs in this process.
   both aux losses) with respect to x, the router and the three expert
   weights, against ``jax.grad``, float32: within 1e-5 of each gradient's
   largest magnitude, at a binding capacity.
-- The qwen3-moe-30b-a3b and kimi-k2-1t-a32b smoke configs: ``loss_fn``
+- The qwen3-moe-30b-a3b, kimi-k2-1t-a32b and jamba-1.5-large-398b (the
+  hybrid: attention and Mamba-2 layers, MoE on every second one) smoke
+  configs: ``loss_fn``
   (total, ``ce_loss``, ``moe_aux``, ``moe_zloss``) within rtol 2e-5 and every
   gradient within 1e-4 of its largest magnitude (float32 compute; kimi's
   bf16 params give bf16 gradients, each held to 1e-2 of its scale: one bf16
@@ -64,7 +66,7 @@ from repro_torch.optim import adamw
 from repro_torch.pytree import tree_leaves
 from repro_torch.weights import params_from_jax, state_from_jax
 
-ARCHS = ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b")
+ARCHS = ("qwen3-moe-30b-a3b", "kimi-k2-1t-a32b", "jamba-1.5-large-398b")
 
 
 def _cfgs(arch="qwen3-moe-30b-a3b", experts=None, top_k=None, cf=None, **kw):
@@ -304,8 +306,10 @@ def _compare_grads(got, want, what):
     _scale_close(got.grad, want, frac, what)
 
 
-@pytest.mark.parametrize("cf", [None, 0.5])
-@pytest.mark.parametrize("arch", ARCHS)
+# jamba (16 layers) at the binding capacity only: its reference gradient
+# takes ~25 s to build on a CPU
+@pytest.mark.parametrize("arch,cf", [(a, cf) for a in ARCHS for cf in (None, 0.5)
+                                     if a != "jamba-1.5-large-398b" or cf is not None])
 def test_moe_loss_and_grads_match_reference(arch, cf):
     jcfg, tcfg = _cfgs(arch, cf=cf, compute_dtype="float32")
     params, _ = j_registry.bundle(jcfg).init(jax.random.PRNGKey(1))
@@ -343,6 +347,16 @@ def test_moe_train_step_matches_reference(arch):
     from the same state and batch. kimi-k2 keeps its published bf16 params
     and int8 moments."""
     jcfg, tcfg = _cfgs(arch, cf=0.5, compute_dtype="float32")
+    # AdamW's first step normalises each gradient entry, so an entry whose
+    # gradient lies within the summation noise (1e-4 of its scale) moves by
+    # ~1e-6 or more either way. qwen3-moe and kimi-k2 (2 layers): at most
+    # 1e-4 of each leaf's entries + 2 past 1e-6. jamba (16 layers, the
+    # Mamba layers' scans): such entries reach 13 of a 4096-entry leaf, so
+    # its bound is on the whole tree: at most 1e-3 of all entries past 1e-6
+    # (measured 4.4e-4, the largest move 2.2e-4); its moments at its
+    # gradients' bound
+    hybrid = arch == "jamba-1.5-large-398b"
+    moved = []
     opt_dtype = "int8" if arch == "kimi-k2-1t-a32b" else "float32"
     assert tcfg.opt_dtype == opt_dtype
     j_opt = j_adamw.OptConfig(peak_lr=3e-3, warmup_steps=1, decay_steps=10, dtype=opt_dtype)
@@ -367,7 +381,11 @@ def test_moe_train_step_matches_reference(arch):
             assert (np.abs(got - want) <= _bf16_ulp(want)).all(), what
         else:
             assert float(np.abs(got - want).max()) <= 3e-3, what
-            assert int((np.abs(got - want) > 1e-6).sum()) <= 1e-4 * got.size + 2, what
+            n = int((np.abs(got - want) > 1e-6).sum())
+            moved.append((n, got.size))
+            assert hybrid or n <= 1e-4 * got.size + 2, what
+    if hybrid:
+        assert sum(n for n, _ in moved) <= 1e-3 * sum(size for _, size in moved)
     for part in ("mu", "nu"):
         jleaves = jax.tree_util.tree_leaves(
             jstate["opt"][part], is_leaf=lambda t: isinstance(t, j_adamw.QTensor))
@@ -381,7 +399,9 @@ def test_moe_train_step_matches_reference(arch):
                 np.testing.assert_allclose(_f32(adamw._load(got)), w, rtol=0,
                                            atol=float(step.max()) * 1.01 + 1e-30)
             else:
-                _scale_close(got, want, 1e-5, part)
+                # jamba: its gradients' bound, 1e-4 of the scale (mu is 0.1 x the
+                # gradient; 1.14e-5 on one entry of a 64-entry leaf, measured)
+                _scale_close(got, want, 1e-4 if hybrid else 1e-5, part)
 
 
 # ---------------------------------------------------------------------------

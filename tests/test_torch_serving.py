@@ -160,8 +160,18 @@ def test_init_cache_and_other_families():
         want = getattr(ref["units"]["mamba0"], name)
         assert tuple(got.shape) == want.shape and not got.any()
     assert int(cache["pos"]) == 0
-    with pytest.raises(NotImplementedError):
-        registry.bundle(archs.get("jamba-1.5-large-398b")).init_cache(1, 8, "cpu")
+    # the hybrid family (jamba), which raised here before it was ported:
+    # its attention ring and 7 Mamba states, shaped as the reference's
+    jamba = (j_archs.smoke_cfg(j_archs.get("jamba-1.5-large-398b")),
+             archs.smoke_cfg(archs.get("jamba-1.5-large-398b")))
+    got = registry.bundle(jamba[1]).init_cache(3, 32, "cpu")["units"]
+    want = j_registry.bundle(jamba[0]).init_cache(3, 32)["units"]
+    assert sorted(got) == sorted(want) == ["kv0"] + [f"mamba{j}" for j in range(1, 8)]
+    for name, entry in got.items():
+        for f, t in entry._asdict().items():
+            w = getattr(want[name], f)
+            assert tuple(t.shape) == w.shape and str(t.dtype)[6:] == str(w.dtype), (name, f)
+            assert not t.any()
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,8 @@ and, for the model itself, the other dense archs.
   one batch at different ``pos``: each replica's tokens and cache equal a
   one-replica run of its own waves.
 - The launchers on the CPU with gemma2-9b: ``serve_constellation --model
-  --smoke`` (the default arch) and the batched server.
+  --smoke`` (the default arch; also mamba2-780m and jamba-1.5-large-398b)
+  and the batched server.
 """
 
 from __future__ import annotations
@@ -258,10 +259,11 @@ def test_model_decoder_folds_replicas_at_different_pos(ref_params):
             np.testing.assert_allclose(_np(a), _np(b), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("arch", [None, "mamba2-780m"])
+@pytest.mark.parametrize("arch", [None, "mamba2-780m", "jamba-1.5-large-398b"])
 def test_serve_constellation_model_smoke_on_cpu(arch, capsys):
-    """``--model --smoke`` on the CPU, gemma2-9b by default: 10 of 10
-    delivered, the audit clean, and no kernel launched."""
+    """``--model --smoke`` on the CPU, gemma2-9b by default (and the ssm and
+    hybrid families): 10 of 10 delivered, the audit clean, and no kernel
+    launched."""
     from repro_torch.launch import serve_constellation
 
     before = fa_kern.launch_counts()

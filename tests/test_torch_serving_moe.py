@@ -8,15 +8,26 @@ dispatch that groups tokens wrongly). Reference params are carried across
 with ``weights.params_from_jax``.
 
 - Model: ``transformer.prefill`` / ``decode_step`` against the reference's,
-  on qwen3-moe and on kimi-k2-1t-a32b's smoke config (2 layers, bf16
-  params as published, an untied head),
-  prompts of 16 tokens, then 4 greedy decode steps of 3 lanes (one decode
-  group of 3 tokens on both sides). Logits and the K/V cache: float32
-  compute within rtol 2e-5 with an absolute floor of 2e-5 x the tensor's
-  largest magnitude (summation order), greedy tokens equal; bf16 compute
-  within 2e-2 x the largest magnitude (the reference's bf16 ``silu`` rounds
-  its sigmoid first, and eager PyTorch rounds each bf16 op where XLA may
-  fuse).
+  on qwen3-moe, on kimi-k2-1t-a32b's smoke config (2 layers, bf16
+  params as published, an untied head) and on jamba-1.5-large-398b's (the
+  hybrid: 16 layers, 2 units of attention + 7 Mamba-2 layers, MoE on every
+  second layer), prompts of 16 tokens, then 4 greedy decode steps of 3
+  lanes (one decode group of 3 tokens on both sides). Logits and every
+  cache (K/V, and jamba's Mamba ``ssm`` / ``conv`` states): float32 compute
+  within rtol 2e-5 with an absolute floor of 2e-5 x the tensor's largest
+  magnitude (summation order), greedy tokens equal; bf16 compute within
+  2e-2 x the largest magnitude (the reference's bf16 ``silu`` rounds its
+  sigmoid first, and eager PyTorch rounds each bf16 op where XLA may fuse).
+  jamba in bf16: the logits and the K/V ring within 1e-1 of their norm
+  (``||a - b|| / ||b||``; measured up to 6.0e-2, where the reference's own
+  bf16 run lies up to 5.1e-2 from its float32 run), the Mamba states
+  finite and of their dtypes only. Over 16 layers at a binding capacity
+  the two packages' differing bf16 roundings flip near-tied routing and
+  drop choices, and a flipped token moves a later Mamba state by up to
+  120% of its norm (measured, mamba5 at the prefill), the port's against
+  the reference's and against the float32 run alike.
+  ``tests/test_torch_hybrid.py`` holds jamba's bf16 states where no
+  routing choice can flip.
 - ``ModelDecoder`` with two replicas folded into one batch at different
   ``pos``: each replica's tokens equal a one-replica decoder's run of its
   own waves (each replica is its own MoE decode group), and its caches agree
@@ -56,6 +67,7 @@ from test_torch_serving import CHURN_SCENARIOS, _serve, _snapshot
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCH = "qwen3-moe-30b-a3b"
+HYBRID = "jamba-1.5-large-398b"
 BINDING_CF = 0.5
 PROMPT, MAX_LEN, DECODE_STEPS = 16, 27, 4
 
@@ -100,26 +112,42 @@ def _close(got, want, rtol, floor, what):
                                err_msg=what)
 
 
-@pytest.mark.parametrize("arch", [ARCH, "kimi-k2-1t-a32b"])
+@pytest.mark.parametrize("arch", [ARCH, "kimi-k2-1t-a32b", HYBRID])
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_prefill_and_decode_match_reference(compute_dtype, arch):
     ref_params = _ref_params_of(arch)
     jcfg, tcfg = _cfgs(compute_dtype, arch)
-    assert [d.ffn for d in transformer.scan_unit(tcfg)] == ["moe"]
+    ffns = [d.ffn for d in transformer.scan_unit(tcfg)]
+    assert ffns == (["dense", "moe"] * 4 if arch == HYBRID else ["moe"])
     jb, tb = j_registry.bundle(jcfg), registry.bundle(tcfg)
     tp = params_from_jax(jax.tree.map(np.asarray, ref_params), "cpu")
     rtol, floor = (2e-5, 2e-5) if compute_dtype == "float32" else (0.0, 2e-2)
+    loose = arch == HYBRID and compute_dtype == "bfloat16"
     toks = np.random.default_rng(7).integers(0, tcfg.vocab_size, (3, PROMPT))
-    jl, jc = jb.prefill_fn(ref_params, {"tokens": jnp.asarray(toks, jnp.int32)}, MAX_LEN)
+    # jitted: eager JAX retraces the unit scan on every call
+    j_prefill = jax.jit(lambda p, b: jb.prefill_fn(p, b, MAX_LEN))
+    j_decode = jax.jit(jb.decode_fn)
+    jl, jc = j_prefill(ref_params, {"tokens": jnp.asarray(toks, jnp.int32)})
     with moe.count_drops() as tally:
         tl, tc = tb.prefill_fn(tp, {"tokens": torch.from_numpy(toks)}, MAX_LEN)
 
         def check(step):
-            _close(tl, jl, rtol, floor, f"logits at step {step}")
-            for f in ("k", "v"):
-                got = getattr(tc["units"]["kv0"], f)
-                _close(got, getattr(jc["units"]["kv0"], f), rtol, floor, f"kv0.{f} at {step}")
-                assert got.dtype == getattr(torch, compute_dtype)
+            assert sorted(tc["units"]) == sorted(jc["units"])
+            for name, entry in {"logits": {"": tl}, **{
+                    n: e._asdict() for n, e in tc["units"].items()}}.items():
+                for f, got in entry.items():
+                    want = jl if name == "logits" else getattr(jc["units"][name], f)
+                    what = f"{name}.{f} at {step}"
+                    if not loose:
+                        _close(got, want, rtol, floor, what)
+                    elif not name.startswith("mamba"):
+                        g, w = _np(got), _np(want)
+                        assert np.linalg.norm(g - w) <= 1e-1 * np.linalg.norm(w), what
+                    else:
+                        assert bool(torch.isfinite(got).all()), what
+                    if name != "logits":
+                        assert got.dtype == (torch.float32 if f == "ssm"
+                                             else getattr(torch, compute_dtype))
             assert int(tc["pos"]) == int(jc["pos"]) == PROMPT + step
 
         check(0)
@@ -128,7 +156,7 @@ def test_prefill_and_decode_match_reference(compute_dtype, arch):
             tt = torch.argmax(tl[:, -1], dim=-1).numpy()
             if compute_dtype == "float32":
                 np.testing.assert_array_equal(tt, jt)
-            jl, jc = jb.decode_fn(ref_params, jc, {"token": jnp.asarray(jt[:, None], jnp.int32)})
+            jl, jc = j_decode(ref_params, jc, {"token": jnp.asarray(jt[:, None], jnp.int32)})
             tl, tc = tb.decode_fn(tp, tc, {"token": torch.from_numpy(jt[:, None])})
             check(step)
     assert _dropped(tally, "prefill") > 0 and _dropped(tally, "decode") > 0

@@ -333,10 +333,14 @@ def test_step_gap_names_the_farthest_leaf():
 # the trainer's CLI
 # ---------------------------------------------------------------------------
 
-def test_train_main_matches_reference(tmp_path, capsys):
-    argv = ["--arch", "gemma2-9b", "--smoke", "--steps", "3", "--seq", "16", "--batch", "4",
+@pytest.mark.parametrize("arch", ["gemma2-9b", "mamba2-780m"])
+def test_train_main_matches_reference(tmp_path, capsys, arch):
+    """The trainer's CLI from a reference step-0 checkpoint, 3 steps, in
+    both packages: the same losses (mamba2-780m is the quickstart's
+    model)."""
+    argv = ["--arch", arch, "--smoke", "--steps", "3", "--seq", "16", "--batch", "4",
             "--restore", "--seed", "4"]
-    cfg = j_archs.smoke_cfg(j_archs.get("gemma2-9b"))
+    cfg = j_archs.smoke_cfg(j_archs.get(arch))
     opt = j_adamw.OptConfig(peak_lr=3e-3, warmup_steps=5, decay_steps=10)
     start = j_steps.init_state(jax.random.PRNGKey(9), cfg, opt)
     for name in ("ref", "port"):
