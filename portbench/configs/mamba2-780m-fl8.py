@@ -1,0 +1,8 @@
+"""Counts of mamba2-780m-fl8: its shapes (``mamba2-780m-fl8.json``) bound to the Mamba-2
+formulas of :mod:`portbench.counts`."""
+
+from portbench.counts import Mamba2
+
+
+def counts(config: dict) -> Mamba2:
+    return Mamba2.from_config(config)
