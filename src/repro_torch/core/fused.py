@@ -31,8 +31,7 @@ import torch
 from repro_torch.core import tdm
 from repro_torch.core.relation import Relation
 from repro_torch.kernels.tdm_compress import ops
-from repro_torch.pytree import tree_flatten, tree_unflatten
-from repro_torch.telemetry import metrics
+from repro_torch.pytree import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.telemetry import recorder as telemetry
 
 DEFAULT_BLOCK = 1024
@@ -244,19 +243,32 @@ def int8_gossip_matchings(
     block: int = DEFAULT_BLOCK,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """:func:`int8_gossip` over given matchings and per-row weight vectors."""
+    """:func:`int8_gossip` over given matchings and per-row weight vectors.
+
+    Under tracing, each phase is a device span: ``tdm.quantize``, then per
+    matching ``tdm.gather`` (codes and scales) and ``tdm.fold`` (the first
+    also allocates the accumulator), then ``tdm.self``."""
     impl = _resolve_impl(impl, x)
-    x32 = x.to(torch.float32)
-    q, scales = ops.quantize(x32, block=block, impl=impl)
-    acc = torch.zeros_like(x32)
+    rec = telemetry.get_recorder()
+    dev = x.device
+    with rec.span("tdm.quantize", cat="exchange", device=dev):
+        x32 = x.to(torch.float32)
+        q, scales = ops.quantize(x32, block=block, impl=impl)
+    acc = None
     for m, w_m in zip(matchings, per_matching):
-        q_r = tdm.exchange_matching(q, m)
-        s_r = tdm.exchange_matching(scales, m)
-        acc = ops.dequant_accumulate(
-            q_r, s_r, acc, _row_weights(w_m, x), block=block, impl=impl
-        )
-    self_w = _row_weights(diag, x)[:, None]
-    return acc.add_(self_w * x32).to(x.dtype)
+        with rec.span("tdm.gather", cat="exchange", device=dev):
+            q_r = tdm.exchange_matching(q, m)
+            s_r = tdm.exchange_matching(scales, m)
+        with rec.span("tdm.fold", cat="exchange", device=dev):
+            acc = ops.dequant_accumulate(
+                q_r, s_r, torch.zeros_like(x32) if acc is None else acc,
+                _row_weights(w_m, x), block=block, impl=impl,
+            )
+    with rec.span("tdm.self", cat="exchange", device=dev):
+        if acc is None:
+            acc = torch.zeros_like(x32)
+        self_w = _row_weights(diag, x)[:, None]
+        return acc.add_(self_w * x32).to(x.dtype)
 
 
 def choco_fused_round(
@@ -269,6 +281,7 @@ def choco_fused_round(
     gamma: float = 0.4,
     block: int = DEFAULT_BLOCK,
     impl: str = "auto",
+    matchings: Optional[List[Relation]] = None,
 ) -> Tuple[torch.Tensor, tdm.ChocoState]:
     """One CHOCO-Gossip round on a fused (n, padded) buffer.
 
@@ -276,7 +289,9 @@ def choco_fused_round(
     block and emits the dense sparsified update plus the payload; values
     (viewed as int32) and indices are packed into one ``(n, nb, 2, k_b)``
     payload, one gather per matching; each arrival folds into ``s`` with one
-    scatter-accumulate pass. State is carried in float32.
+    scatter-accumulate pass. State is carried in float32. ``matchings``:
+    ``rel``'s :func:`~repro_torch.core.tdm.edge_coloring`, where the caller
+    already has it.
     """
     if buf.shape[1] % block:
         raise ValueError(
@@ -296,8 +311,9 @@ def choco_fused_round(
     del vals, idxs
 
     W = tdm.metropolis_weights(rel, n)
-    _, per_matching = tdm.matching_weight_vectors(rel, n)
-    for m, w_m in zip(tdm.edge_coloring(rel), per_matching):
+    matchings = tdm.edge_coloring(rel) if matchings is None else matchings
+    _, per_matching = tdm.matching_weight_vectors(rel, n, matchings)
+    for m, w_m in zip(matchings, per_matching):
         p_r = tdm.exchange_matching(payload, m)
         v_r = p_r[:, :, 0, :].contiguous().view(torch.float32)
         i_r = p_r[:, :, 1, :].contiguous()
@@ -333,18 +349,12 @@ def mix_wire_bytes(
 
 
 def _account_exchange(
-    rel: Relation, n_elems: int, itemsize: int, compression: str, k: int, block: int
+    n_matchings: int, n_elems: int, itemsize: int, compression: str, k: int, block: int
 ) -> None:
-    """Host-side exchange-size accounting: counters and a histogram on the
-    active recorder, no device work."""
-    m = len(tdm.edge_coloring(rel))
-    wire = m * mix_wire_bytes(n_elems, itemsize, compression, k=k, block=block)
-    rec = telemetry.get_recorder()
-    rec.counter("fused.exchange.mixes_traced")
-    rec.counter("fused.exchange.wire_bytes_per_round", wire)
-    metrics.observe(
-        "fused.exchange.wire_mbytes", wire / 1e6, buckets=metrics.LOG_BUCKETS, rec=rec
-    )
+    """Host-side exchange-size accounting: the link bytes of one buffer's
+    mix over ``n_matchings`` matchings, counted on the active recorder."""
+    wire = n_matchings * mix_wire_bytes(n_elems, itemsize, compression, k=k, block=block)
+    telemetry.get_recorder().counter("fused.exchange.wire_bytes_per_round", wire)
 
 
 def fused_buffer_mix(
@@ -365,7 +375,8 @@ def fused_buffer_mix(
         return buf, residual
     length = buf.shape[1]
     k = min(cfg.topk_k * max(n_leaves, 1), length) if cfg.compression == "topk" else 0
-    _account_exchange(rel, length, buf.element_size(), cfg.compression, k, block)
+    matchings = tdm.edge_coloring(rel)
+    _account_exchange(len(matchings), length, buf.element_size(), cfg.compression, k, block)
     if cfg.compression == "topk":
         state = (
             residual
@@ -373,13 +384,18 @@ def fused_buffer_mix(
             else tdm.choco_init(buf.to(torch.float32))
         )
         return choco_fused_round(
-            buf, state, rel, n, k, gamma=cfg.choco_gamma, block=block, impl=quant_impl
+            buf, state, rel, n, k, gamma=cfg.choco_gamma, block=block, impl=quant_impl,
+            matchings=matchings,
         )
     if cfg.compression == "int8":
-        return int8_gossip(buf, rel, n, block=block, impl=quant_impl), residual
+        diag, per_matching = tdm.matching_weight_vectors(rel, n, matchings)
+        return int8_gossip_matchings(
+            buf, diag, matchings, per_matching, block=block, impl=quant_impl
+        ), residual
     if cfg.comm == "get1meas":
         return tdm.gossip_avg_serial(buf, rel, n), residual
-    return tdm.gossip_avg(buf, rel, n), residual
+    diag, per_matching = tdm.matching_weight_vectors(rel, n, matchings)
+    return tdm.gossip_matchings(buf, diag, matchings, per_matching), residual
 
 
 def fused_tdm_fla_round(
@@ -393,21 +409,29 @@ def fused_tdm_fla_round(
     quant_impl: str = "auto",
 ) -> Tuple[Any, Any]:
     """One TDM-FLA round over a whole stacked pytree: flatten, mix each
-    dtype bucket, unflatten. Residuals (CHOCO state) are keyed by bucket."""
+    dtype bucket, unflatten. Residuals (CHOCO state) are keyed by bucket.
+    Under tracing, the round is a ``tdm.round`` device span holding
+    ``tdm.flatten``, the mix's spans and ``tdm.unflatten``."""
     if len(rel) == 0:
         return params, residuals
-    spec = cached_spec(params, block=block)
-    buffers = flatten_pytree(spec, params)
-    res_in = residuals if isinstance(residuals, dict) else {}
-    mixed, res_out = {}, {}
-    for bucket in spec.buckets:
-        buf = buffers.pop(bucket)
-        mixed[bucket], res_out[bucket] = fused_buffer_mix(
-            buf, rel, n, cfg, res_in.get(bucket),
-            n_leaves=spec.n_leaves(bucket), block=block, quant_impl=quant_impl,
-        )
-        del buf
-    return unflatten_pytree(spec, mixed), res_out
+    rec = telemetry.get_recorder()
+    dev = tree_leaves(params)[0].device if rec.tracing else None
+    with rec.span("tdm.round", cat="exchange", device=dev):
+        spec = cached_spec(params, block=block)
+        with rec.span("tdm.flatten", cat="exchange", device=dev):
+            buffers = flatten_pytree(spec, params)
+        res_in = residuals if isinstance(residuals, dict) else {}
+        mixed, res_out = {}, {}
+        for bucket in spec.buckets:
+            buf = buffers.pop(bucket)
+            mixed[bucket], res_out[bucket] = fused_buffer_mix(
+                buf, rel, n, cfg, res_in.get(bucket),
+                n_leaves=spec.n_leaves(bucket), block=block, quant_impl=quant_impl,
+            )
+            del buf
+        with rec.span("tdm.unflatten", cat="exchange", device=dev):
+            out = unflatten_pytree(spec, mixed)
+    return out, res_out
 
 
 # ---------------------------------------------------------------------------

@@ -201,13 +201,16 @@ def neighbor_sum(x: torch.Tensor, rel: Relation) -> torch.Tensor:
     return out
 
 
-def matching_weight_vectors(rel: Relation, n: int) -> Tuple[np.ndarray, List[np.ndarray]]:
+def matching_weight_vectors(
+    rel: Relation, n: int, matchings: Optional[List[Relation]] = None
+) -> Tuple[np.ndarray, List[np.ndarray]]:
     """``(diag, [w_m, ...])``: node i's Metropolis self weight and the weight
     it applies to what arrives over matching m (0 outside m), in
-    :func:`edge_coloring` order."""
+    :func:`edge_coloring` order (``matchings``, where the caller already
+    coloured ``rel``)."""
     W = metropolis_weights(rel, n)
     vecs = []
-    for m in edge_coloring(rel):
+    for m in edge_coloring(rel) if matchings is None else matchings:
         w_m = np.zeros((n,))
         for (i, j) in m.pairs:
             w_m[i] = W[i, j]

@@ -89,19 +89,25 @@ def local_train(b, opt_cfg, state: Dict[str, Any], batch: Dict[str, torch.Tensor
     """``local_steps`` AdamW steps per node on its own batches, written
     into the stacked ``state`` rows in place (each node's tree is a view of
     its row). ``rows`` limits the training to those nodes (default all);
-    the others keep their state and report a NaN loss. Returns each node's mean loss over its steps, (n,)."""
+    the others keep their state and report a NaN loss. Returns each node's mean loss over its steps, (n,).
+    Under tracing, each node's step is three device spans:
+    ``fl.local.forward`` (the loss), ``fl.local.backward`` (the gradients)
+    and ``fl.local.optimizer`` (AdamW and the step count)."""
     n = tree_leaves(state["params"])[0].shape[0]
     dev = tree_leaves(state["params"])[0].device
+    rec = telemetry.get_recorder()
     losses = torch.full((n, local_steps), float("nan"), dtype=torch.float32, device=dev)
     for i in range(n) if rows is None else rows:
         node = tree_map(lambda t: t[i], state)
         for h in range(local_steps):
             mb = {k: v[i, h] for k, v in batch.items()}
-            p_leaves, treedef = tree_flatten(node["params"])
-            p_leaves = [t.detach().requires_grad_(True) for t in p_leaves]
-            loss, _ = b.loss_fn(tree_unflatten(treedef, p_leaves), mb)
-            grads = torch.autograd.grad(loss, p_leaves)
-            with torch.no_grad():
+            with rec.span("fl.local.forward", cat="compute", device=dev):
+                p_leaves, treedef = tree_flatten(node["params"])
+                p_leaves = [t.detach().requires_grad_(True) for t in p_leaves]
+                loss, _ = b.loss_fn(tree_unflatten(treedef, p_leaves), mb)
+            with rec.span("fl.local.backward", cat="compute", device=dev):
+                grads = torch.autograd.grad(loss, p_leaves)
+            with rec.span("fl.local.optimizer", cat="compute", device=dev), torch.no_grad():
                 adamw.apply_updates_(node["params"], list(grads), node["opt"], opt_cfg)
                 node["step"].add_(1)
             losses[i, h] = loss.detach()

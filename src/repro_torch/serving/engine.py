@@ -298,72 +298,81 @@ class ServingEngine:
         telemetry.get_recorder().counter("serve.requests.submitted")
 
     def step(self) -> bool:
-        """Advance one engine slot. Returns True while work remains."""
+        """Advance one engine slot. Returns True while work remains.
+
+        Under tracing, the slot is a ``serve.slot`` span holding three spans,
+        device spans where the decoder has a device: ``serve.route`` (the
+        transport), ``serve.admit`` (admission, with its prefill) and
+        ``serve.tick`` (the decode ticks)."""
         s, t = self.slot, self.slot % self.epoch
         rec = telemetry.get_recorder()
         sends: List[Send] = []
         delivered: List[int] = []
         admitted_rids: List[int] = []
+        dev = getattr(self.fleet.decoder, "device", None)  # None: a host decoder
 
         with rec.span("serve.slot", cat="serve", slot=s):
             self._refresh_membership()
             serving = frozenset(self.membership.active & self.alive)
 
             # --- transport: snapshot positions, then move (≤1 hop/payload)
-            up = self._table(serving)
-            movers = [
-                r
-                for r in self.pending.values()
-                if r.status in (rq.QUEUED, rq.UPLINK, rq.DOWNLINK)
-                and r.node is not None
-            ]
-            for req in movers:
-                if req.status == rq.DOWNLINK:
-                    table = self._table(frozenset((req.gateway,)))
-                else:
-                    table = up
-                if table is None:
-                    continue
-                nxt = table.policy[t][req.node]
-                if nxt is None:
-                    continue
-                sends.append(Send(s, req.node, nxt, _kind(req), req.rid))
-                req.node = nxt
-                if req.status == rq.DOWNLINK:
-                    req.hops_down += 1
-                    if nxt == req.gateway:
-                        self._deliver(req, s)
-                        delivered.append(req.rid)
-                else:
-                    req.hops_up += 1
-                    req.status = rq.UPLINK
-                    if nxt in serving:
-                        req.status = rq.ROUTED
-                        req.replica = nxt
-                        if req.routed_slot < 0:
-                            req.routed_slot = s
-                        self.fleet.enqueue(nxt, req)
-                        rec.counter("serve.requests.routed")
+            with rec.span("serve.route", cat="serve", device=dev):
+                up = self._table(serving)
+                movers = [
+                    r
+                    for r in self.pending.values()
+                    if r.status in (rq.QUEUED, rq.UPLINK, rq.DOWNLINK)
+                    and r.node is not None
+                ]
+                for req in movers:
+                    if req.status == rq.DOWNLINK:
+                        table = self._table(frozenset((req.gateway,)))
+                    else:
+                        table = up
+                    if table is None:
+                        continue
+                    nxt = table.policy[t][req.node]
+                    if nxt is None:
+                        continue
+                    sends.append(Send(s, req.node, nxt, _kind(req), req.rid))
+                    req.node = nxt
+                    if req.status == rq.DOWNLINK:
+                        req.hops_down += 1
+                        if nxt == req.gateway:
+                            self._deliver(req, s)
+                            delivered.append(req.rid)
+                    else:
+                        req.hops_up += 1
+                        req.status = rq.UPLINK
+                        if nxt in serving:
+                            req.status = rq.ROUTED
+                            req.replica = nxt
+                            if req.routed_slot < 0:
+                                req.routed_slot = s
+                            self.fleet.enqueue(nxt, req)
+                            rec.counter("serve.requests.routed")
 
             # --- admission: idle in-service replicas start a wave
-            for sat, wave in self.fleet.admit(serving).items():
-                for req in wave:
-                    req.status = rq.DECODING
-                    req.admitted_slot = s
-                    req.first_token_slot = s
-                    admitted_rids.append(req.rid)
-                    rec.counter("serve.requests.admitted")
-                    telemetry.observe(
-                        "serve.ttft_slots", req.ttft_slots, buckets=COUNT_BUCKETS
-                    )
-                    if req.done:          # max_new == 1: done at prefill
-                        self._complete(req, s)
+            with rec.span("serve.admit", cat="serve", device=dev):
+                for sat, wave in self.fleet.admit(serving).items():
+                    for req in wave:
+                        req.status = rq.DECODING
+                        req.admitted_slot = s
+                        req.first_token_slot = s
+                        admitted_rids.append(req.rid)
+                        rec.counter("serve.requests.admitted")
+                        telemetry.observe(
+                            "serve.ttft_slots", req.ttft_slots, buckets=COUNT_BUCKETS
+                        )
+                        if req.done:          # max_new == 1: done at prefill
+                            self._complete(req, s)
 
             # --- decode ticks
-            for _ in range(self.decode_steps_per_slot):
-                for sat, reqs in self.fleet.tick().items():
-                    for req in reqs:
-                        self._complete(req, s)
+            with rec.span("serve.tick", cat="serve", device=dev):
+                for _ in range(self.decode_steps_per_slot):
+                    for sat, reqs in self.fleet.tick().items():
+                        for req in reqs:
+                            self._complete(req, s)
 
             # --- per-slot instrumentation
             depth = sum(

@@ -103,7 +103,11 @@ class ModelDecoder:
     computes them and discards the result; skipping them gives the same
     outputs). Under tracing, each call is a ``serve.prefill`` or
     ``serve.decode`` span; both end by copying the next tokens to the host,
-    which waits for the device.
+    which waits for the device. Inside them the phases are device spans:
+    ``serve.fold`` (decode only: the replicas' caches folded), ``serve.model``
+    (the model call; at prefill also its tokens' upload), ``serve.write`` (the
+    caches written back) and ``serve.tokens`` (the argmax and its copy to the
+    host).
     """
 
     def __init__(
@@ -194,13 +198,17 @@ class ModelDecoder:
             for lane, prompt in enumerate(waves[ridx]):
                 toks[k, lane, plen - len(prompt):] = prompt  # left-pad
         rec = telemetry.get_recorder()
+        dev = self.device
         with rec.span("serve.prefill", cat="serve", bucket=plen,
                       lanes=len(ridxs) * self.batch):
-            tokens = torch.from_numpy(toks.reshape(-1, plen)).to(self.device)
-            logits, new = self.bundle.prefill_fn(self.params, {"tokens": tokens},
-                                                 self.max_len)
-            self._write(ridxs, new)
-            first = self._tokens(logits, len(ridxs))
+            with rec.span("serve.model", cat="serve", device=dev):
+                tokens = torch.from_numpy(toks.reshape(-1, plen)).to(dev)
+                logits, new = self.bundle.prefill_fn(self.params, {"tokens": tokens},
+                                                     self.max_len)
+            with rec.span("serve.write", cat="serve", device=dev):
+                self._write(ridxs, new)
+            with rec.span("serve.tokens", cat="serve", device=dev):
+                first = self._tokens(logits, len(ridxs))
         rec.counter("serve.prefill.calls")
         out: Dict[int, List[int]] = {}
         for k, ridx in enumerate(ridxs):
@@ -214,12 +222,18 @@ class ModelDecoder:
         if ridxs.size == 0:
             return self._last.copy()
         rec = telemetry.get_recorder()
+        dev = self.device
         with rec.span("serve.decode", cat="serve", lanes=int(ridxs.size) * self.batch):
-            tok = torch.from_numpy(self._last[ridxs].reshape(-1, 1)).to(self.device)
-            logits, new = self.bundle.decode_fn(self.params, self._lanes(ridxs),
-                                                {"token": tok})
-            self._write(ridxs, new)
-            nxt = self._tokens(logits, int(ridxs.size))
+            # before the fold: the upload synchronises, and here the stream is idle
+            tok = torch.from_numpy(self._last[ridxs].reshape(-1, 1)).to(dev)
+            with rec.span("serve.fold", cat="serve", device=dev):
+                lanes = self._lanes(ridxs)
+            with rec.span("serve.model", cat="serve", device=dev):
+                logits, new = self.bundle.decode_fn(self.params, lanes, {"token": tok})
+            with rec.span("serve.write", cat="serve", device=dev):
+                self._write(ridxs, new)
+            with rec.span("serve.tokens", cat="serve", device=dev):
+                nxt = self._tokens(logits, int(ridxs.size))
         self._last[ridxs] = nxt
         return self._last.copy()
 

@@ -7,7 +7,11 @@ Two artifact kinds:
   Perfetto (https://ui.perfetto.dev) and ``chrome://tracing``. Spans
   become ``"X"`` complete events, instant events become ``"i"``, and the
   final counter values ride in ``otherData`` plus one ``"C"`` counter
-  sample per counter so they show up in the UI's counter track.
+  sample per counter so they show up in the UI's counter track. A device
+  span's stream interval is a second ``"X"`` event on its device's track
+  (tid ``DEVICE_TID + index``, named by a ``thread_name`` record), on the
+  host's clock, so a gap on the stream lines up with the host span of that
+  moment; a recording without device spans exports no such track.
 - :func:`metrics_snapshot` / :func:`write_metrics` — a flat JSON dict of
   counters, gauges, histogram percentile summaries, and per-span-name
   timing aggregates, the machine-readable summary the benchmark harness
@@ -34,6 +38,7 @@ from repro_torch.telemetry.metrics import histograms_summary
 from repro_torch.telemetry.recorder import Recorder, get_recorder, record_scope
 
 _PID = 0  # single-process flight recorder; lanes are encoded as tids
+DEVICE_TID = 1_000_000  # + CUDA device index: the tracks of device spans
 
 
 def chrome_trace(rec: Optional[Recorder] = None) -> Dict[str, Any]:
@@ -59,6 +64,34 @@ def chrome_trace(rec: Optional[Recorder] = None) -> Dict[str, Any]:
                 "ts": s.t_start_us,
                 "dur": s.dur_us,
                 "args": s.args,
+            }
+        )
+    tracks = set()
+    for s in rec.spans:
+        if s.dev is None or s.dev_us is None:
+            continue
+        tracks.add(s.dev)
+        events.append(
+            {
+                "ph": "X",
+                "name": s.name,
+                "cat": s.cat,
+                "pid": _PID,
+                "tid": DEVICE_TID + s.dev,
+                "ts": s.dev_t_us,
+                "dur": s.dev_us,
+                "args": s.args,
+            }
+        )
+    for dev in sorted(tracks):
+        events.append(
+            {
+                "ph": "M",
+                "name": "thread_name",
+                "pid": _PID,
+                "tid": DEVICE_TID + dev,
+                "ts": 0.0,
+                "args": {"name": f"cuda:{dev} stream"},
             }
         )
     for e in rec.events:

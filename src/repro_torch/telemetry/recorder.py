@@ -22,13 +22,22 @@ Contract (verified by ``tests/_telemetry_worker.py`` on 8 devices):
   :func:`set_tracing` / ``record_scope(tracing=True)``. With tracing off,
   :meth:`Recorder.span` is a no-op context manager that records nothing
   and takes no timestamps.
+- **A span may name the device it launches work on.** With tracing on
+  and a CUDA device, ``rec.span(name, device=x.device)`` also records a CUDA
+  event on the device's current stream at entry and exit, and the span
+  carries the stream's interval (``dev_t_us``, ``dev_us``) once those have
+  completed (:mod:`repro_torch.telemetry.devclock`). Its host ``dur_us``
+  means what it means on any span. With tracing off, or on a CPU device,
+  such a span is what any other span is.
 - **Recordings are scoped, not global.** :func:`record_scope` pushes a
   fresh :class:`Recorder` for one benchmark/test/training run and pops it
   after, so counters cannot leak across runs (the bug the old bare
   ``fused._SPEC_CACHE_STATS`` module dict had).
 
 The module is stdlib-only by design: :mod:`repro_torch.core` imports it, so it
-must sit below everything jax-flavored in the dependency order.
+must sit below everything jax-flavored in the dependency order. Device spans
+import torch through :mod:`repro_torch.telemetry.devclock`, and only when a
+traced span first names a CUDA device.
 """
 
 from __future__ import annotations
@@ -47,9 +56,14 @@ MAX_SPANS = 100_000
 MAX_EVENTS = 100_000
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass
 class Span:
-    """One timed interval (Chrome-trace ``"X"`` complete event)."""
+    """One timed interval (Chrome-trace ``"X"`` complete event).
+
+    A device span (one that named a CUDA device while tracing) also holds
+    the device's index in ``dev``, and, once its events have completed, the
+    stream time between its entry and exit (``dev_us``) and the start of that
+    interval on the recorder's clock (``dev_t_us``)."""
 
     name: str
     cat: str
@@ -57,6 +71,9 @@ class Span:
     dur_us: float
     args: Dict[str, Any]
     tid: int = 0
+    dev: Optional[int] = None
+    dev_t_us: Optional[float] = None
+    dev_us: Optional[float] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +114,8 @@ class Recorder:
         # typed Any here so this module stays import-root).
         self.gauges: Dict[str, float] = {}
         self.hists: Dict[str, Any] = {}
-        self.spans: List[Span] = []
+        self._spans: List[Span] = []
+        self._devclock: Any = None  # devclock.DeviceClock, at the first device span
         self.events: List[Event] = []
         self.meta: Dict[str, Any] = {}
         self.max_spans = MAX_SPANS if max_spans is None else int(max_spans)
@@ -137,25 +155,44 @@ class Recorder:
 
     @contextlib.contextmanager
     def span(
-        self, name: str, cat: str = "span", tid: int = 0, **args
+        self, name: str, cat: str = "span", tid: int = 0, device: Any = None, **args
     ) -> Iterator[Optional[Dict[str, Any]]]:
         """Time a block. Yields the (mutable) args dict so the body can
         attach results; yields ``None`` and records nothing when tracing
-        is off."""
+        is off. ``device`` (a ``torch.device``) names where the block
+        launches work: a CUDA device makes it a device span."""
         if not self.tracing:
             yield None
             return
+        token = None
+        if getattr(device, "type", None) == "cuda":
+            if self._devclock is None:
+                from repro_torch.telemetry.devclock import DeviceClock
+
+                self._devclock = DeviceClock(self.now_us)
+            token = self._devclock.enter(device)
         t0 = self.now_us()
         try:
             yield args
         finally:
-            self.spans.append(
-                Span(name, cat, t0, self.now_us() - t0, dict(args), tid)
-            )
-            if len(self.spans) > self.max_spans:
-                drop = len(self.spans) - self.max_spans
-                del self.spans[:drop]
+            span = Span(name, cat, t0, self.now_us() - t0, dict(args), tid,
+                        dev=None if token is None else token[0])
+            self._spans.append(span)
+            if token is not None:
+                self._devclock.exit(span, token)
+            if len(self._spans) > self.max_spans:
+                drop = len(self._spans) - self.max_spans
+                del self._spans[:drop]
                 self.counter("telemetry.dropped_spans", drop)
+
+    @property
+    def spans(self) -> List[Span]:
+        """The recorded spans, oldest first. Reading them fills in every
+        device span whose events have completed: after a synchronise, all
+        of them."""
+        if self._devclock is not None:
+            self._devclock.poll()
+        return self._spans
 
     # -- introspection ----------------------------------------------------
     def span_stats(self) -> Dict[str, Dict[str, float]]:
@@ -176,7 +213,8 @@ class Recorder:
         self.counters.clear()
         self.gauges.clear()
         self.hists.clear()
-        self.spans.clear()
+        self._spans.clear()
+        self._devclock = None
         self.events.clear()
         self.meta.clear()
         self._t0_ns = time.perf_counter_ns()
