@@ -198,7 +198,7 @@ Phases (any failure exits non-zero, and no result line is printed):
    int8 from the same start, the counters zeroed around each: losses
    finite, every round's gathers equal to
    ``expected_hierarchical_collectives``, ``quantize`` and
-   ``dequant_accumulate`` launched under int8 and not under none; one
+   ``gossip_fold`` launched under int8 and not under none; one
    uncompressed mix of the none run's params buffer equal to per-leaf
    ``hierarchical_gossip`` bit for bit and to the global node mean within
    1e-5, the int8 mix through the kernels within 2% of it, and each int8
@@ -231,7 +231,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    then ``flash_attention_bwd`` at the cell's shape against its plain
    version, timed beside its bound and flex_attention's backward;
 7. timing: the six exchange kernels at slice 1's shape (see 3; top-k and
-   the scatter at the CHOCO round's k, on their select paths) and, logged
+   the scatter at the CHOCO round's k, on their select paths), the int8
+   gossip's fold over relations of one and two matchings (bit for bit
+   against the unfused chain of ``dequant_accumulate`` launches, which is
+   timed and logged beside it) and, logged
    beside them, the select path at k = TOPK_SELECT_MAX_K and the sort and
    shared-memory scatter paths at TOPK_SELECT_MAX_K + 1, each checked
    against its plain version and timed beside its bound and library call;
@@ -290,6 +293,9 @@ REPLACES = {
     "scatter_accumulate": "src/repro/kernels/tdm_compress/tdm_compress.py:292",
     "quantize_scaled": "src/repro/kernels/tdm_compress/tdm_compress.py:211",
     "dequantize": "src/repro/kernels/tdm_compress/tdm_compress.py:150",
+    # no Pallas kernel of its own: the int8 gossip's receive side, per matching
+    # two ppermutes and one dequant_accumulate_fwd, then the self term
+    "gossip_fold": "src/repro/core/fused.py:273",
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:80",
     "flash_attention_fwd": "src/repro/kernels/flash_attention/flash_attention.py:100",
     "flash_attention_decode": "src/repro/kernels/flash_attention/flash_attention.py:100",
@@ -307,7 +313,7 @@ GS_KERNELS = {"none": (), "int8": ("quantize_scaled", "quantize", "dequant_accum
 # slice 8: two-level FL, pod = orbital plane of ShellSpec(planes=2, per_plane=4)
 HIER_PODS, HIER_DATA = 2, 4
 HIER_ROUNDS = 3
-HIER_KERNELS = {"none": (), "int8": ("quantize", "dequant_accumulate")}
+HIER_KERNELS = {"none": (), "int8": ("quantize", "gossip_fold")}
 OPT_ROUNDS = 3
 # serving (slice 3): mamba2-780m at its published config, all 48 layers
 SERVE_ARCH = "mamba2-780m"
@@ -557,16 +563,18 @@ def phase_kernels_slice(device, x, k_b: int, power_note: str) -> list:
         f"{elems * 4 / 1e9:.2f} GB per buffer, block {block}, top-k k_b={k_b}")
     results = []
 
-    def record(name, err, ms, plain_ms, nbytes, library_ms):
+    def record(name, err, ms, plain_ms, nbytes, library_ms, **extra):
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         results.append({
             "name": name, "route": "cuda", "source": SOURCES["tdm_compress"],
             "replaces": REPLACES[name], "launches": 0,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms,
+            **extra,
         })
         lib = "null" if library_ms is None else f"{library_ms:.3f}"
-        log(f"[kernels] {name:<19} {ms:8.3f} ms  bound {bound_ms:7.3f} ms "
+        tag = "".join(f" {k} {v}" for k, v in extra.items())
+        log(f"[kernels] {name + tag:<19} {ms:8.3f} ms  bound {bound_ms:7.3f} ms "
             f"({bound_ms / ms:5.1%})  plain {plain_ms:8.3f} ms  library {lib} ms"
             f"  max_abs_err {err:.3g}  [{power_note}]")
 
@@ -590,6 +598,7 @@ def phase_kernels_slice(device, x, k_b: int, power_note: str) -> list:
     plain = time_ms(lambda: ref.dequant_acc_ref(q, s, acc, w, block), reps=3)
     record("dequant_accumulate", err, ms, plain,
            elems * (1 + 4 + 4) + rows * nb * 4 + rows * 4, None)
+    _time_gossip_fold(x, q, s, block, record, power_note)
     del q, s
 
     # 3. topk_sparsify
@@ -654,6 +663,78 @@ def phase_kernels_slice(device, x, k_b: int, power_note: str) -> list:
     return results
 
 
+# 8-node relations of the FL launcher's plan (``portbench``'s mamba2-780m-fl8
+# deployment): four links in one matching, and four in two matchings with
+# nodes 0 and 2 of degree 2 and nodes 1 and 3 idle
+FOLD_RELATIONS = {1: [(0, 5), (1, 4), (2, 7), (3, 6)], 2: [(0, 5), (0, 6), (2, 4), (2, 7)]}
+
+
+def unfused_fold(x, q, s, plan, block: int):
+    """The int8 gossip's receive side as the kernels ran it before the fold:
+    per matching the rows that arrive (``index_select``, zeroed outside it)
+    into one ``dequant_accumulate_fwd`` on an accumulator of zeros, then
+    ``+ diag * x``."""
+    import torch
+
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+
+    acc = torch.zeros_like(x)
+    for m in range(plan.src.shape[0]):
+        idle = (plan.src[m] < 0)[:, None]
+        rows = plan.src[m].clamp(min=0).to(torch.int64)
+        q_r = q.index_select(0, rows).masked_fill_(idle, 0)
+        s_r = s.index_select(0, rows).masked_fill_(idle, 0)
+        acc = kern.dequant_accumulate_fwd(q_r, s_r, acc, plan.w[m], block=block)
+        del q_r, s_r
+    return acc.add_(plan.diag[:, None] * x)
+
+
+def _time_gossip_fold(x, q, s, block: int, record, power_note: str) -> None:
+    """The gossip fold on the slice's buffer over the plan's relations of one
+    and two matchings: bit for bit against the unfused chain on the kernels,
+    timed beside its bound, its plain version and (logged) the chain."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import fused, tdm
+    from repro_torch.core.relation import Relation
+    from repro_torch.kernels.tdm_compress import ref
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+
+    rows, n = x.shape
+    nb = n // block
+    for n_match, edges in FOLD_RELATIONS.items():
+        rel = Relation.from_edges(edges, nodes=range(rows))
+        diag, per_matching = tdm.matching_weight_vectors(rel, rows)
+        matchings = tdm.edge_coloring(rel)
+        check(len(matchings) == n_match, f"gossip fold: {len(matchings)} matchings, "
+              f"expected {n_match}")
+        src = [tdm.matching_sources(m, rows) for m in matchings]
+        plan = fused.row_plan(src, per_matching, diag, x.device)
+
+        def fold():
+            return kern.gossip_fold_fwd(x, q, s, plan.src, plan.w, plan.diag, block=block)
+
+        got = fold()
+        _assert_bits(got, unfused_fold(x, q, s, plan, block),
+                     f"gossip fold, {n_match} matchings, against the unfused chain")
+        want = ref.gossip_fold_ref(x, q, s, plan.src, plan.w, plan.diag, block)
+        err = float((got - want).abs().max())
+        del got, want
+        torch.cuda.empty_cache()
+        ms = time_ms(fold, reps=10)
+        chain = time_ms(lambda: unfused_fold(x, q, s, plan, block), reps=5)
+        plain = time_ms(lambda: ref.gossip_fold_ref(x, q, s, plan.src, plan.w, plan.diag,
+                                                    block), reps=3)
+        arrivals = int(np.sum(np.array(src) >= 0))
+        nbytes = rows * n * 8 + arrivals * (n + nb * 4) + n_match * rows * 8 + rows * 4
+        log(f"[kernels] gossip_fold, {n_match} matchings ({arrivals} arrivals): the "
+            f"unfused chain {chain:.3f} ms; library: null (no single call computes "
+            f"it) [{power_note}]")
+        record("gossip_fold", err, ms, plain, nbytes, None, matchings=n_match)
+        torch.cuda.empty_cache()
+
+
 def _time_topk_paths(x, acc, w, block: int, power_note: str) -> None:
     """Both top-k paths off the main path at the slice's shape: the select
     at its largest k and the sort (and the shared-memory scatter) at the
@@ -707,7 +788,7 @@ def _time_topk_paths(x, acc, w, block: int, power_note: str) -> None:
 
 MODE_KERNELS = {
     "none": (),
-    "int8": ("quantize", "dequant_accumulate"),
+    "int8": ("quantize", "gossip_fold"),
     "topk": ("topk_sparsify", "scatter_accumulate"),
 }
 
@@ -1104,7 +1185,9 @@ def _hier_fl(device) -> tuple:
                     torch.cuda.synchronize(device)
                 gathers = tdm.gather_count() - before
                 loss = float(losses.mean())
-                span = {sp.name: sp.dur_us / 1e6 for sp in rec.spans[-3:]}
+                # the last of each name: this round's (the exchange's own
+                # tdm.* spans close between fl.local_steps and fl.exchange)
+                span = {sp.name: sp.dur_us / 1e6 for sp in rec.spans}
                 log(f"[slice8] two-level {mode:<4} round {rnd}  loss {loss:.4f}  round "
                     f"{span['fl.round']:.3f} s (local steps {span['fl.local_steps']:.3f} s, "
                     f"exchange {span['fl.exchange']:.3f} s)  gathers {gathers} (oracle "

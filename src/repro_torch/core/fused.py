@@ -9,8 +9,10 @@ M for CHOCO top-k, whose values and block-local indices travel packed in one
 int32 payload), independent of the leaf count.
 
 The compressed modes run on the ``tdm_compress`` functions: a quantize (or
-top-k) launch over the whole stacked buffer on the send side, then one
-dequant-accumulate (or scatter-accumulate) launch per matching covering all
+top-k) launch over the whole stacked buffer on the send side. On the receive
+side int8 makes one gossip-fold launch, which reads every row's arrivals
+from the senders' codes by a cached row plan (:func:`row_plan`) and adds the
+self term; top-k one scatter-accumulate launch per matching covering all
 nodes, with one weight per row. ``quant_impl="auto"`` takes the CUDA kernels
 for CUDA tensors and the plain PyTorch versions for CPU tensors; ``"ref"``
 forces the plain versions (the yardstick on the card).
@@ -211,6 +213,58 @@ def _row_weights(values, x: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(np.array(values), dtype=torch.float32, device=x.device)
 
 
+@dataclasses.dataclass(frozen=True)
+class RowPlan:
+    """What each row of a stacked buffer receives in one gossip step, on the
+    buffer's device: ``src[m, i]`` the row that node i reads over matching m
+    (-1 outside it), ``w[m, i]`` its weight, ``diag[i]`` the self weight."""
+
+    src: torch.Tensor     # (M, n) int32
+    w: torch.Tensor       # (M, n) float32
+    diag: torch.Tensor    # (n,) float32
+
+
+# A slot schedule cycles through a few relations; each one's plan is uploaded
+# once. Bounded FIFO cache keyed by the rows' sources, the weights, n and the
+# device; hit/miss counts go to the active recorder under this prefix.
+_ROW_PLANS: Dict[Any, RowPlan] = {}
+_ROW_PLANS_MAX = 128
+ROW_PLAN_COUNTER = "fused.row_plan"
+
+
+def row_plan(sources, per_matching, diag, device) -> RowPlan:
+    """The :class:`RowPlan` of matchings whose :func:`repro_torch.core.tdm.
+    matching_sources` are ``sources``, with per-row weights ``per_matching``
+    and self weights ``diag`` (float64 numpy, cast as the reference casts),
+    from the cache or uploaded to ``device`` once."""
+    n = len(diag)
+    src = np.array(sources, dtype=np.int32).reshape(len(sources), n)
+    w = np.array(per_matching, dtype=np.float64).reshape(len(sources), n)
+    d = np.array(diag, dtype=np.float64)
+    key = (torch.device(device), n, src.tobytes(), w.tobytes(), d.tobytes())
+    rec = telemetry.get_recorder()
+    plan = _ROW_PLANS.get(key)
+    if plan is None:
+        rec.counter(f"{ROW_PLAN_COUNTER}.misses")
+        plan = RowPlan(
+            src=torch.as_tensor(src, device=device),
+            w=torch.as_tensor(w, dtype=torch.float32, device=device),
+            diag=torch.as_tensor(d, dtype=torch.float32, device=device),
+        )
+        if len(_ROW_PLANS) >= _ROW_PLANS_MAX:
+            _ROW_PLANS.pop(next(iter(_ROW_PLANS)))
+        _ROW_PLANS[key] = plan
+    else:
+        rec.counter(f"{ROW_PLAN_COUNTER}.hits")
+    return plan
+
+
+def clear_row_plans() -> None:
+    """Empty the row-plan cache and drop its counters from the active recorder."""
+    _ROW_PLANS.clear()
+    telemetry.get_recorder().pop_counters(ROW_PLAN_COUNTER)
+
+
 def int8_gossip(
     x: torch.Tensor,
     rel: Relation,
@@ -222,9 +276,9 @@ def int8_gossip(
     """One Metropolis gossip step with blockwise-int8 payloads.
 
     The send side quantizes the whole (n, padded) buffer once; each matching
-    ships (int8 payload, f32 scales) as two gathers, and the receive side
-    folds each arrival into the accumulator with one dequant-accumulate pass
-    over all rows. ``x.shape[1] % block == 0`` (the FlatSpec contract).
+    ships (int8 payload, f32 scales), two gathers, and the receive side
+    folds every arrival and the self term in one pass over all rows.
+    ``x.shape[1] % block == 0`` (the FlatSpec contract).
     """
     if len(rel) == 0:
         return x
@@ -245,30 +299,28 @@ def int8_gossip_matchings(
 ) -> torch.Tensor:
     """:func:`int8_gossip` over given matchings and per-row weight vectors.
 
-    Under tracing, each phase is a device span: ``tdm.quantize``, then per
-    matching ``tdm.gather`` (codes and scales) and ``tdm.fold`` (the first
-    also allocates the accumulator), then ``tdm.self``."""
+    Under tracing, each phase is a device span: ``tdm.quantize``; per
+    matching ``tdm.gather``, the host side of its exchange (the row each
+    node receives, counted as two gathers: codes and scales; no stream
+    work); ``tdm.fold``, the row plan's lookup and the one pass that reads
+    every row's arrivals where they lie and adds the self term; ``tdm.self``,
+    the cast back to ``x``'s dtype."""
     impl = _resolve_impl(impl, x)
     rec = telemetry.get_recorder()
     dev = x.device
     with rec.span("tdm.quantize", cat="exchange", device=dev):
         x32 = x.to(torch.float32)
         q, scales = ops.quantize(x32, block=block, impl=impl)
-    acc = None
-    for m, w_m in zip(matchings, per_matching):
+    sources = []
+    for m in matchings:
         with rec.span("tdm.gather", cat="exchange", device=dev):
-            q_r = tdm.exchange_matching(q, m)
-            s_r = tdm.exchange_matching(scales, m)
-        with rec.span("tdm.fold", cat="exchange", device=dev):
-            acc = ops.dequant_accumulate(
-                q_r, s_r, torch.zeros_like(x32) if acc is None else acc,
-                _row_weights(w_m, x), block=block, impl=impl,
-            )
+            sources.append(tdm.ship_matching(m, x.shape[0], payloads=2))
+    with rec.span("tdm.fold", cat="exchange", device=dev):
+        plan = row_plan(sources, per_matching, diag, dev)
+        out = ops.gossip_fold(x32, q, scales, plan.src, plan.w, plan.diag,
+                              block=block, impl=impl)
     with rec.span("tdm.self", cat="exchange", device=dev):
-        if acc is None:
-            acc = torch.zeros_like(x32)
-        self_w = _row_weights(diag, x)[:, None]
-        return acc.add_(self_w * x32).to(x.dtype)
+        return out.to(x.dtype)
 
 
 def choco_fused_round(
@@ -458,9 +510,9 @@ def hierarchical_buffer_mix(
     fused engine). Row ``pod * n_data + data`` is a node; each level's
     matchings are coloured at the level's size and lifted onto the rows
     (:func:`repro_torch.core.tdm.level_weight_vectors`), so one gather
-    serves every pod at once. Under int8 each level quantizes once and each
-    of its matchings ships codes and scales through one dequant-accumulate
-    pass.
+    serves every pod at once. Under int8 each level quantizes once, each of
+    its matchings ships codes and scales, and one gossip-fold pass takes
+    them in.
 
     ``compression`` is ``"none"`` or ``"int8"``: top-k/CHOCO state is tied
     to one fixed relation and does not fit a two-level schedule.

@@ -53,6 +53,7 @@ __all__ = [
     "hierarchical_gossip",
     "level_weight_vectors",
     "matching_permutation",
+    "matching_sources",
     "matching_weight_vectors",
     "metropolis_weights",
     "neighbor_sum",
@@ -61,13 +62,15 @@ __all__ = [
     "node_scalars",
     "peer_slot_table",
     "run_gossip_schedule",
+    "ship_matching",
 ]
 
 _GATHERS = [0]
 
 
 def gather_count() -> int:
-    """Row gathers issued by :func:`exchange_matching` in this process."""
+    """Row gathers issued by :func:`exchange_matching` (and counted by
+    :func:`ship_matching` and :func:`gather_rows`) in this process."""
     return _GATHERS[0]
 
 
@@ -109,23 +112,42 @@ def node_scalars(values, like: torch.Tensor) -> torch.Tensor:
 # Exchange primitives (stacked node axis = dim 0)
 # ---------------------------------------------------------------------------
 
+def matching_sources(matching: Relation, n: int) -> np.ndarray:
+    """``src[j]``: the node whose row node j receives over the matching, -1
+    for the nodes outside it."""
+    src = -np.ones(n, dtype=np.int32)
+    for i, j in matching_permutation(matching):
+        src[j] = i
+    return src
+
+
 def exchange_matching(x: torch.Tensor, matching: Relation) -> torch.Tensor:
     """One pairwise exchange: row j of the result is row i of ``x`` for every
     (i, j) in the matching; rows of non-participants are zero."""
-    perm = matching_permutation(matching)
-    if not perm:
-        return torch.zeros_like(x)
     n = x.shape[0]
-    src = np.arange(n)
-    idle = np.ones(n, dtype=bool)
-    for i, j in perm:
-        src[j] = i
-        idle[j] = False
-    out = x.index_select(0, torch.as_tensor(src, device=x.device))
+    src = matching_sources(matching, n)
+    idle = src < 0
+    if idle.all():
+        return torch.zeros_like(x)
+    rows = np.where(idle, np.arange(n), src)
+    out = x.index_select(0, torch.as_tensor(rows, device=x.device))
     if idle.any():
         out[torch.as_tensor(np.nonzero(idle)[0], device=x.device)] = 0
     _GATHERS[0] += 1
     return out
+
+
+def ship_matching(matching: Relation, n: int, payloads: int) -> np.ndarray:
+    """The exchange of ``payloads`` stacked tensors over one matching, for a
+    receiver that reads each arriving row where it lies (the int8 gossip's
+    fold, :func:`repro_torch.core.fused.int8_gossip_matchings`): returns
+    :func:`matching_sources` and counts ``payloads`` row gathers, as
+    :func:`exchange_matching` would count moving each tensor (an empty
+    matching moves nothing)."""
+    src = matching_sources(matching, n)
+    if (src >= 0).any():
+        _GATHERS[0] += payloads
+    return src
 
 
 def gather_rows(x: torch.Tensor, pairs) -> torch.Tensor:

@@ -7,8 +7,8 @@
 // row may be ragged; its missing lanes read as zero payload). One CUDA thread
 // block handles one (row, block) pair, or, in the top-k select paths, one
 // warp does, so a whole round's send or receive side over all nodes is ONE
-// launch. Per-row scalars (Metropolis weights) come as a (rows,) float32
-// vector.
+// launch (the gossip fold, 7, takes 1024-lane chunks of a row). Per-row
+// scalars (Metropolis weights) come as a (rows,) float32 vector.
 //
 // Rounding contract. The JAX reference runs under jit on XLA, which (a)
 // rewrites the scale's `/ 127.0` into `* fl(1/127)` and (b) contracts
@@ -34,6 +34,7 @@ constexpr int kSelectMaxK = 32;     // select paths: one result (pair) per lane
 constexpr int kWarpsPerCta = 8;     // select paths: one payload block per warp
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kInv127 = 1.0f / 127.0f;
+constexpr int64_t kMaxGridX = 2147483647;   // a launch's largest grid.x
 
 // max that propagates NaN, like XLA's max and torch.amax (fmaxf drops it)
 __device__ __forceinline__ float nan_max(float a, float b) {
@@ -595,6 +596,83 @@ dequantize_kernel(const int8_t* __restrict__ q,
     ob[i] = __fmul_rn(static_cast<float>(qb[i]), s);
 }
 
+// ---------------------------------------------------------------------------
+// 7. gossip_dequant_acc (the int8 gossip's receive side, gossip_fold)
+// Replaces: no TPU kernel of its own. It fuses what the reference's int8
+//           gossip runs per matching, a ppermute of codes and scales and one
+//           dequant_accumulate_fwd (_dequant_acc_kernel) into an accumulator
+//           of zeros, and then the self term, into one pass.
+// Bound: bytes. Reads x (4 B) and writes out (4 B) per element, plus the
+//        codes (1 B) of each arrival: 9 B/elem where every row has one
+//        arrival on average.
+// Semantics: per element of row i, from a row plan (src (M, rows): the row
+//         that i receives over matching m, -1 outside it; w (M, rows); diag
+//         (rows,)),
+//           a = +0; for m: if src >= 0: a = fma(w_m[i], q[src] * s[src], a)
+//           out = a + diag[i] * x[i]
+//         the roundings of the unfused chain (zeros, one dequant_acc_kernel
+//         a matching, then acc + diag * x), so it is bit-identical to it.
+//         Skipping a row outside m is exact: the chain folds a zeroed
+//         arrival at weight 0 there, and its accumulator is never -0.
+// Design: one float4 group of 4 lanes a thread, so every load and store of
+//         a warp is one contiguous run: x and out as float4, each arrival's
+//         codes as char4 with one scale (4 divides `block`). One thread
+//         block takes kFoldChunk lanes of one row, whose plan entries are
+//         uniform loads; a row's own x is loaded before its arrivals, so the
+//         loads overlap, and x and the codes through the read-only path
+//         (__ldg). Sized by measurement at the slot's (8, 194 384 896)
+//         buffer (H100, one and two matchings): 4.56-4.61 ms, 91% of the
+//         bytes' bound, where plain loads took 4.71-4.88 ms, two or four
+//         groups a thread (40 and 64 registers) 4.7-5.0 ms, a persistent
+//         grid over (row, chunk) pairs 4.95 ms, and streaming cache hints
+//         (__ldcs / __stcs) 2-3% more.
+// ---------------------------------------------------------------------------
+constexpr int kFoldChunk = kThreads * 4;   // lanes per thread block
+
+__device__ __forceinline__ float fold_lane(float a, float wm, int8_t c, float sc) {
+  return __fmaf_rn(wm, __fmul_rn(static_cast<float>(c), sc), a);
+}
+
+__device__ __forceinline__ float self_lane(float a, float d, float x) {
+  return __fadd_rn(a, __fmul_rn(d, x));
+}
+
+__global__ void __launch_bounds__(kThreads)
+gossip_dequant_acc_kernel(const float* __restrict__ x,
+                          const int8_t* __restrict__ q,
+                          const float* __restrict__ scales,
+                          const int32_t* __restrict__ src,
+                          const float* __restrict__ w,
+                          const float* __restrict__ diag,
+                          float* __restrict__ out, int64_t rows,
+                          int64_t row_len, int64_t nb_row, int block,
+                          int n_match, int64_t chunks_row) {
+  const int64_t n_items = rows * chunks_row;
+  for (int64_t item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int64_t row = item / chunks_row;
+    const int64_t col = (item - row * chunks_row) * kFoldChunk + 4 * threadIdx.x;
+    if (col >= row_len) continue;
+    const float4 xv = __ldg(reinterpret_cast<const float4*>(x + row * row_len + col));
+    const int64_t j = col / block;
+    float4 a = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int m = 0; m < n_match; ++m) {
+      const int64_t s = src[m * rows + row];
+      if (s < 0) continue;
+      const float wm = w[m * rows + row];
+      const float sc = scales[s * nb_row + j];
+      const char4 c = __ldg(reinterpret_cast<const char4*>(q + s * row_len + col));
+      a.x = fold_lane(a.x, wm, c.x, sc);
+      a.y = fold_lane(a.y, wm, c.y, sc);
+      a.z = fold_lane(a.z, wm, c.z, sc);
+      a.w = fold_lane(a.w, wm, c.w, sc);
+    }
+    const float d = diag[row];
+    *reinterpret_cast<float4*>(out + row * row_len + col) =
+        make_float4(self_lane(a.x, d, xv.x), self_lane(a.y, d, xv.y),
+                    self_lane(a.z, d, xv.z), self_lane(a.w, d, xv.w));
+  }
+}
+
 inline int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 // Calls f(std::integral_constant<int, E>) with E the select paths' slots per
@@ -781,6 +859,29 @@ int tdm_dequantize(const void* q, const void* scales, void* out, int64_t rows,
       static_cast<const int8_t*>(q), static_cast<const float*>(scales),
       static_cast<float*>(out), row_len, nb_row, static_cast<int>(block),
       scale_row_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The int8 gossip's receive side over a row plan of n_match matchings: src
+// and w (n_match, rows), diag (rows,). row_len and block multiples of 4; x
+// and out 16-byte aligned, q 4-byte aligned.
+int tdm_gossip_fold(const void* x, const void* q, const void* scales,
+                    const void* src, const void* w, const void* diag,
+                    void* out, int64_t rows, int64_t row_len, int64_t block,
+                    int64_t n_match, void* stream) {
+  if (row_len % 4 != 0 || block % 4 != 0 || n_match < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t chunks_row = cdiv(row_len, kFoldChunk);
+  const int64_t n_items = rows * chunks_row;
+  if (n_items == 0) return 0;
+  const int64_t grid = n_items < kMaxGridX ? n_items : kMaxGridX;
+  gossip_dequant_acc_kernel<<<grid, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(q),
+      static_cast<const float*>(scales), static_cast<const int32_t*>(src),
+      static_cast<const float*>(w), static_cast<const float*>(diag),
+      static_cast<float*>(out), rows, row_len, cdiv(row_len, block),
+      static_cast<int>(block), static_cast<int>(n_match), chunks_row);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -59,6 +59,15 @@ def dequant_accumulate(q, scales, acc, w, *, block: int = 1024, impl: str = "aut
     return kernel.dequant_accumulate_fwd(q, scales, acc, w, block=block)
 
 
+def gossip_fold(x, q, scales, src, w, diag, *, block: int = 1024, impl: str = "auto"):
+    """The int8 gossip's receive side: every row's arrivals, read from the
+    senders' codes by the row plan ``(src, w, diag)``, folded with the self
+    term (:func:`.ref.gossip_fold_ref`)."""
+    if use_ref(x, impl):
+        return ref.gossip_fold_ref(x, q, scales, src, w, diag, block=block)
+    return kernel.gossip_fold_fwd(x, q, scales, src, w, diag, block=block)
+
+
 def topk_sparsify(x, *, k: int, block: int = 1024, impl: str = "auto"):
     if use_ref(x, impl):
         return ref.topk_sparsify_ref(x, k, block=block)

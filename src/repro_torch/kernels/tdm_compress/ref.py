@@ -176,6 +176,24 @@ def dequant_acc_ref(q: torch.Tensor, scale: torch.Tensor, acc: torch.Tensor, w,
     return acc.to(torch.float32) + wr * dequantize_ref(q, scale, block)
 
 
+def gossip_fold_ref(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                    src: torch.Tensor, w: torch.Tensor, diag: torch.Tensor,
+                    block: int = 1024) -> torch.Tensor:
+    """The int8 gossip's receive side over a row plan, as the chain it
+    replaces: per matching m, the rows that arrive (row ``src[m, i]`` of q
+    and of the scales, zeros where ``src[m, i] < 0``) fold into an
+    accumulator of zeros by :func:`dequant_acc_ref` at weights ``w[m]``;
+    then ``+ diag * x``. x f32 ``(rows, n)``; src ``(M, rows)``."""
+    acc = torch.zeros_like(x)
+    for m in range(src.shape[0]):
+        idle = (src[m] < 0)[:, None]
+        rows = src[m].clamp(min=0).to(torch.int64)
+        q_r = q.index_select(0, rows).masked_fill_(idle, 0)
+        s_r = scales.index_select(0, rows).masked_fill_(idle, 0)
+        acc = dequant_acc_ref(q_r, s_r, acc, w[m], block)
+    return acc.add_(diag[:, None] * x)
+
+
 def topk_sparsify_ref(x: torch.Tensor, k: int, block: int = 1024):
     """Blockwise top-k of |x| (NaN above +inf, ties to the lowest index).
 

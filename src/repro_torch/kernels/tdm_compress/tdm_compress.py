@@ -1,4 +1,4 @@
-"""ctypes wrappers of the six CUDA kernels in ``csrc/tdm_compress.cu``.
+"""ctypes wrappers of the seven CUDA kernels in ``csrc/tdm_compress.cu``.
 
 Each wrapper checks what the kernel takes (a CUDA tensor, dtype, contiguity,
 shape, block size) and raises on anything else; it never falls back to the
@@ -18,6 +18,10 @@ each, chosen here from the per-block k: for ``k <= TOPK_SELECT_MAX_K`` the
 select path (one warp per block, k rounds of a warp-wide argmax, the
 contribution patched in registers), above it the bitonic sort and the
 shared-memory scatter. Each path has its own launch counter.
+
+``gossip_fold_fwd`` is the int8 gossip's whole receive side in one launch:
+it reads each row's arrivals from the senders' codes where they lie, by a
+row plan, and adds the self term.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ LAUNCHES: Dict[str, int] = {
     "scatter_accumulate_shared": 0,
     "quantize_scaled": 0,
     "dequantize": 0,
+    "gossip_fold": 0,
 }
 
 
@@ -71,6 +76,7 @@ _SIGNATURES = {
     "tdm_scatter_acc_shared": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "tdm_quantize_scaled": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tdm_dequantize": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "tdm_gossip_fold": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 _lib = None
 
@@ -242,4 +248,38 @@ def dequantize_fwd(q: torch.Tensor, scales: torch.Tensor, *,
     _call("tdm_dequantize", q.data_ptr(), scales.data_ptr(), out.data_ptr(),
           rows, n, block, stride)
     LAUNCHES["dequantize"] += 1
+    return out
+
+
+def gossip_fold_fwd(x: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                    src: torch.Tensor, w: torch.Tensor, diag: torch.Tensor, *,
+                    block: int = 1024) -> torch.Tensor:
+    """The int8 gossip's receive side in one launch: row i of the result is
+    ``diag[i] * x[i] + sum_m w[m, i] * dequant(q[src[m, i]])`` over the
+    matchings m with ``src[m, i] >= 0``, rounded as the unfused chain (an
+    accumulator of zeros, :func:`dequant_accumulate_fwd` per matching on the
+    gathered rows, then ``+ diag * x``), bit for bit.
+
+    x f32 and q int8 ``(rows, n)``, scales ``(rows, nb)``; the row plan: src
+    int32 and w f32 ``(M, rows)``, diag f32 ``(rows,)``. ``n`` and ``block``
+    multiples of 4 (the kernel takes float4 groups), x 16-byte and q 4-byte
+    aligned."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (rows, n), got {tuple(x.shape)}")
+    rows, n, nb = _geometry(x, block)
+    if n % 4 or block % 4:
+        raise ValueError(f"row length {n} and block {block} must be multiples of 4")
+    _check(x, "x", (torch.float32,))
+    _check(q, "q", (torch.int8,), x.shape)
+    _check(scales, "scales", (torch.float32,), (rows, nb))
+    n_match = src.shape[0] if src.dim() == 2 else -1
+    _check(src, "src", (torch.int32,), (n_match, rows))
+    _check(w, "w", (torch.float32,), (n_match, rows))
+    _check(diag, "diag", (torch.float32,), (rows,))
+    if x.data_ptr() % 16 or q.data_ptr() % 4:
+        raise ValueError("x must be 16-byte and q 4-byte aligned")
+    out = torch.empty_like(x)
+    _call("tdm_gossip_fold", x.data_ptr(), q.data_ptr(), scales.data_ptr(), src.data_ptr(),
+          w.data_ptr(), diag.data_ptr(), out.data_ptr(), rows, n, block, n_match)
+    LAUNCHES["gossip_fold"] += 1
     return out

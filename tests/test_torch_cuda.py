@@ -14,7 +14,11 @@ the sum (the kernels fuse the multiply-add, the plain versions round twice),
 the unit-weight accumulate bit for bit (both round once); one int8 and one
 topk FL round on the small model through the kernels, held to the same round
 through the plain versions, and the int8 ground-segment exchange through the
-kernels equal to it through the plain versions bit for bit. The SSD-scan
+kernels equal to it through the plain versions bit for bit; the int8
+gossip's fold bit for bit against the chain of dequant-accumulate launches
+it replaces (0 to 3 matchings, idle rows and rows of degree 2 and more,
+ragged chunks and blocks), and a fused int8 round launching one fold per
+dtype bucket and no dequant-accumulate. The SSD-scan
 kernel against its plain version within ``ssd_scan.ref.ssd_tolerance`` (1e-4
 of the output's scale, plus one bf16 ulp for bf16 outputs), y and state
 finite, on ragged cases and on strong decay at chunk 256, four calls at
@@ -242,6 +246,118 @@ def test_groundseg_exchange_through_kernels(device):
         assert _bits(aux["cuda"][1]["float32"], aux["ref"][1]["float32"])
 
 
+def _fold_plan(rows: int, n_match: int, seed: int):
+    """Sources, weights and self weights of ``n_match`` random matchings on
+    ``rows`` nodes: the last row idle in every one; the first matching pairs
+    all but one of the others, each later one a random subset, so rows of
+    degree 0 to ``n_match`` occur."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    src = -np.ones((n_match, rows), dtype=np.int32)
+    most = (rows - 1) // 2
+    for m in range(n_match):
+        pairs = most if m == 0 else int(rng.integers(1, most + 1))
+        live = rng.permutation(rows - 1)[:2 * pairs]
+        for a, b in live.reshape(-1, 2):
+            src[m, a], src[m, b] = b, a
+    w = np.where(src >= 0, rng.uniform(0.05, 0.5, src.shape), 0.0)
+    return src, w, rng.uniform(0.1, 1.0, rows)
+
+
+def _unfused_fold(x, q, s, src, w, diag, block):
+    """The receive side as the kernels ran it before the fold: per matching
+    the arriving rows (gathered, zeroed outside it) into one
+    ``dequant_accumulate_fwd`` on an accumulator of zeros, then + diag * x."""
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+
+    acc = torch.zeros_like(x)
+    for m in range(src.shape[0]):
+        idle = (src[m] < 0)[:, None]
+        rows = src[m].clamp(min=0).to(torch.int64)
+        q_r = q.index_select(0, rows).masked_fill_(idle, 0)
+        s_r = s.index_select(0, rows).masked_fill_(idle, 0)
+        acc = kern.dequant_accumulate_fwd(q_r, s_r, acc, w[m], block=block)
+    return acc.add_(diag[:, None] * x)
+
+
+@pytest.mark.parametrize("n_match", [0, 1, 2, 3])
+@pytest.mark.parametrize("rows,n,block", [(8, 5 * 4096 + 1024, 1024), (16, 5 * 4096 + 1024, 256),
+                                          (8, 4096 + 44, 256), (16, 3 * 1024, 1024)])
+def test_gossip_fold_bit_identical_to_unfused_chain(device, rows, n, block, n_match):
+    """The fold launch against the chain it replaces, bit for bit: 0 to 3
+    matchings, a row idle in every matching and rows of degree 2 and more,
+    a ragged last chunk and (4096 + 44 at block 256) a ragged last block."""
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+
+    src_np, w_np, diag_np = _fold_plan(rows, n_match, seed=rows * 10 + n_match)
+    src = torch.as_tensor(src_np, device=device)
+    w = torch.as_tensor(w_np, dtype=torch.float32, device=device)
+    diag = torch.as_tensor(diag_np, dtype=torch.float32, device=device)
+    g = torch.Generator(device=device).manual_seed(n + n_match)
+    x = torch.randn(rows, n, generator=g, device=device) * torch.rand(
+        rows, 1, generator=g, device=device) * 3
+    q, s = kern.quantize_fwd(x, block=block)
+    before = kern.launch_counts()
+    got = kern.gossip_fold_fwd(x, q, s, src, w, diag, block=block)
+    assert kern.launch_counts()["gossip_fold"] == before["gossip_fold"] + 1
+    assert _bits(got, _unfused_fold(x, q, s, src, w, diag, block))
+    assert _bits(got, kern.gossip_fold_fwd(x, q, s, src, w, diag, block=block))
+
+
+def test_gossip_fold_refuses_what_it_does_not_take(device):
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+
+    x = torch.zeros(4, 1024, device=device)
+    q, s = kern.quantize_fwd(x, block=256)
+    src = torch.full((1, 4), -1, dtype=torch.int32, device=device)
+    w, diag = torch.zeros(1, 4, device=device), torch.ones(4, device=device)
+    with pytest.raises(ValueError, match="multiples"):
+        kern.gossip_fold_fwd(x[:, :1022], q[:, :1022], s, src, w, diag, block=250)
+    with pytest.raises(ValueError, match="src"):
+        kern.gossip_fold_fwd(x, q, s, src.to(torch.int64), w, diag, block=256)
+    with pytest.raises(ValueError, match="aligned"):
+        xs = torch.zeros(4 * 1024 + 1, device=device)[1:].view(4, 1024)
+        kern.gossip_fold_fwd(xs, q, s, src, w, diag, block=256)
+
+
+def test_fused_round_folds_once_per_bucket(device):
+    """A fused int8 round over a two-bucket tree on the card: one quantize and
+    one gossip fold per bucket, no standalone dequant-accumulate, and each
+    bucket's mix bit-identical to the unfused chain on the kernels."""
+    import numpy as np
+
+    from repro_torch.core import fl, fused, tdm
+    from repro_torch.core.relation import Relation
+    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+
+    n = 8
+    rel = Relation.from_edges([(0, 5), (0, 6), (2, 4), (2, 7)], nodes=range(n))
+    g = torch.Generator(device=device).manual_seed(3)
+    tree = {"a": torch.randn(n, 3000, generator=g, device=device),
+            "b": torch.randn(n, 7, 300, generator=g, device=device).to(torch.bfloat16),
+            "c": torch.randn(n, 50, generator=g, device=device)}
+    spec = fused.cached_spec(tree)
+    before = kern.launch_counts()
+    out, _ = fl.tdm_fla_round(tree, rel, n, fl.TDMFLAConfig(compression="int8"))
+    after = kern.launch_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    assert launched["quantize"] == launched["gossip_fold"] == len(spec.buckets) == 2
+    assert launched["dequant_accumulate"] == 0
+    diag, per_matching = tdm.matching_weight_vectors(rel, n)
+    matchings = tdm.edge_coloring(rel)
+    src = torch.as_tensor(np.array([tdm.matching_sources(m, n) for m in matchings]),
+                          device=device)
+    w = torch.as_tensor(np.array(per_matching), dtype=torch.float32, device=device)
+    d = torch.as_tensor(diag, dtype=torch.float32, device=device)
+    got = fused.flatten_pytree(spec, out)
+    for bucket, buf in fused.flatten_pytree(spec, tree).items():
+        x32 = buf.to(torch.float32)
+        q, s = kern.quantize_fwd(x32)
+        want = _unfused_fold(x32, q, s, src, w, d, fused.DEFAULT_BLOCK).to(buf.dtype)
+        assert _bits(got[bucket], want)
+
+
 @pytest.mark.parametrize("compression", ["int8", "topk"])
 def test_fl_round_through_kernels(device, compression):
     """One FL round of the smoke model: local AdamW steps, then the round's
@@ -294,7 +410,8 @@ def test_fl_round_through_kernels(device, compression):
         if impl == "ref":
             assert sum(launched.values()) == 0
         elif compression == "int8":
-            assert launched["quantize"] == 1 and launched["dequant_accumulate"] > 0
+            assert launched["quantize"] == launched["gossip_fold"] == len(spec.buckets)
+            assert launched["dequant_accumulate"] == 0
         else:
             assert launched["topk_sparsify"] == 1 and launched["scatter_accumulate"] > 0
     m = len(tdm.edge_coloring(rel))

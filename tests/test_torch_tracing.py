@@ -124,8 +124,8 @@ def test_int8_round_records_its_phases_in_order(no_device_calls):
     assert m >= 2
     with telemetry.record_scope(tracing=True) as rec:
         _int8_round()
-    assert _names(rec) == (["tdm.flatten", "tdm.quantize"] + ["tdm.gather", "tdm.fold"] * m
-                           + ["tdm.self", "tdm.unflatten", "tdm.round"])
+    assert _names(rec) == (["tdm.flatten", "tdm.quantize"] + ["tdm.gather"] * m
+                           + ["tdm.fold", "tdm.self", "tdm.unflatten", "tdm.round"])
     assert all(s.dev is None and s.dev_us is None and s.dev_t_us is None for s in rec.spans)
     # link bytes, counted from the matchings the mix coloured
     padded = fused.cached_spec(_params()).padded_size("float32")
