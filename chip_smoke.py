@@ -29,7 +29,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    The SSD-scan kernel is held to its plain version on small and ragged
    cases (chunks 8, 64, 96 and 256, one to four chunks, groups 1, 2 and 4,
    head dims 16 to 64, states 32 to 128, bf16 and float32 inputs), at
-   jamba's 256 heads in 8 groups, each case launched twice bit-identical, and on
+   jamba's 256 heads in 8 groups and nemotron-3-nano's 64 heads in 8 groups at
+   chunk 128, each case launched twice bit-identical, and on
    strong decay at chunk 256 (A = -16, dt 0.05-0.1: the exponent above the
    diagonal passes 88, so exp before the mask would be inf): y and the state
    finite and within ``ssd_scan.ref.ssd_tolerance`` (1e-4 of the output's
@@ -174,6 +175,21 @@ Phases (any failure exits non-zero, and no result line is printed):
    one prefill and tick split into host and device time. ``ssd_scan`` at
    the cell's served shape (4 lanes x 256 heads in 8 groups) is timed in 7
    beside its bound;
+4g. nemotron-3-nano-30b-a3b (``[nemotron]`` lines; the port's own arch): the
+   attention kernels at its shapes (G 16, hd 128: the decode's rows a block
+   exactly ``MAX_DECODE_ROWS``; ``kernels/flash_attention/cases.py``'s
+   nemotron cases against their plain versions, bf16 and f32, each launched
+   twice bit-identical), then its published widths cut to the pattern's
+   first 7 layers (``NEMOTRON_CUT``: 3 Mamba-2 of 64 heads x 64 in 8 groups,
+   chunk 128, 3 dropless MoE of 128 experts top-6 with a shared expert, 1
+   GQA layer of 32 / 2 heads, bf16 params from seed 0), built with
+   ``ModelDecoder`` directly, the same scenario and workload as 4, the
+   launch counters zeroed just before and read just after and the routes
+   tallied (``moe.count_routes``). Checks: every request delivered with 16
+   tokens, the audit clean, ``ssd_scan`` launched 3 times per prefill call,
+   ``flash_attention_fwd`` once per prefill call (on the tensor-core kernel)
+   and ``flash_attention_decode`` once per tick, no other kernel, a
+   ``model.moe`` span per MoE layer and call, no assignment dropped;
 5. slice 1: the port's TDM path through its user entry points
    (``repro_torch.launch.train_fl_constellation``): constellation-driven
    TDM-FLA rounds of mamba2-780m at its published widths, depth cut to 8
@@ -1382,6 +1398,7 @@ SSD_CASES = [
     (1, 256, 4, 64, 1, 128, 256),
     (2, 1024, 2, 64, 2, 128, 256),
     (1, 512, 256, 64, 8, 128, 256),     # jamba-1.5-large: 256 heads in 8 groups of 32
+    (2, 1024, 64, 64, 8, 128, 128),     # nemotron-3-nano: 64 heads in 8 groups, chunk 128
 ]
 
 
@@ -1400,7 +1417,7 @@ def phase_ssd_small(device) -> None:
         worst = max(worst, _ssd_vs_plain(_ssd_inputs(gen, full, device, strong=True), 256,
                                          f"ssd_scan strong decay {full}"))
     log(f"[ssd_scan] {2 * len(SSD_CASES) + 2} small/ragged/strong-decay cases and jamba's "
-        f"shape within ssd_tolerance of the plain version, y and state finite, each launched "
+        f"and nemotron-3-nano's shapes within ssd_tolerance of the plain version, y and state finite, each launched "
         f"twice bit-identical (max |diff| {worst:.3g})")
 
 
@@ -2504,6 +2521,9 @@ HYBRID_ARCH = "jamba-1.5-large-398b"
 HYBRID_CUT = {"n_layers": 8, "n_experts": 4}
 HYBRID_TAG = "hybrid"
 HYBRID_TICKS = 16           # decode ticks held against the plain versions
+NEMOTRON_ARCH = "nemotron-3-nano-30b-a3b"
+NEMOTRON_CUT = "MEMEM*E"    # the published pattern's first 7 layers: each kind, at its widths
+NEMOTRON_TAG = "nemotron"
 
 
 def _cut_decoder(cfg, device):
@@ -4016,6 +4036,104 @@ def phase_hybrid(device, power_note: str) -> dict:
     return {"ssd_scan": ssd, "flash_attention_fwd": fwd, "flash_attention_decode": dcd}
 
 
+def _nemotron_attention() -> None:
+    """The attention kernels at nemotron-3-nano's shapes (32 / 2 heads x
+    128, G 16: the decode's rows a block exactly ``MAX_DECODE_ROWS``):
+    ``kernels/flash_attention/cases.py``'s nemotron cases against their
+    plain versions, bf16 and f32, each launched twice bit-identical."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import cases
+
+    worst = 0.0
+    device = torch.device("cuda", 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for case in cases.NEMOTRON_PREFILL_CASES:
+            worst = max(worst, _case(cases.check_prefill_case, case, dtype, device))
+        for case in cases.NEMOTRON_DECODE_CASES:
+            worst = max(worst, _case(cases.check_decode_case, case, dtype, device))
+    log(f"[{NEMOTRON_TAG}] attention at nemotron-3-nano's shapes (G 16, hd 128, no rope): "
+        f"{2 * len(cases.NEMOTRON_PREFILL_CASES)} prefill and "
+        f"{2 * len(cases.NEMOTRON_DECODE_CASES)} decode cases, bf16 and f32, within "
+        f"fa_tolerance of the plain version (max |diff| {worst:.3g}), each launched twice "
+        f"bit-identical, bf16 prefills on tensor cores")
+
+
+def phase_nemotron(device, power_note: str) -> dict:
+    """nemotron-3-nano-30b-a3b at its published widths, cut to the first
+    layers of its pattern (``NEMOTRON_CUT``: Mamba-2 at 64 heads in 8
+    groups, chunk 128; the dropless MoE of 128 experts; GQA at G 16),
+    through ``serve_constellation``'s entry points with the ``ModelDecoder``
+    built directly, the launch counters zeroed just before and read just
+    after, the routes tallied. Returns the launches of the serving run."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs import archs
+    from repro_torch.models import moe, transformer
+    from repro_torch.pytree import tree_leaves
+
+    t_phase = time.perf_counter()
+    _nemotron_attention()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    cfg, dec = _cut_decoder(archs.get(NEMOTRON_ARCH).replace(
+        pattern=NEMOTRON_CUT, n_layers=len(NEMOTRON_CUT)), device)
+    n_params = sum(t.numel() for t in tree_leaves(dec.params))
+    descs = transformer.scan_unit(cfg)
+    n_mamba = sum(d.mixer == "mamba" for d in descs)
+    n_attn = sum(d.mixer == "attn" for d in descs)
+    n_moe = sum(d.ffn == "moe" for d in descs)
+    mb = cfg.mamba
+    log(f"[{NEMOTRON_TAG}] {cfg.name}: the pattern's first {cfg.n_layers} layers "
+        f"({NEMOTRON_CUT}: {n_mamba} Mamba-2 of {mb.heads} heads x {mb.head_dim} in "
+        f"{mb.n_groups} groups, chunk {mb.chunk}; {n_moe} MoE of {cfg.moe.n_experts} experts "
+        f"top-{cfg.moe.top_k}; {n_attn} attention {cfg.n_heads} / {cfg.n_kv_heads} x "
+        f"{cfg.head_dim}), params {n_params:,} {cfg.param_dtype} (seed 0)")
+    check(n_params == cfg.param_count() and (n_mamba, n_attn, n_moe) == (3, 1, 3),
+          f"{cfg.name}: {n_params} params, layers {[(d.mixer, d.ffn) for d in descs]}")
+    with moe.count_routes() as tally:
+        res, rec, counts, _ = _run_serving(dec, cfg, device, NEMOTRON_TAG)
+    routes = {kind: torch.stack(calls).sum(0).tolist() for kind, calls in tally.items()}
+    del tally
+    prefill_calls = int(rec.get_counter("serve.prefill.calls"))
+    ticks = sum(1 for sp in rec.spans if sp.name == "serve.decode")
+    moe_spans = sum(1 for sp in rec.spans if sp.name == "model.moe")
+    ssd, fwd, dcd = (counts[k] for k in ("ssd_scan", "flash_attention_fwd",
+                                         "flash_attention_decode"))
+    check(prefill_calls > 0 and ssd == n_mamba * prefill_calls,
+          f"ssd_scan launched {ssd} times for {prefill_calls} prefill calls")
+    check(fwd == n_attn * prefill_calls,
+          f"flash_attention_fwd launched {fwd} times for {prefill_calls} prefill calls")
+    check(ticks > 0 and dcd == n_attn * ticks,
+          f"flash_attention_decode launched {dcd} times for {ticks} decode ticks")
+    check(counts["flash_attention_fwd_wgmma"] == fwd,
+          f"{counts['flash_attention_fwd_wgmma']} of {fwd} prefill launches on tensor cores")
+    others = {k: v for k, v in counts.items()
+              if not k.startswith("flash_attention") and k != "ssd_scan" and v}
+    check(not others and counts["flash_attention_bwd"] == 0,
+          f"other kernels on the nemotron serving path: {others}")
+    check(moe_spans == n_moe * (prefill_calls + ticks),
+          f"{moe_spans} model.moe spans for {prefill_calls} prefill calls and {ticks} ticks")
+    check(set(routes) == {"prefill", "decode"} and all(r[2] == 0 for r in routes.values()),
+          f"routes tallied {routes}")
+    summ = res.report.summary()
+    log(f"[{NEMOTRON_TAG}] {summ['delivered']}/{summ['n_requests']} delivered x "
+        f"{SERVE_MAX_NEW} tokens, audit OK; ssd_scan launches {ssd} = {n_mamba} x "
+        f"{prefill_calls} prefill calls, flash_attention_fwd {fwd} = {n_attn} x "
+        f"{prefill_calls} (all on the tensor-core kernel), flash_attention_decode {dcd} = "
+        f"{n_attn} x {ticks} ticks; model.moe spans {moe_spans}; routed assignments "
+        + ", ".join(f"{kind} {a} over {h} experts hit, {d} dropped"
+                    for kind, (a, h, d) in sorted(routes.items())))
+    del dec, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{NEMOTRON_TAG}] phase {time.perf_counter() - t_phase:.1f} s  [{power_note}]")
+    return {"ssd_scan": ssd, "flash_attention_fwd": fwd, "flash_attention_decode": dcd}
+
+
 def main() -> int:
     try:
         import torch
@@ -4062,6 +4180,8 @@ def main() -> int:
     mark("serving, qwen2-vl-72b")
     hybrid_launches = phase_hybrid(device, dev["card"])
     mark("serving, jamba-1.5-large-398b")
+    nemotron_launches = phase_nemotron(device, dev["card"])
+    mark("serving, nemotron-3-nano-30b-a3b")
     launches, buf, k_b = phase_slice(device)
     mark("slice 1")
     gs_launches = phase_groundseg(device)
@@ -4077,12 +4197,14 @@ def main() -> int:
     train_launches, bwd_row = phase_dense_train(device, dev["card"])
     mark("slice 9, dense training")
     ssd_row = phase_ssd_slice(device, dev["card"])
-    ssd_row["launches"] = serve_launches["ssd_scan"] + hybrid_launches["ssd_scan"]
+    ssd_row["launches"] = (serve_launches["ssd_scan"] + hybrid_launches["ssd_scan"]
+                           + nemotron_launches["ssd_scan"])
     kernels.append(ssd_row)
     for row in phase_fa_slice(device, dev["card"]):
         row["launches"] = (dense_launches[row["name"]] + moe_launches[row["name"]]
                            + train_launches[row["name"]] + whisper_launches[row["name"]]
-                           + vlm_launches[row["name"]] + hybrid_launches[row["name"]])
+                           + vlm_launches[row["name"]] + hybrid_launches[row["name"]]
+                           + nemotron_launches[row["name"]])
         kernels.append(row)
     bwd_row["launches"] = (train_launches["flash_attention_bwd"]
                            + whisper_launches["flash_attention_bwd"])

@@ -1,5 +1,6 @@
 """The 10 assigned architectures as exact configs, plus reduced smoke
-variants of each family.
+variants of each family, and nemotron-3-nano-30b-a3b (the port's own: it has
+no counterpart in the JAX package).
 
 Sources as assigned (``[source; tier]`` from the task sheet). Head dims use
 the published values where the d_model/n_heads quotient differs from the
@@ -12,6 +13,7 @@ the roofline requires at 256–512 chips; they are hillclimb levers in §Perf.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 from repro_torch.models.config import MambaConfig, ModelConfig, MoEConfig, ShapeConfig, SHAPES
@@ -211,6 +213,34 @@ QWEN2_VL_72B = _register(ModelConfig(
     micro_steps=4,
 ))
 
+# --- nemotron-3-nano-30b-a3b [hybrid] 52L d=2688 32H (GQA kv=2) 128e top-6 ---
+# [hf:nvidia/NVIDIA-Nemotron-3-Nano-30B-A3B-BF16 config.json, model_type
+# nemotron_h]: 23 Mamba-2 (64 heads x 64 in 8 groups, per-group gated norm),
+# 23 MoE (sigmoid router with a selection bias, top-6 renormalised x 2.5,
+# relu^2 experts of 1856 and one shared expert of 3712, dropless) and 6
+# attention layers (no rope) in one pattern; untied head; bf16 params.
+NEMOTRON_H_PATTERN = "MEMEM*EMEMEM*EMEMEM*EMEMEM*EMEMEM*EMEMEMEM*EMEMEMEME"
+NEMOTRON_3_NANO = _register(ModelConfig(
+    name="nemotron-3-nano-30b-a3b",
+    family="hybrid",
+    n_layers=52,
+    d_model=2688,
+    n_heads=32, n_kv_heads=2, head_dim=128,
+    d_ff=1856,
+    vocab_size=131_072,
+    pattern=NEMOTRON_H_PATTERN,
+    rope=False,
+    mamba=MambaConfig(d_state=128, d_conv=4, head_dim=64, n_groups=8, chunk=128,
+                      heads=64, norm_per_group=True),
+    moe=MoEConfig(n_experts=128, top_k=6, d_ff=1856, dropless=True, routed_scale=2.5,
+                  shared_d_ff=3712),
+    act="relu2",
+    gated_mlp=False,
+    tie_embeddings=False,
+    norm_eps=1e-5,
+    param_dtype="bfloat16",
+))
+
 
 # ---------------------------------------------------------------------------
 # per-(arch, shape) config adjustments + cell validity
@@ -242,7 +272,10 @@ def cfg_for_cell(cfg: ModelConfig, shape: ShapeConfig) -> Optional[ModelConfig]:
 
 def smoke_cfg(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config: tiny widths, few layers/experts, small
-    vocab — used by per-arch CPU smoke tests."""
+    vocab — used by per-arch CPU smoke tests. A pattern config keeps the
+    first layer of each kind its pattern has, in order (nemotron-h: ``ME*``)."""
+    if cfg.pattern is not None:
+        cfg = cfg.replace(pattern="".join(dict.fromkeys(cfg.pattern)))
     kw = dict(
         n_layers=len_scan_unit(cfg) * 2,
         d_model=64,
@@ -263,7 +296,11 @@ def smoke_cfg(cfg: ModelConfig) -> ModelConfig:
             kw.update(mrope_sections=(t, h, half - t - h))
     if cfg.d_ff:
         kw.update(d_ff=96)
-    if cfg.moe is not None:
+    if cfg.moe is not None and cfg.moe.dropless:
+        kw.update(moe=dataclasses.replace(
+            cfg.moe, n_experts=16, top_k=4, d_ff=32,
+            shared_d_ff=48 if cfg.moe.shared_d_ff else 0))
+    elif cfg.moe is not None:
         kw.update(moe=MoEConfig(
             n_experts=4, top_k=2, d_ff=32, every=cfg.moe.every,
             capacity_factor=4.0,   # generous: smoke tests assume no drops
@@ -272,6 +309,9 @@ def smoke_cfg(cfg: ModelConfig) -> ModelConfig:
         kw.update(mamba=MambaConfig(
             d_state=16, head_dim=8, expand=2,
             n_groups=min(cfg.mamba.n_groups, 2), chunk=8,
+            # explicit heads: 6 x 8 = 48 channels, not expand * d_model
+            heads=6 if cfg.mamba.heads else 0,
+            norm_per_group=cfg.mamba.norm_per_group,
         ))
     if cfg.sliding_window is not None:
         kw.update(sliding_window=16)

@@ -3,7 +3,9 @@ that ``chip_smoke.py`` and the card tests both run.
 
 Serving (:func:`check_prefill_case`, :func:`check_decode_case`): the
 prefill and the decode at the MoE serving cell's shapes (qwen3-moe-30b-a3b,
-a GQA group of 8 at head dim 128, no softcap, no window), each launched
+a GQA group of 8 at head dim 128, no softcap, no window) and at
+nemotron-3-nano-30b-a3b's (G 16, hd 128, the decode's 16 rows a block
+exactly ``MAX_DECODE_ROWS``), each launched
 twice, bit-identical, within ``ref.fa_tolerance`` of the plain version
 (``ref.attention_ref``, with ``kv_len`` for the decode); a bf16 prefill on
 the tensor-core kernel.
@@ -79,6 +81,21 @@ SERVE_PREFILL_CASES = [
 ]
 SERVE_DECODE_CASES = [
     (8, 529, 32, 4, 128, (1, 2, 129, 256, 257, 400, 528, 529)),
+]
+
+# nemotron-3-nano-30b-a3b's attention (32 query / 2 kv heads x 128, so G
+# 16, exactly ``MAX_DECODE_ROWS``; causal, no rope, no window, no softcap):
+# the prefill at its serving cell's 16 lanes x bucket 1024 and 32 lanes x
+# bucket 256; the decode at 32 lanes against its 1153-slot cache (bucket
+# 1024 + 128 new tokens + 1) with ragged kv_len
+NEMOTRON_PREFILL_CASES = [
+    (16, 1024, 32, 2, 128, True, None, None),
+    (32, 256, 32, 2, 128, True, None, None),
+]
+NEMOTRON_DECODE_CASES = [
+    (32, 1153, 32, 2, 128, (1, 2, 3, 15, 16, 17, 63, 64, 65, 127, 128, 129, 255, 256, 257,
+                            300, 511, 512, 513, 700, 1000, 1023, 1024, 1025, 1100, 1140,
+                            1150, 1151, 1152, 1153, 1153, 777)),
 ]
 
 

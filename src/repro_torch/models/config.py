@@ -2,7 +2,9 @@
 
 One :class:`ModelConfig` describes any member of the LM family used here:
 dense transformer (gemma2/granite/qwen2/qwen2-vl), pure SSM (mamba2), hybrid
-(jamba), MoE (qwen3-moe/kimi-k2), and encoder–decoder (whisper). The config
+(jamba), MoE (qwen3-moe/kimi-k2), encoder–decoder (whisper), and a stack
+driven by a per-layer pattern (nemotron-3-nano: Mamba-2, MoE and attention
+layers in one irregular order, ``pattern``). The config
 is pure data — the model code in :mod:`repro_torch.models.transformer` interprets
 it; the launch layer lowers it for a mesh.
 """
@@ -23,6 +25,11 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_z_loss: float = 1e-3
     aux_loss: float = 1e-2
+    # nemotron-h: a sigmoid router with a selection-only bias, every
+    # assignment computed (no capacity), experts of the config's MLP form
+    dropless: bool = False
+    routed_scale: float = 1.0       # the routed weights' factor after renormalising
+    shared_d_ff: int = 0            # one always-on shared expert of this width (0: none)
 
 
 @dataclass(frozen=True)
@@ -35,8 +42,12 @@ class MambaConfig:
     chunk: int = 256          # SSD chunk length (MXU-aligned)
     dt_min: float = 0.001
     dt_max: float = 0.1
+    heads: int = 0            # >0: d_inner = heads * head_dim (not expand * d_model)
+    norm_per_group: bool = False  # gated norm over each group's d_inner / n_groups
 
     def d_inner(self, d_model: int) -> int:
+        if self.heads:
+            return self.heads * self.head_dim
         return self.expand * d_model
 
     def n_heads(self, d_model: int) -> int:
@@ -65,11 +76,15 @@ class ModelConfig:
     attn_softcap: Optional[float] = None    # gemma2: 50.0
     final_softcap: Optional[float] = None   # gemma2: 30.0
     mrope_sections: Optional[Tuple[int, int, int]] = None  # qwen2-vl M-RoPE
+    rope: bool = True                       # False: no positional rotation (NoPE)
 
     # mixer pattern (hybrid / ssm)
     attn_every: Optional[int] = None        # jamba: 8 => layer i is attn iff i%8==0
     attn_free: bool = False                 # mamba2: no attention layers at all
     mamba: Optional[MambaConfig] = None
+    # one layer per character, repeated over the stack: M mamba, * attention,
+    # E MoE, - dense MLP; each layer one pre-norm block (nemotron-h)
+    pattern: Optional[str] = None
 
     # ffn flavor
     moe: Optional[MoEConfig] = None
@@ -116,7 +131,13 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     # ------------------------------------------------------------- pattern
+    def layer_kind(self, i: int) -> str:
+        """The ``pattern`` character of layer ``i``."""
+        return self.pattern[i % len(self.pattern)]
+
     def layer_is_attn(self, i: int) -> bool:
+        if self.pattern is not None:
+            return self.layer_kind(i) == "*"
         if self.attn_free:
             return False
         if self.attn_every is not None:
@@ -128,6 +149,8 @@ class ModelConfig:
         return bool(self.local_global_alternate and i % 2 == 0)
 
     def ffn_is_moe(self, i: int) -> bool:
+        if self.pattern is not None:
+            return self.layer_kind(i) == "E"
         return self.moe is not None and (i % self.moe.every == self.moe.every - 1)
 
     # -------------------------------------------------------------- counts
@@ -159,7 +182,12 @@ class ModelConfig:
 
     def _moe_params(self) -> int:
         m = self.moe
-        return self.d_model * m.n_experts + m.n_experts * 3 * self.d_model * m.d_ff
+        n = self.d_model * m.n_experts + m.n_experts * self._mlp_params(m.d_ff)
+        if m.dropless:
+            n += m.n_experts                 # the selection bias
+        if m.shared_d_ff:
+            n += self._mlp_params(m.shared_d_ff)
+        return n
 
     def _mamba_params(self) -> int:
         mb, D = self.mamba, self.d_model
@@ -177,6 +205,11 @@ class ModelConfig:
 
     def _block_params(self, i: int) -> int:
         D = self.d_model
+        if self.pattern is not None:
+            kind = self.layer_kind(i)
+            body = {"M": self._mamba_params, "*": self._attn_params, "E": self._moe_params,
+                    "-": lambda: self._mlp_params(self.d_ff)}[kind]
+            return body() + D
         n = 0
         if self.layer_is_attn(i):
             n += self._attn_params() + D  # + ln
@@ -202,7 +235,7 @@ class ModelConfig:
         m = self.moe
         n_moe_layers = sum(1 for i in range(self.n_layers) if self.ffn_is_moe(i))
         inactive_frac = (m.n_experts - m.top_k) / m.n_experts
-        inactive = int(n_moe_layers * m.n_experts * 3 * self.d_model * m.d_ff * inactive_frac)
+        inactive = int(n_moe_layers * m.n_experts * self._mlp_params(m.d_ff) * inactive_frac)
         return total - inactive
 
 

@@ -123,7 +123,7 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
 
 
 # ---------------------------------------------------------------------------
-# gated MLP (SwiGLU / GeGLU)
+# gated MLP (SwiGLU / GeGLU), or the 2-matrix MLP
 # ---------------------------------------------------------------------------
 
 def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: int) -> Params:
@@ -142,6 +142,8 @@ def activation(x: torch.Tensor, act: str) -> torch.Tensor:
         return torch.nn.functional.silu(x)
     if act == "gelu":
         return torch.nn.functional.gelu(x, approximate="tanh")
+    if act == "relu2":                      # nemotron-h: relu(x)^2
+        return torch.square(torch.relu(x))
     raise ValueError(act)
 
 

@@ -16,7 +16,10 @@ Counterpart of the JAX package's ``models/mamba2.py``.
   (:class:`MambaCache`) one token.
 
 Layout: x (B,S,D) -> z, xc (B,S,di), B, C (B,S,G,N), dt (B,S,Hm); the
-Hm = di / P heads share B/C within each of the G groups.
+Hm = di / P heads share B/C within each of the G groups. d_inner is
+``expand * d_model``, or ``heads * head_dim`` where the config gives the
+heads (nemotron-h); the gated norm runs over all of d_inner, or per group
+under ``norm_per_group`` (:func:`gated_norm`).
 """
 
 from __future__ import annotations
@@ -186,6 +189,21 @@ def ssd_chunked(
     return torch.cat(ys, dim=1), state
 
 
+def gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, cfg: ModelConfig
+               ) -> torch.Tensor:
+    """RMSNorm of ``y * silu(z)`` over all of d_inner, or, under
+    ``norm_per_group``, over each of the ``n_groups`` runs of d_inner /
+    n_groups channels (nemotron-h's grouped gated norm)."""
+    g = y * F.silu(z.to(torch.float32)).to(y.dtype)
+    mb = cfg.mamba
+    if not mb.norm_per_group or mb.n_groups == 1:
+        return rmsnorm(g, scale, cfg.norm_eps)
+    lead, di = g.shape[:-1], g.shape[-1]
+    G = mb.n_groups
+    out = rmsnorm(g.reshape(*lead, G, di // G), scale.reshape(G, di // G), cfg.norm_eps)
+    return out.reshape(*lead, di)
+
+
 def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Training mixer: project -> conv -> SSD -> gate -> out. x: (B,S,D)."""
     mb = cfg.mamba
@@ -200,7 +218,7 @@ def mamba_forward(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y, _ = ssd_chunked(xh, dt, A, Bv, Cv, min(mb.chunk, S))
     y = y + xh * p["D_skip"][None, None, :, None].to(y.dtype)
     y = y.reshape(B_, S, di)
-    y = rmsnorm(y * F.silu(z.to(torch.float32)).to(y.dtype), p["norm"], cfg.norm_eps)
+    y = gated_norm(y, z, p["norm"], cfg)
     return torch.einsum("bsi,id->bsd", y, p["out"].to(y.dtype))
 
 
@@ -228,7 +246,7 @@ def mamba_prefill(p, x: torch.Tensor, cfg: ModelConfig, ssd_impl: str = "auto"
                                       impl=ssd_impl)
     y = y + xh * p["D_skip"][None, None, :, None].to(y.dtype)
     y = y.reshape(B_, S, di)
-    y = rmsnorm(y * F.silu(z.to(torch.float32)).to(y.dtype), p["norm"], cfg.norm_eps)
+    y = gated_norm(y, z, p["norm"], cfg)
     out = torch.einsum("bsi,id->bsd", y, p["out"].to(y.dtype))
     return out, MambaCache(ssm=final_state, conv=conv_tail.contiguous())
 
@@ -274,6 +292,6 @@ def mamba_decode_step(p, x_t: torch.Tensor, cache: MambaCache, cfg: ModelConfig
     y = torch.einsum("bhn,bhpn->bhp", Ch.to(f32), new_ssm)
     y = y + xh.to(f32) * p["D_skip"][None, :, None]
     y = y.reshape(B_, 1, di).to(x_t.dtype)
-    y = rmsnorm(y * F.silu(z.to(f32)).to(y.dtype), p["norm"], cfg.norm_eps)
+    y = gated_norm(y, z, p["norm"], cfg)
     out = torch.einsum("bsi,id->bsd", y, p["out"].to(y.dtype))
     return out, MambaCache(ssm=new_ssm, conv=new_conv.contiguous())

@@ -28,6 +28,27 @@ merges the batch into one group; ``groups`` says how many groups such a
 batch holds (a serving decoder that folds several replicas' lanes into one
 batch passes its number of replicas, each replica one group as under the
 reference's per-replica ``shard_map``).
+
+A config with ``moe.dropless`` (nemotron-h; the port's own, no counterpart
+in the JAX package) takes the second path, :func:`moe_dropless`, where no
+assignment is dropped and groups do not matter:
+
+- routing: the float32 router product (TF32 off), the scores
+  ``sigmoid(logits)``, the top-K chosen by ``scores + router_bias`` (a
+  stable descending sort) and weighted by the chosen unbiased scores over
+  their sum (+ 1e-20), times ``routed_scale``;
+- experts: the T*K assignments sorted by expert (a stable sort), each
+  expert's run one group of :func:`grouped_mm` (``torch._grouped_mm``: the
+  group sizes are cumulative offsets on the device, so nothing waits for the
+  host, and an expert no token chose reads no weight), each
+  ``down(act(up(x)))`` (no gate: a dropless config with ``gated_mlp``
+  raises);
+- combine: each token's K outputs times their weights summed in float32,
+  rounded once to the compute dtype, plus the shared expert's output
+  (``shared_d_ff``).
+
+:func:`count_routes` tallies each call's assignments, the experts they hit
+and the dropped ones (none), on the device.
 """
 
 from __future__ import annotations
@@ -49,12 +70,33 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig) -> Params:
     D, E, F = cfg.d_model, m.n_experts, m.d_ff
     dt = dtype_of(cfg.param_dtype)
     std_in, std_out = D ** -0.5, F ** -0.5
-    return {
-        "router": truncated_normal(gen, (D, E), std_in, torch.float32),
-        "wi": truncated_normal(gen, (E, D, F), std_in, dt),
-        "wg": truncated_normal(gen, (E, D, F), std_in, dt),
-        "wo": truncated_normal(gen, (E, F, D), std_out, dt),
-    }
+    if not m.dropless:
+        return {
+            "router": truncated_normal(gen, (D, E), std_in, torch.float32),
+            "wi": truncated_normal(gen, (E, D, F), std_in, dt),
+            "wg": truncated_normal(gen, (E, D, F), std_in, dt),
+            "wo": truncated_normal(gen, (E, F, D), std_out, dt),
+        }
+    _no_gate(cfg)
+    # the selection bias is trained to balance the load; drawn small here
+    # (its published init is 0)
+    p = {"router": truncated_normal(gen, (D, E), std_in, torch.float32),
+         "router_bias": truncated_normal(gen, (E,), 0.05, torch.float32)}
+    p.update(_init_expert(gen, (E,), D, F, dt))
+    if m.shared_d_ff:
+        p["shared"] = _init_expert(gen, (), D, m.shared_d_ff, dt)
+    return p
+
+
+def _no_gate(cfg: ModelConfig) -> None:
+    if cfg.gated_mlp:
+        raise ValueError(f"{cfg.name}: a dropless MoE takes experts without a gate "
+                         "(gated_mlp must be False)")
+
+
+def _init_expert(gen, lead, D: int, F: int, dt) -> Params:
+    return {"wi": truncated_normal(gen, lead + (D, F), D ** -0.5, dt),
+            "wo": truncated_normal(gen, lead + (F, D), F ** -0.5, dt)}
 
 
 def capacity(tokens_per_group: int, cfg: ModelConfig) -> int:
@@ -164,13 +206,101 @@ def count_drops() -> Iterator[Dict[str, List[torch.Tensor]]]:
         _TALLY = prev
 
 
+# the routing tally of :func:`count_routes`, None outside it
+_ROUTES: Optional[Dict[str, List[torch.Tensor]]] = None
+
+
+@contextmanager
+def count_routes() -> Iterator[Dict[str, List[torch.Tensor]]]:
+    """Inside the block every :func:`moe_dropless` appends an int64 tensor
+    ``[assignments, experts hit, dropped]`` on the input's device (no wait
+    for the device) to the list under ``"prefill"`` (S > 1) or ``"decode"``
+    (S == 1) of the yielded dict, in call order."""
+    global _ROUTES
+    prev, _ROUTES = _ROUTES, {}
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = prev
+
+
+def grouped_mm(a: torch.Tensor, b: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """Rows of ``a`` (A, K) in runs, run g ending at ``offs[g]`` ((G,) int32,
+    cumulative, ``offs[-1] == A``), each times its ``b[g]`` (G, K, N): (A, N)
+    in a's dtype. An empty run reads nothing of its ``b[g]``."""
+    return torch._grouped_mm(a, b, offs=offs)
+
+
+def _expert_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                offs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``down(act(up(x)))``: the routed experts over runs ``offs`` of x
+    (A, D), or, with ``offs`` None, one expert on every row."""
+    cdt = x.dtype
+
+    def mm(t, w):
+        w = w.to(cdt)
+        return t @ w if offs is None else grouped_mm(t, w, offs)
+
+    return mm(activation(mm(x, p["wi"]), cfg.act), p["wo"])
+
+
+def route_dropless(p: Params, x: torch.Tensor, cfg: ModelConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dropless router on x (T, D): (weights (T, K) float32, experts
+    (T, K) int64, best first, ties to the lower index)."""
+    m = cfg.moe
+    K = m.top_k
+    with _ieee_f32():
+        logits = x.to(torch.float32) @ p["router"].to(torch.float32)
+    scores = torch.sigmoid(logits)
+    choice = scores + p["router_bias"].to(torch.float32)
+    top_e = torch.sort(choice, dim=-1, descending=True, stable=True).indices[:, :K]
+    top_w = scores.gather(1, top_e)
+    top_w = top_w / (top_w.sum(-1, keepdim=True) + 1e-20) * m.routed_scale
+    return top_w, top_e
+
+
+def moe_dropless(p: Params, x: torch.Tensor, cfg: ModelConfig
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """x: (B, S, D) -> (out (B, S, D), zero aux losses): every token's K
+    assignments computed (see the module docstring); nothing here waits for
+    the host."""
+    m = cfg.moe
+    _no_gate(cfg)
+    B, S, D = x.shape
+    E, K = m.n_experts, m.top_k
+    x2 = x.reshape(B * S, D)
+    T, A = B * S, B * S * K
+    top_w, top_e = route_dropless(p, x2, cfg)
+    flat = top_e.reshape(A)
+    order = torch.sort(flat, stable=True).indices
+    sorted_e = flat[order]
+    experts = torch.arange(E, device=x.device)
+    offs = torch.searchsorted(sorted_e, experts, right=True)            # (E,) cumulative
+    if _ROUTES is not None:
+        counts = torch.diff(offs, prepend=offs.new_zeros(1))
+        _ROUTES.setdefault("decode" if S == 1 else "prefill", []).append(torch.stack([
+            offs.new_full((), A), (counts > 0).sum(), A - offs[-1]]))
+    ys = _expert_ffn(p, x2[order // K], cfg, offs.to(torch.int32))      # (A, D) by expert
+    y = torch.empty_like(ys)
+    y[order] = ys                                                        # (T*K, D) by token
+    out = (y.view(T, K, D).to(torch.float32) * top_w[..., None]).sum(1).to(x.dtype)
+    if m.shared_d_ff:
+        out = out + _expert_ffn(p["shared"], x2, cfg)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return out.view(B, S, D), {"moe_aux": zero, "moe_zloss": zero}
+
+
 def moe_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, groups: Optional[int] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, D) -> (out (B, S, D), {"moe_aux", "moe_zloss"}). Routing,
     capacity and the gather and combine are per group: a batch row, or at
     decode (S == 1, B > 1) one of ``groups`` equal runs of rows (one group
-    when None, as the reference)."""
+    when None, as the reference). A dropless config goes to
+    :func:`moe_dropless`."""
     m = cfg.moe
+    if m.dropless:
+        return moe_dropless(p, x, cfg)
     B, S, D = x.shape
     decode, orig_shape = S == 1, None
     if decode and B > 1:

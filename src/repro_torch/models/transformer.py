@@ -14,6 +14,15 @@ compiled to a list of :class:`LayerDesc` per *scan unit*:
 - hybrid (jamba):                  unit = [attn+mlp, (mamba+moe, mamba+mlp)
                                            alternating x7],      L/8 units
 - whisper decoder:                 unit = [attn+cross+mlp],      L units
+- pattern (nemotron-h):            unit = one layer per character of
+                                   ``cfg.pattern``: M [mamba], * [attn],
+                                   E [moe], - [mlp],             L/len units
+
+A pattern layer is one pre-norm block ``h + sub(RMSNorm(h))`` with a mixer
+and no FFN (M, *) or an FFN and no mixer (E, -); its one norm is ``ln``.
+Its attention takes no rope under ``cfg.rope = False`` (NoPE). Each MoE
+layer of a prefill or decode call is a ``model.moe`` device span (routing,
+experts, shared expert and combine).
 
 Units are stacked on a leading layer axis as in the reference (its
 ``lax.scan`` layout), and the forward loops over them. The hybrid unit is
@@ -71,6 +80,7 @@ import torch.nn.functional as F
 
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import telemetry
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import moe as moe_lib
@@ -96,7 +106,7 @@ Params = Dict[str, Any]
 
 @dataclass(frozen=True)
 class LayerDesc:
-    mixer: str                  # "attn" | "mamba"
+    mixer: Optional[str]        # "attn" | "mamba" | None (a pattern's FFN-only layer)
     local: bool = False         # sliding-window attention
     ffn: Optional[str] = None   # "dense" | "moe" | None
     cross: bool = False         # cross-attention (whisper decoder)
@@ -104,6 +114,10 @@ class LayerDesc:
 
 def scan_unit(cfg: ModelConfig) -> List[LayerDesc]:
     """The per-unit layer pattern for this config (see module docstring)."""
+    if cfg.pattern is not None:
+        kinds = {"M": ("mamba", None), "*": ("attn", None), "E": (None, "moe"),
+                 "-": (None, "dense")}
+        return [LayerDesc(kinds[c][0], ffn=kinds[c][1]) for c in cfg.pattern]
     if cfg.family == "ssm":
         return [LayerDesc("mamba", ffn=None if cfg.no_ffn else "dense")]
     if cfg.family == "hybrid":
@@ -155,6 +169,8 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
 
 
 def _rope_qk(q, k, positions, cfg: ModelConfig):
+    if not cfg.rope:
+        return q.contiguous(), k.contiguous()
     if cfg.mrope_sections is not None:
         return (apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections),
                 apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections))
@@ -216,11 +232,22 @@ def _attn_out(p: Params, out: torch.Tensor) -> torch.Tensor:
 def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig, desc: LayerDesc,
          groups: Optional[int] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """The FFN sub-layer on ``h`` (before the residual add) and, for a MoE
-    layer, its aux losses. ``groups`` is the MoE's decode groups."""
-    hn = rmsnorm(h, p["ln2"], cfg.norm_eps)
+    layer, its aux losses. ``groups`` is the MoE's decode groups. A layer
+    without a mixer has one norm, ``ln``."""
+    hn = rmsnorm(h, p["ln2" if desc.mixer is not None else "ln"], cfg.norm_eps)
     if desc.ffn == "moe":
         return moe_lib.moe_apply(p["ffn"], hn, cfg, groups)
     return mlp_apply(p["ffn"], hn, cfg), None
+
+
+def _serve_ffn(p: Params, h: torch.Tensor, cfg: ModelConfig, desc: LayerDesc,
+               groups: Optional[int] = None) -> torch.Tensor:
+    """:func:`_ffn`'s output in a prefill or decode call, a MoE layer inside
+    a ``model.moe`` device span."""
+    if desc.ffn != "moe":
+        return _ffn(p, h, cfg, desc, groups)[0]
+    with telemetry.get_recorder().span("model.moe", cat="model", device=h.device):
+        return _ffn(p, h, cfg, desc, groups)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -234,13 +261,14 @@ def init_unit(gen: torch.Generator, cfg: ModelConfig) -> Params:
         lp: Params = {"ln": init_rmsnorm(cfg.d_model, pdt, gen.device)}
         if d.mixer == "attn":
             lp["attn"] = init_attention(gen, cfg)
-        else:
+        elif d.mixer == "mamba":
             lp["mamba"] = mamba_lib.init_mamba(gen, cfg)
         if d.cross:
             lp["cross_ln"] = init_rmsnorm(cfg.d_model, pdt, gen.device)
             lp["cross"] = init_attention(gen, cfg)
         if d.ffn is not None:
-            lp["ln2"] = init_rmsnorm(cfg.d_model, pdt, gen.device)
+            if d.mixer is not None:
+                lp["ln2"] = init_rmsnorm(cfg.d_model, pdt, gen.device)
             lp["ffn"] = (moe_lib.init_moe(gen, cfg) if d.ffn == "moe"
                          else init_mlp(gen, cfg, cfg.d_ff))
         p[f"L{j}"] = lp
@@ -318,6 +346,8 @@ def init_unit_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> 
                 shape = (batch, cfg.enc_frames, cfg.n_kv_heads, cfg.head_dim)
                 cache[f"cross{j}"] = KVCache(k=torch.zeros(shape, dtype=cdt, device=device),
                                              v=torch.zeros(shape, dtype=cdt, device=device))
+            continue
+        if d.mixer is None:
             continue
         mb = cfg.mamba
         Hm = mb.n_heads(cfg.d_model)
@@ -423,20 +453,21 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: ModelConfig, max_len: int
         entries = {}
         for j, d in enumerate(descs):
             p = unit_p[f"L{j}"]
-            hn = rmsnorm(h, p["ln"], cfg.norm_eps)
-            if d.mixer == "attn":
-                out, entries[f"kv{j}"] = attn_prefill(p["attn"], hn, positions, cfg, d,
-                                                      max_len, impl)
-            else:
-                out, entries[f"mamba{j}"] = mamba_lib.mamba_prefill(p["mamba"], hn, cfg,
-                                                                    impl)
-            h = h + out
+            if d.mixer is not None:
+                hn = rmsnorm(h, p["ln"], cfg.norm_eps)
+                if d.mixer == "attn":
+                    out, entries[f"kv{j}"] = attn_prefill(p["attn"], hn, positions, cfg, d,
+                                                          max_len, impl)
+                else:
+                    out, entries[f"mamba{j}"] = mamba_lib.mamba_prefill(p["mamba"], hn, cfg,
+                                                                        impl)
+                h = h + out
             if d.cross:
                 hc = rmsnorm(h, p["cross_ln"], cfg.norm_eps)
                 out, entries[f"cross{j}"] = cross_prefill(p["cross"], hc, enc_out, cfg, impl)
                 h = h + out
             if d.ffn is not None:
-                h = h + _ffn(p, h, cfg, d)[0]
+                h = h + _serve_ffn(p, h, cfg, d)
         caches.append(entries)
     h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
     logits = lm_logits(params["embed"], h[:, -1:], cfg)
@@ -510,20 +541,22 @@ def decode_step(params: Params, cache: Dict, token: torch.Tensor, cfg: ModelConf
         unit_c = tree_map(lambda t: t[u], cache["units"])
         for j, d in enumerate(descs):
             p = unit_p[f"L{j}"]
-            hn = rmsnorm(h, p["ln"], cfg.norm_eps)
-            if d.mixer == "attn":
-                out = attn_decode(p["attn"], hn, unit_c[f"kv{j}"], pos, cfg, positions, impl)
-            else:
-                out, new = mamba_lib.mamba_decode_step(p["mamba"], hn, unit_c[f"mamba{j}"],
-                                                       cfg)
-                tree_map(lambda dst, src: dst.copy_(src), unit_c[f"mamba{j}"], new)
-            h = h + out
+            if d.mixer is not None:
+                hn = rmsnorm(h, p["ln"], cfg.norm_eps)
+                if d.mixer == "attn":
+                    out = attn_decode(p["attn"], hn, unit_c[f"kv{j}"], pos, cfg, positions,
+                                      impl)
+                else:
+                    out, new = mamba_lib.mamba_decode_step(p["mamba"], hn,
+                                                           unit_c[f"mamba{j}"], cfg)
+                    tree_map(lambda dst, src: dst.copy_(src), unit_c[f"mamba{j}"], new)
+                h = h + out
             if d.cross:
                 hc = rmsnorm(h, p["cross_ln"], cfg.norm_eps)
                 h = h + cross_decode(p["cross"], hc, unit_c[f"cross{j}"], cache["enc_len"],
                                      cfg, impl)
             if d.ffn is not None:
-                h = h + _ffn(p, h, cfg, d, groups)[0]
+                h = h + _serve_ffn(p, h, cfg, d, groups)
     h = rmsnorm(h, params["final_ln"], cfg.norm_eps)
     logits = lm_logits(params["embed"], h, cfg)
     return logits, {**cache, "pos": cache["pos"] + 1}
@@ -575,14 +608,14 @@ def _unit_forward(h: torch.Tensor, unit_p: Params, positions: torch.Tensor,
     aux = _zero_aux(h.device)
     for j, d in enumerate(scan_unit(cfg)):
         p = unit_p[f"L{j}"]
-        hn = rmsnorm(h, p["ln"], cfg.norm_eps)
         if d.mixer == "attn":
+            hn = rmsnorm(h, p["ln"], cfg.norm_eps)
             q, k, v = _qkv(p["attn"], hn, cfg)
             q, k = _rope_qk(q, k, positions, cfg)
             out = flash_attention_train(q, k, v, _attn_spec(cfg, d), impl)
             h = h + _attn_out(p["attn"], out)
-        else:
-            h = h + mamba_lib.mamba_forward(p["mamba"], hn, cfg)
+        elif d.mixer == "mamba":
+            h = h + mamba_lib.mamba_forward(p["mamba"], rmsnorm(h, p["ln"], cfg.norm_eps), cfg)
         if d.cross:
             hc = rmsnorm(h, p["cross_ln"], cfg.norm_eps)
             h = h + cross_attn_train(p["cross"], hc, enc_kv_for_cross(p["cross"], enc_out, cfg),

@@ -82,7 +82,9 @@ class ModelDecoder:
     """Every replica's decode state on one device, driven as one batch.
 
     ``params`` is one shared copy (the reference replicates it over its
-    replica mesh). The cache's leaves carry a leading ``(R,)`` replica axis
+    replica mesh): drawn from ``seed`` on the device, or, where the caller
+    passes its own ``params`` (a model too large for two copies on the
+    card), those, and nothing is drawn. The cache's leaves carry a leading ``(R,)`` replica axis
     (``(R, layers, batch, ...)``) and ``pos`` is one value per replica.
     ``prefill_waves`` left-pads every admitted wave into one prompt-length
     bucket and runs ONE prefill over the admitted replicas' lanes (so one
@@ -118,6 +120,7 @@ class ModelDecoder:
         max_len: int,
         seed: int = 0,
         device=None,
+        params=None,
     ):
         if cfg.enc_dec:
             # as the reference's decoder: its prefill passes only the tokens
@@ -129,8 +132,10 @@ class ModelDecoder:
         self.batch = batch
         self.max_len = max_len
         self.bundle = registry.bundle(cfg)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.params = self.bundle.init(gen)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = self.bundle.init(gen)
+        self.params = params
         units = self.bundle.init_cache(batch, max_len, self.device)["units"]
         self._cache = {
             "pos": torch.zeros((n_replicas,), dtype=torch.int32, device=self.device),

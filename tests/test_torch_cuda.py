@@ -56,6 +56,8 @@ import torch
 
 from repro_torch.kernels.flash_attention.cases import (
     BWD_CASES,
+    NEMOTRON_DECODE_CASES,
+    NEMOTRON_PREFILL_CASES,
     RECT_CASES,
     RECT_DECODE_CASES,
     SERVE_DECODE_CASES,
@@ -434,6 +436,7 @@ SSD_CASES = [
     (1, 192, 4, 64, 1, 128, 96),
     (2, 1024, 2, 64, 2, 128, 256),
     (1, 512, 256, 64, 8, 128, 256),     # jamba-1.5-large: 256 heads in 8 groups of 32
+    (2, 1024, 64, 64, 8, 128, 128),     # nemotron-3-nano: 64 heads in 8 groups, chunk 128
 ]
 
 
@@ -957,3 +960,85 @@ def test_whisper_smoke_on_kernels_matches_plain(device):
     torch.cuda.synchronize()
     cases.check_first_step(*runs["cuda"], *runs["ref"], opt, loss_rtol=1e-5, gnorm_rtol=1e-5,
                            mu_rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(range(len(NEMOTRON_PREFILL_CASES))))
+def test_flash_attention_at_nemotron_serving_shapes(device, case, dtype):
+    from repro_torch.kernels.flash_attention import cases
+
+    cases.check_prefill_case(cases.NEMOTRON_PREFILL_CASES[case], dtype, device)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", list(range(len(NEMOTRON_DECODE_CASES))))
+def test_flash_attention_decode_at_nemotron_serving_shapes(device, case, dtype):
+    from repro_torch.kernels.flash_attention import cases
+
+    cases.check_decode_case(cases.NEMOTRON_DECODE_CASES[case], dtype, device)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_grouped_mm_against_a_loop(device, dtype):
+    """``moe.grouped_mm`` on the card at nemotron's expert shapes (2688 ->
+    1856) with empty, one-row and long runs: each run's rows equal its own
+    product (bf16: within one bf16 rounding of the float32 product)."""
+    from repro_torch.models import moe
+
+    g = torch.Generator(device=device).manual_seed(7)
+    sizes = [0, 1, 3, 0, 0, 40, 1, 2, 0, 17]
+    E, K, N = len(sizes), 2688, 1856
+    a = torch.randn(sum(sizes), K, generator=g, device=device).to(dtype)
+    b = (torch.randn(E, K, N, generator=g, device=device) * K ** -0.5).to(dtype)
+    offs = torch.tensor(sizes, device=device).cumsum(0).to(torch.int32)
+    got = moe.grouped_mm(a, b, offs)
+    assert got.dtype == dtype and got.shape == (a.shape[0], N)
+    start = 0
+    for e, n in enumerate(sizes):
+        want = a[start:start + n].float() @ b[e].float()
+        tol = 1e-5 if dtype == torch.float32 else 8e-3
+        torch.testing.assert_close(got[start:start + n].float(), want, rtol=tol, atol=tol)
+        start += n
+
+
+def test_nemotron_smoke_on_card(device):
+    """nemotron-3-nano's smoke config on the card: float32 prefill of 16
+    tokens and 8 decode steps within 2e-5 of the logits' largest magnitude
+    of the plain reference (TF32 off), as on the CPU; then a bf16 decode
+    step of 32 lanes under ``set_sync_debug_mode("error")``: the tick waits
+    for the host nowhere (the dropless MoE sizes its groups on the device)."""
+    import numpy as np
+
+    import nemotron_h_ref as ref
+    from test_torch_nemotron import port_logits, ref_cfg, smoke
+
+    from repro_torch.models import registry
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = smoke()
+        params = registry.bundle(cfg).init(torch.Generator(device=device).manual_seed(0))
+        tokens = torch.as_tensor(np.random.default_rng(1).integers(0, 128, 24),
+                                 device=device).long()
+        with torch.no_grad():
+            got = port_logits(params, tokens, cfg, 16)
+        with ref.exact_matmuls():
+            want = ref.logits(params, ref.hidden(params, tokens, ref_cfg(cfg)))[15:]
+        err = float((got - want).abs().max())
+        assert err <= 2e-5 * float(want.abs().max()), err
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    cfg = smoke("bfloat16")
+    b = registry.bundle(cfg)
+    params = b.init(torch.Generator(device=device).manual_seed(0))
+    tok = torch.randint(0, 128, (32, 16), device=device)
+    with torch.no_grad():
+        _, cache = b.prefill_fn(params, {"tokens": tok}, 32)
+        b.decode_fn(params, cache, {"token": tok[:, :1]})        # warm
+        torch.cuda.synchronize(device)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            b.decode_fn(params, cache, {"token": tok[:, 1:2]})
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
