@@ -83,7 +83,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    of its largest magnitude; the whole prefill's
    last-token logits and SSM states within 4x the plain path's own spread
    (its difference from the same prefill chunked at 128), since later
-   layers carry and amplify a layer's rounding differences. Prints prefill
+   layers carry and amplify a layer's rounding differences; the decode tick
+   replayed from CUDA graphs against the eager tick: two decoders over the
+   same params run one script (both replicas admitted, ticks of {0, 1}, {0}
+   and {1}, replica 1 re-admitted between them), 3 captures and 33 replays,
+   logits, tokens, caches and pos bit-identical after every call, and the
+   captured call, eager and replayed, under
+   ``torch.cuda.set_sync_debug_mode("error")``. Prints prefill
    ms per call with its bucket, decode ms per fleet tick, generated tokens
    per second of device time, peak GiB and the ``serve.*`` counters;
 4b. slice 4, serving gemma2-9b at its published config, **all 42 layers**
@@ -1693,6 +1699,7 @@ def phase_serving(device) -> dict:
         f"launches {launches} = {cfg.n_layers} x {prefill_calls} prefill calls")
 
     _wave_prefill_vs_plain(dec, res.report, device)
+    _decode_graph_vs_eager(dec, res.report, device)
     tokens = _tokens_by_request(res.report)
     del dec, res
     torch.cuda.empty_cache()
@@ -1702,6 +1709,106 @@ def phase_serving(device) -> dict:
     del dec2, res2
     torch.cuda.empty_cache()
     return {"ssd_scan": launches}
+
+
+# the [serve] graph check's script: (call, argument) in order; ticks of
+# {0, 1} 20, {0} 8 and {1} 8, so 3 captures and 33 replays
+GRAPH_SCRIPT = ([("prefill", (0, 1))] + [("step", (1, 1))] * 12 + [("step", (1, 0))] * 8
+                + [("prefill", (1,))] + [("step", (0, 1))] * 8 + [("step", (1, 1))] * 8)
+GRAPH_PROMPT = 100              # prompt tokens of the graph check's waves (bucket 128)
+
+
+def _decode_graph_vs_eager(dec, report, device) -> None:
+    """The decode tick replayed from CUDA graphs against the eager tick, bit
+    for bit: two fresh decoders over ``dec``'s params, one with its capture
+    seam removed, run ``GRAPH_SCRIPT`` call by call, and after every call
+    their logits (the prefill's last position, the tick's), tokens, caches
+    and ``pos`` are equal. The replaying decoder captures each active set
+    once and replays every later tick of it (its counters). Then the
+    captured call, once eagerly and once replayed, runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: neither synchronises."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from repro_torch import telemetry
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.serving import ModelDecoder
+
+    reqs = sorted(report.requests, key=lambda r: r.rid)
+    waves = [[r.prompt[:GRAPH_PROMPT] for r in reqs[i:i + SERVE_BATCH]]
+             for i in range(0, 3 * SERVE_BATCH, SERVE_BATCH)]
+
+    class Logged(ModelDecoder):
+        """Keeps the logits of every call."""
+
+        def _tokens(self, logits, k):
+            self.seen.append(logits.clone())
+            return super()._tokens(logits, k)
+
+    def make(graphs: bool):
+        d = Logged(dec.cfg, dec.n_replicas, dec.batch, dec.max_len, device=device,
+                   params=dec.params)
+        if not graphs:
+            d._graphs = None
+        d.seen = []
+        return d, d.seen
+
+    (eager, e_logits), (graph, g_logits) = make(False), make(True)
+    ms = {"eager": {}, "graph": {}}
+    with telemetry.record_scope() as rec:
+        for i, (call, arg) in enumerate(GRAPH_SCRIPT):
+            outs = []
+            for name, d in (("eager", eager), ("graph", graph)):
+                t0 = time.perf_counter()
+                if call == "prefill":
+                    w = {r: waves[r if i == 0 else 2] for r in arg}
+                    outs.append(list(d.prefill_waves(w).values()))
+                else:
+                    outs.append(d.step(np.array(arg, bool)).tolist())
+                    ms[name].setdefault(arg, []).append((time.perf_counter() - t0) * 1e3)
+            check(outs[0] == outs[1], f"graph check, call {i} ({call} {arg}): tokens differ")
+            check(torch.equal(e_logits[-1], g_logits[-1]),
+                  f"graph check, call {i} ({call} {arg}): logits differ, max |diff| "
+                  f"{float((e_logits[-1] - g_logits[-1]).abs().max()):.3g}")
+            check(torch.equal(eager._cache["pos"], graph._cache["pos"]) and all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(eager._cache["units"]),
+                                                  tree_leaves(graph._cache["units"]))),
+                  f"graph check, call {i} ({call} {arg}): caches differ")
+        counts = {k.rsplit(".", 1)[-1]: rec.get_counter(k) for k in (
+            "serve.decode.graph.captures", "serve.decode.graph.replays", "serve.decode.eager")}
+    ticks = sum(1 for call, _ in GRAPH_SCRIPT if call == "step")
+    check(counts == {"captures": 3, "replays": ticks - 3, "eager": ticks},
+          f"graph check: counters {counts}, want 3 captures, {ticks - 3} replays, {ticks} eager")
+
+    rs = (0, 1)
+    lanes = eager._lanes(rs)
+    tok = torch.zeros((len(rs) * dec.batch, 1), dtype=torch.int64, device=device)
+    replay, _ = graph._replays[rs]
+    torch.cuda.synchronize(device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager.bundle.decode_fn(eager.params, lanes, {"token": tok})
+        replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize(device)
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    log(f"[serve] decode from CUDA graphs vs eager, {ticks} ticks ({{0, 1}} 20, {{0}} 8, {{1}} 8) "
+        f"with a prefill between: {counts['captures']:g} captures, {counts['replays']:g} "
+        f"replays; logits, tokens, caches and pos bit-identical after every call; the "
+        f"captured call, eager and replayed, under sync debug mode \"error\": no "
+        f"synchronisation; median host ms a tick (ending in the tokens' copy), eager / "
+        f"replayed: " + ", ".join(
+            f"{set(i for i, a in enumerate(arg) if a)} {med(ms['eager'][arg]):.2f} / "
+            f"{med(ms['graph'][arg][1:]):.2f}" for arg in sorted(ms["eager"])))
+    del eager, graph, e_logits, g_logits, lanes, replay
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _split_one_call(dec, report, device, tag: str, kernel_key: str) -> None:

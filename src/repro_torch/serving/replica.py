@@ -23,7 +23,9 @@ admission queues, lane occupancy, wave admission, drain-on-churn.
 Counterpart of the JAX package's ``serving/replica.py``: ``NullDecoder`` and
 ``ReplicaFleet`` are copies; ``ModelDecoder`` keeps the reference's
 constructor, ``params`` attribute, ``_bucket``, ``prefill_waves`` and
-``step``.
+``step``. Its decode ticks replayed from CUDA graphs (:class:`CudaGraphs`,
+:func:`captures_decode`) have no counterpart: the reference's decode is one
+jitted call.
 """
 
 from __future__ import annotations
@@ -36,8 +38,8 @@ import torch
 
 from repro_torch import telemetry
 from repro_torch.device import resolve_device
-from repro_torch.models import registry
-from repro_torch.pytree import tree_map
+from repro_torch.models import registry, transformer
+from repro_torch.pytree import tree_leaves, tree_map
 from repro_torch.serving import requests as rq
 
 _NULL_MOD = 65521  # largest prime < 2**16: cheap LCG modulus
@@ -76,6 +78,67 @@ class NullDecoder:
         return (self._state % self.vocab).astype(np.int64)
 
 
+def captures_decode(cfg, device) -> bool:
+    """Whether a :class:`ModelDecoder` of ``cfg`` on ``device`` replays its
+    decode ticks from CUDA graphs: on a CUDA device, for a stack with no MoE
+    layer. A MoE layer's decode does host work on every call (its route
+    tally, its ``model.moe`` device span) that a replay would skip."""
+    return device.type == "cuda" and all(
+        d.ffn != "moe" for d in transformer.scan_unit(cfg))
+
+
+class CudaGraphs:
+    """Capture and replay of a decode call on the card. Every graph of one
+    decoder shares one memory pool (they never run at once). All decoders
+    on a device capture on one side stream: cuBLAS keeps a workspace for
+    each stream it runs on until the process ends, so a stream per decoder
+    would leave one behind per decoder, and with it the cached segment it
+    was cut from."""
+
+    _streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+    def __init__(self, device):
+        from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.kernels.ssd_scan import ssd_scan
+        from repro_torch.kernels.tdm_compress import tdm_compress
+
+        self.device = device
+        if device not in CudaGraphs._streams:
+            CudaGraphs._streams[device] = torch.cuda.Stream(device)
+        self.stream = CudaGraphs._streams[device]
+        self.pool = torch.cuda.graph_pool_handle()
+        self._launches = (flash_attention.LAUNCHES, ssd_scan.LAUNCHES, tdm_compress.LAUNCHES)
+
+    def capture(self, fn):
+        """Run ``fn`` once on the side stream, as PyTorch asks before a
+        capture (lazy set-up, such as a kernel's plan or a cuBLAS workspace,
+        stays out of the graph), then capture it there; the capture launches
+        nothing. Returns the first run's result and a replay, which relaunches
+        the captured work on the current stream and returns the graph's
+        static outputs. The kernels' launch counters count the first run and
+        every replay, and not the capture."""
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            out = fn()
+        cur.wait_stream(self.stream)
+        before = [dict(c) for c in self._launches]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
+            static = fn()
+        added = []
+        for counts, was in zip(self._launches, before):
+            added.append({k: n - was[k] for k, n in counts.items() if n != was[k]})
+            counts.update(was)
+
+        def replay():
+            graph.replay()
+            for counts, more in zip(self._launches, added):
+                for k, n in more.items():
+                    counts[k] += n
+            return static
+
+        return out, replay
 
 
 class ModelDecoder:
@@ -103,7 +166,21 @@ class ModelDecoder:
     prefill a group is a batch row on both sides. Replicas outside a call keep their cache and
     ``pos`` frozen, as under the reference's ``jnp.where`` merge (which
     computes them and discards the result; skipping them gives the same
-    outputs). Under tracing, each call is a ``serve.prefill`` or
+    outputs).
+
+    Where :func:`captures_decode` holds (a CUDA device, no MoE layer), the
+    model call of a tick is replayed from a CUDA graph, one for each set of
+    active replicas, captured on the set's first tick after a run of the
+    call that is that tick's (:class:`CudaGraphs`). The graph reads the
+    set's static inputs: its token and ``pos`` buffers, and the fold, which
+    is for one replica a view of its cache and for several the set's fold
+    buffer, filled by copy. Prefill and ``_write`` write the cache in place,
+    so its addresses hold; a replay checks them first, and raises where a
+    leaf was rebound. Rebinding ``params`` drops every graph. The recorder
+    counts each tick under ``serve.decode.graph.captures``,
+    ``serve.decode.graph.replays`` or ``serve.decode.eager``.
+
+    Under tracing, each call is a ``serve.prefill`` or
     ``serve.decode`` span; both end by copying the next tokens to the host,
     which waits for the device. Inside them the phases are device spans:
     ``serve.fold`` (decode only: the replicas' caches folded), ``serve.model``
@@ -135,6 +212,9 @@ class ModelDecoder:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.bundle.init(gen)
+        self._graphs = CudaGraphs(self.device) if captures_decode(cfg, self.device) else None
+        self._replays: Dict[tuple, tuple] = {}   # active set -> (replay, input addresses)
+        self._static: Dict[tuple, Dict] = {}     # active set -> its token, pos and fold
         self.params = params
         units = self.bundle.init_cache(batch, max_len, self.device)["units"]
         self._cache = {
@@ -146,6 +226,16 @@ class ModelDecoder:
         }
         self._last = np.zeros((n_replicas, batch), np.int64)
 
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, value) -> None:
+        # a graph reads the params it was captured with
+        self._params = value
+        self._replays.clear()
+
     @staticmethod
     def _bucket(plen: int) -> int:
         b = 8
@@ -153,19 +243,62 @@ class ModelDecoder:
             b *= 2
         return b
 
-    def _lanes(self, ridxs: Sequence[int]) -> Dict:
+    def _lanes(self, ridxs: Sequence[int], into: Optional[Dict] = None) -> Dict:
         """The cache of replicas ``ridxs`` as ``(layers, k*batch, ...)``, with
         one ``pos`` per replica. One replica's cache already has that layout
         and is returned as a view, so decode updates it in place; several are
-        concatenated into a copy."""
+        concatenated into a copy, which is ``into``'s fold buffer where the
+        set's static inputs are given (:meth:`_inputs`), as is its ``pos``."""
         rs = [int(r) for r in ridxs]
-
-        def fold(x):
-            return x[rs[0]] if len(rs) == 1 else torch.cat([x[r] for r in rs], dim=1)
-
         sel = torch.as_tensor(rs, dtype=torch.long, device=self.device)
-        return {"pos": self._cache["pos"].index_select(0, sel),
-                "units": tree_map(fold, self._cache["units"])}
+        cache = self._cache["units"]
+        if len(rs) == 1:
+            units = tree_map(lambda x: x[rs[0]], cache)
+        elif into is None:
+            units = tree_map(lambda x: torch.cat([x[r] for r in rs], dim=1), cache)
+        else:
+            units = tree_map(lambda buf, x: torch.cat([x[r] for r in rs], dim=1, out=buf),
+                             into["units"], cache)
+        pos = (self._cache["pos"].index_select(0, sel) if into is None else
+               torch.index_select(self._cache["pos"], 0, sel, out=into["pos"]))
+        return {"pos": pos, "units": units}
+
+    def _inputs(self, rs: tuple) -> Dict:
+        """The static inputs of active set ``rs``, made on its first tick:
+        its token ``(k*batch, 1)`` and ``pos`` ``(k,)`` buffers and, for
+        k > 1, its fold buffer."""
+        if rs not in self._static:
+            k = len(rs)
+            fold = None if k == 1 else tree_map(
+                lambda x: x.new_empty((x.shape[1], k * x.shape[2]) + tuple(x.shape[3:])),
+                self._cache["units"])
+            self._static[rs] = {
+                "token": torch.zeros((k * self.batch, 1), dtype=torch.int64, device=self.device),
+                "pos": torch.zeros((k,), dtype=torch.int32, device=self.device),
+                "units": fold}
+        return self._static[rs]
+
+    def _decode(self, rs: tuple, lanes: Dict, tok: torch.Tensor):
+        """The model call of a tick over active set ``rs``: eager, or the
+        replay of the set's graph, captured on its first tick."""
+        rec = telemetry.get_recorder()
+        if self._graphs is None:
+            rec.counter("serve.decode.eager")
+            return self.bundle.decode_fn(self.params, lanes, {"token": tok})
+        where = [t.data_ptr() for t in tree_leaves(lanes)] + [tok.data_ptr()]
+        if rs in self._replays:
+            replay, captured = self._replays[rs]
+            if where != captured:
+                raise RuntimeError(f"the decode graph of replicas {rs} reads a cache leaf that "
+                                   "was rebound: write the cache in place")
+            rec.counter("serve.decode.graph.replays")
+            return replay()
+        params = self.params
+        out, replay = self._graphs.capture(
+            lambda: self.bundle.decode_fn(params, lanes, {"token": tok}))
+        self._replays[rs] = (replay, where)
+        rec.counter("serve.decode.graph.captures")
+        return out
 
     def _write(self, ridxs: Sequence[int], new: Dict) -> None:
         """Write folded caches of replicas ``ridxs`` back under the replica
@@ -226,15 +359,18 @@ class ModelDecoder:
         ridxs = np.flatnonzero(active)
         if ridxs.size == 0:
             return self._last.copy()
+        rs = tuple(int(r) for r in ridxs)
+        static = None if self._graphs is None else self._inputs(rs)
         rec = telemetry.get_recorder()
         dev = self.device
         with rec.span("serve.decode", cat="serve", lanes=int(ridxs.size) * self.batch):
             # before the fold: the upload synchronises, and here the stream is idle
-            tok = torch.from_numpy(self._last[ridxs].reshape(-1, 1)).to(dev)
+            tok = torch.from_numpy(self._last[ridxs].reshape(-1, 1))
+            tok = tok.to(dev) if static is None else static["token"].copy_(tok)
             with rec.span("serve.fold", cat="serve", device=dev):
-                lanes = self._lanes(ridxs)
+                lanes = self._lanes(rs, static)
             with rec.span("serve.model", cat="serve", device=dev):
-                logits, new = self.bundle.decode_fn(self.params, lanes, {"token": tok})
+                logits, new = self._decode(rs, lanes, tok)
             with rec.span("serve.write", cat="serve", device=dev):
                 self._write(ridxs, new)
             with rec.span("serve.tokens", cat="serve", device=dev):
@@ -375,4 +511,4 @@ class ReplicaFleet:
 
 
 
-__all__ = ["ModelDecoder", "NullDecoder", "ReplicaFleet"]
+__all__ = ["CudaGraphs", "ModelDecoder", "NullDecoder", "ReplicaFleet", "captures_decode"]
