@@ -1,5 +1,5 @@
 """The attention kernels held to their plain versions on the card: the cases
-that ``chip_smoke.py`` and the card tests both run.
+that the card tests (``tests/test_torch_cuda.py``) run.
 
 Serving (:func:`check_prefill_case`, :func:`check_decode_case`): the
 prefill and the decode at the MoE serving cell's shapes (qwen3-moe-30b-a3b,
@@ -147,16 +147,16 @@ def _draw(gen, dtype, device, *shape):
 def check_prefill_case(case, dtype: torch.dtype, device, seed: int = 0) -> float:
     """Run one prefill case; raise AssertionError on any failed check.
     Returns the max |diff| from the plain version."""
-    from repro_torch.kernels.flash_attention import flash_attention as kern
+    from repro_torch import kernels
 
     B, S, H, KV, hd, causal, window, cap = case
     gen = torch.Generator(device=device).manual_seed(seed)
     q, k, v = (_draw(gen, dtype, device, B, S, n, hd) for n in (H, KV, KV))
     kw = dict(causal=causal, window=window, softcap=cap)
     what = f"prefill {case} {dtype}"
-    before = kern.launch_counts()
+    before = kernels.launch_counts()
     got = [ops.flash_attention(q, k, v, impl="cuda", **kw) for _ in range(2)]
-    after = kern.launch_counts()
+    after = kernels.launch_counts()
     torch.cuda.synchronize(device)
     assert torch.equal(got[0], got[1]), f"{what}: two launches differ"
     wgmma = after["flash_attention_fwd_wgmma"] - before["flash_attention_fwd_wgmma"]
@@ -199,7 +199,7 @@ def check_rect_case(case, dtype: torch.dtype, device, seed: int = 0) -> Dict[str
     forward's output equal to the lse-less one bit for bit. Raises
     AssertionError on any failed check; returns the max |diff| of the
     output, the lse and each gradient."""
-    from repro_torch.kernels.flash_attention import flash_attention as kern
+    from repro_torch import kernels
 
     B, Sq, Skv, H, KV, hd, causal, window, cap = case
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -207,9 +207,9 @@ def check_rect_case(case, dtype: torch.dtype, device, seed: int = 0) -> Dict[str
     k, v = (_draw(gen, dtype, device, B, Skv, KV, hd) for _ in range(2))
     kw = dict(causal=causal, window=window, softcap=cap)
     what = f"rect {case} {dtype}"
-    before = kern.launch_counts()
+    before = kernels.launch_counts()
     plain = [ops.flash_attention(q, k, v, impl="cuda", **kw) for _ in range(2)]
-    after = kern.launch_counts()
+    after = kernels.launch_counts()
     torch.cuda.synchronize(device)
     assert torch.equal(plain[0], plain[1]), f"{what}: two launches differ"
     wgmma = after["flash_attention_fwd_wgmma"] - before["flash_attention_fwd_wgmma"]

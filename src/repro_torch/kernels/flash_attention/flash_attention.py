@@ -79,15 +79,6 @@ LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0, "flash_attention_fwd_wgmma
                             "flash_attention_decode": 0, "flash_attention_bwd": 0}
 
 
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
-
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _D = ctypes.c_double

@@ -14,10 +14,13 @@ CUDA kernel is held against on the card. Counterpart of the JAX package's
 - :func:`ssd_tolerance`: the bound two chunked scans of the same inputs are
   held to (the kernel against :func:`ssd_scan_ref` on the card, the plain
   version against the reference's kernel on the CPU).
+- :func:`init_inputs`: one scan's inputs drawn as the model's init draws
+  dt and A, which the card's checks of the kernel feed it.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -51,6 +54,22 @@ def ssd_close(got: torch.Tensor, want: torch.Tensor) -> Tuple[bool, float]:
         return False, float("nan")
     diff = (g - w).abs()
     return bool((diff <= ssd_tolerance(want)).all()), float(diff.max()) if diff.numel() else 0.0
+
+
+def init_inputs(gen: torch.Generator, shape: Tuple[int, ...], dtype: torch.dtype):
+    """(x, dt, A, B, C) of one scan in the model's layout, drawn from ``gen``
+    on its device; ``shape`` is (batch, S, H, P, G, N). x, B and C are
+    N(0, 1) in ``dtype``; dt is log-uniform in [1e-3, 0.1] and A is
+    -U(1, 16), as ``models.mamba2.init_mamba`` draws them."""
+    b, s, h, p, g, n = shape
+    dev = gen.device
+    x = torch.randn(b, s, h, p, generator=gen, device=dev).to(dtype)
+    bv = torch.randn(b, s, g, n, generator=gen, device=dev).to(dtype)
+    cv = torch.randn(b, s, g, n, generator=gen, device=dev).to(dtype)
+    u = torch.rand(b, s, h, generator=gen, device=dev)
+    dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    a = -(1.0 + 15.0 * torch.rand(h, generator=gen, device=dev))
+    return x, dt, a, bv, cv
 
 
 def ssd_scan_ref(

@@ -39,15 +39,6 @@ _MAX_GRID = 2**31 - 1
 LAUNCHES: Dict[str, int] = {"ssd_scan": 0}
 
 
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
-
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _FN = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}

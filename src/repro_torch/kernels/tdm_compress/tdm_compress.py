@@ -55,15 +55,6 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
-
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 _SIGNATURES = {

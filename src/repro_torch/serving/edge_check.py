@@ -13,9 +13,9 @@ local layer's ring of 16 slots engaged.
   local and global layers' attention, on the wave's prompts and on the
   caches the ticks left, lies within ``fa_tolerance`` of the plain version.
 
-The launch counters are zeroed before each run. It raises
-``AssertionError`` on the first check that fails. ``chip_smoke.py`` and the
-card tests (``tests/test_torch_cuda.py``) both run it.
+The launch counters are zeroed before each run, and no kernel but the named
+attention ones may launch. It raises ``AssertionError`` on the first check
+that fails. The card tests (``tests/test_torch_cuda.py``) run it.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch import kernels
+
 EDGE_TICKS = 24
 
 
@@ -33,12 +35,16 @@ def _require(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def _launched() -> Dict[str, int]:
+    """The kernels launched since the counters were zeroed, by name."""
+    return {k: n for k, n in kernels.launch_counts().items() if n}
+
+
 def dense_edge_check(device, arch: str = "gemma2-9b", ticks: int = EDGE_TICKS) -> Dict:
     """Run the check on ``device`` (CUDA); returns what it saw: the prompt
     lengths, the bf16 run's launches, each checked layer's cache and
     kv_len, and the largest |kernel - plain| of the attention checks."""
     from repro_torch.configs import archs
-    from repro_torch.kernels.flash_attention import flash_attention as fa_kern
     from repro_torch.kernels.flash_attention import ops, ref
     from repro_torch.models import transformer
     from repro_torch.models.layers import embed_tokens, rmsnorm
@@ -59,28 +65,25 @@ def dense_edge_check(device, arch: str = "gemma2-9b", ticks: int = EDGE_TICKS) -
     gpu = ModelDecoder(cfg, 2, 2, max_len, seed=3, device=device)
     cpu = ModelDecoder(cfg, 2, 2, max_len, seed=3, device="cpu")
     cpu.params = tree_map(lambda t: t.cpu(), gpu.params)
-    fa_kern.reset_launch_counts()
+    kernels.reset_launch_counts()
     _require(gpu.prefill_waves(waves) == cpu.prefill_waves(waves),
              "f32: first tokens differ from a CPU decoder's")
     for t in range(ticks):
         _require(bool((gpu.step(both) == cpu.step(both)).all()),
                  f"f32: tick {t} differs from a CPU decoder's")
-    want = {"flash_attention_fwd": cfg.n_layers, "flash_attention_fwd_wgmma": 0,
-            "flash_attention_decode": cfg.n_layers * ticks, "flash_attention_bwd": 0}
-    _require(fa_kern.launch_counts() == want,
-             f"f32: launches {fa_kern.launch_counts()} != {want}")
+    want = {"flash_attention_fwd": cfg.n_layers, "flash_attention_decode": cfg.n_layers * ticks}
+    _require(_launched() == want, f"f32: launches {_launched()} != {want}")
     del gpu, cpu
 
     cfg = base
     dec = ModelDecoder(cfg, 2, 2, max_len, seed=3, device=device)
-    fa_kern.reset_launch_counts()
+    kernels.reset_launch_counts()
     dec.prefill_waves(waves)
     for _ in range(ticks):
         dec.step(both)
     want = {"flash_attention_fwd": cfg.n_layers, "flash_attention_fwd_wgmma": cfg.n_layers,
-            "flash_attention_decode": cfg.n_layers * ticks, "flash_attention_bwd": 0}
-    _require(fa_kern.launch_counts() == want,
-             f"bf16: launches {fa_kern.launch_counts()} != {want}")
+            "flash_attention_decode": cfg.n_layers * ticks}
+    _require(_launched() == want, f"bf16: launches {_launched()} != {want}")
     _require(int(dec._cache["pos"].min()) > cfg.sliding_window,
              "the ticks did not pass the window")
 

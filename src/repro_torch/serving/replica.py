@@ -36,7 +36,7 @@ from typing import Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import telemetry
+from repro_torch import kernels, telemetry
 from repro_torch.device import resolve_device
 from repro_torch.models import registry, transformer
 from repro_torch.pytree import tree_leaves, tree_map
@@ -98,16 +98,11 @@ class CudaGraphs:
     _streams: Dict[torch.device, "torch.cuda.Stream"] = {}
 
     def __init__(self, device):
-        from repro_torch.kernels.flash_attention import flash_attention
-        from repro_torch.kernels.ssd_scan import ssd_scan
-        from repro_torch.kernels.tdm_compress import tdm_compress
-
         self.device = device
         if device not in CudaGraphs._streams:
             CudaGraphs._streams[device] = torch.cuda.Stream(device)
         self.stream = CudaGraphs._streams[device]
         self.pool = torch.cuda.graph_pool_handle()
-        self._launches = (flash_attention.LAUNCHES, ssd_scan.LAUNCHES, tdm_compress.LAUNCHES)
 
     def capture(self, fn):
         """Run ``fn`` once on the side stream, as PyTorch asks before a
@@ -122,20 +117,16 @@ class CudaGraphs:
         with torch.cuda.stream(self.stream):
             out = fn()
         cur.wait_stream(self.stream)
-        before = [dict(c) for c in self._launches]
+        before = kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
             static = fn()
-        added = []
-        for counts, was in zip(self._launches, before):
-            added.append({k: n - was[k] for k, n in counts.items() if n != was[k]})
-            counts.update(was)
+        added = {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
+        kernels.add_launch_counts({k: -n for k, n in added.items()})
 
         def replay():
             graph.replay()
-            for counts, more in zip(self._launches, added):
-                for k, n in more.items():
-                    counts[k] += n
+            kernels.add_launch_counts(added)
             return static
 
         return out, replay

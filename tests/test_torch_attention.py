@@ -46,6 +46,7 @@ from repro.kernels.flash_attention import ref as j_fa_ref
 from repro.configs import archs as j_archs
 from repro.models import attention as j_attn
 from repro.models import transformer as j_transformer
+from repro_torch import kernels
 from repro_torch.configs import archs
 from repro_torch.kernels.flash_attention import flash_attention as kern
 from repro_torch.kernels.flash_attention import ops, ref
@@ -220,7 +221,7 @@ def test_dense_training_forward_raises():
 
 
 def test_wrappers_check_and_cpu_never_reaches_a_kernel():
-    before = kern.launch_counts()
+    before = kernels.launch_counts()
     q = torch.zeros(1, 8, 4, 16)
     k = torch.zeros(1, 8, 2, 16)
     kl = torch.ones(1, dtype=torch.int32)
@@ -245,4 +246,4 @@ def test_wrappers_check_and_cpu_never_reaches_a_kernel():
         ops.flash_attention(q, k, k, impl="pallas")
     ops.flash_attention(q, k, k)
     ops.flash_attention_decode(q[:, :1], k, k, kl)
-    assert kern.launch_counts() == before
+    assert kernels.launch_counts() == before

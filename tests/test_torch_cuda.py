@@ -1,59 +1,51 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's correctness on the card: the CUDA kernels against their plain
+PyTorch versions, and the paths that run them at smoke widths.
 
 Marked ``cuda``; each test skips (from a fixture) when no CUDA device is
 present. Run on a machine with an H100:
 
     python -m pytest -m cuda tests/test_torch_cuda.py
 
-Standards as in ``chip_smoke.py``: int8 codes and scales, codes with given
-(shared or per-row) scales, dequantized values and top-k dense/vals/idxs bit
-for bit, on both top-k paths (select and sort, split at
-``TOPK_SELECT_MAX_K``) with normal, tied, all-equal and NaN/inf payloads;
-the weighted accumulates within one rounding of the product and of
-the sum (the kernels fuse the multiply-add, the plain versions round twice),
-the unit-weight accumulate bit for bit (both round once); one int8 and one
-topk FL round on the small model through the kernels, held to the same round
-through the plain versions, and the int8 ground-segment exchange through the
-kernels equal to it through the plain versions bit for bit; the int8
-gossip's fold bit for bit against the chain of dequant-accumulate launches
-it replaces (0 to 3 matchings, idle rows and rows of degree 2 and more,
-ragged chunks and blocks), and a fused int8 round launching one fold per
-dtype bucket and no dequant-accumulate. The SSD-scan
-kernel against its plain version within ``ssd_scan.ref.ssd_tolerance`` (1e-4
-of the output's scale, plus one bf16 ulp for bf16 outputs), y and state
-finite, on ragged cases and on strong decay at chunk 256, four calls at
-the serving shape bit-identical; and a ``ModelDecoder`` prefill and decode
-tick on the card. The attention kernels
-(prefill and decode) against their plain version within
-``flash_attention.ref.fa_tolerance`` (1e-5 of the output's scale, plus one
-bf16 ulp for bf16 outputs) on head dims 16 to 256, G 1 to 4, causal,
-window and softcap, ragged S (up to 4608, past gemma2-9b's window 4096)
-and per-row kv_len (caches up to 8192 slots, split into many chunks), two
-launches bit-identical, bf16 prefills counted on the tensor-core kernel;
-and gemma2-9b smoke ``ModelDecoder`` runs on the card: a prefill and tick,
-and one prefill call admitting both replicas in a bucket-256 wave followed
-by ticks past the window (the local ring engaged). The MoE serving cell's
-attention shapes (``kernels/flash_attention/cases.py``: qwen3-moe-30b-a3b's
-GQA group of 8 at hd 128, no softcap; the prefill at 4 and 8 lanes and
-bucket 512, the decode at 8 lanes with ragged kv_len), and a
-qwen3-moe smoke ``ModelDecoder`` on the card against the CPU's. Training attention
-(``kernels/flash_attention/cases.py``, as ``chip_smoke.py`` runs it): the
-forward's lse and ``flash_attention_bwd`` against their plain versions,
-f32 and bf16, each launched twice bit-identical; and one train step of the
-gemma2-9b smoke config on the kernels against the same step on the plain
-versions (``impl="ref"``) on the card. The rectangular and padded cases
-(``cases.RECT_CASES``: whisper-base's encoder and cross-attention shapes,
-its training cell's causal self-attention, Skv 1500, causal rectangles both
-ways, head dims 112 and 40; the decode at whisper-base's cross and self
-shapes, at hd 112 and at qwen2-vl-72b's heads), and the whisper-base
-smoke config's prefill, decode ticks and train step on the card.
+The exchange kernels: int8 codes and scales, codes with given (shared or
+per-row) scales, dequantized values and top-k dense/vals/idxs bit for bit,
+on both top-k paths (select and sort, split at ``TOPK_SELECT_MAX_K``; k 0
+launches nothing) with normal, tied, all-equal and NaN/inf payloads; the
+weighted accumulates (int8 and int16 codes, weights of both signs) within
+one rounding of the product and of the sum (the kernels fuse the
+multiply-add, the plain versions round twice), the unit-weight accumulate
+bit for bit; the int8 gossip's fold bit for bit against the chain of
+dequant-accumulate launches it replaces. The paths through them: one int8
+and one topk FL round on the small model held to the same round through
+the plain versions, a fused int8 round launching one fold per dtype
+bucket, two-level (plane x satellite) rounds with their gathers and
+launches, the two-level int8 mix level by level against the plain
+versions, per-leaf compressed rounds, FL on the optimizer's rate
+schedule, and the int8 ground-segment exchange bit for bit against the
+plain versions. The SSD scan within ``ssd_scan.ref.ssd_tolerance`` on
+ragged, init-drawn and strong-decay cases and at the served prefill
+shapes, each launched twice bit-identical. The attention kernels (prefill,
+decode, backward) within ``flash_attention.ref.fa_tolerance`` /
+``bwd_tolerance`` on head dims 16 to 256, G 1 to 16, causal, window,
+softcap, ragged S up to 4608 and caches up to 8192 slots, rectangular and
+padded cases (``kernels/flash_attention/cases.py``), each launched twice
+bit-identical, bf16 prefills on the tensor-core kernel, the decode on two
+streams and from a CUDA graph. Serving: ``ModelDecoder`` prefill and ticks
+against a CPU decoder (mamba2, gemma2, qwen3-moe smoke configs), the
+decode tick replayed from CUDA graphs bit for bit against the eager tick
+and without a synchronise, gemma2-9b's serving edges
+(``serving/edge_check.py``), nemotron-3-nano's smoke config against its
+plain reference. Training: train steps on the kernels against the plain
+versions (gemma2-9b, whisper-base) and a microbatched step against the
+CPU, and a checkpoint round trip on the card.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch import kernels
 from repro_torch.kernels.flash_attention.cases import (
     BWD_CASES,
     NEMOTRON_DECODE_CASES,
@@ -86,37 +78,52 @@ def _clone(tree):
     return {k: t.clone() for k, t in tree.items()}
 
 
-SHAPES = [(1, 1, 64), (3, 5000, 1024), (2, 777, 64), (8, 3 * 1024, 256), (2, 1025, 4096)]
+SHAPES = [(1, 1, 64), (3, 5000, 1024), (2, 777, 64), (8, 3 * 1024, 256), (2, 1025, 4096),
+          (4, 4096, 256), (1, 3000, 128)]
 # the slice's stacked buffer: 8 nodes x the 8-layer mamba2-780m (194,384,896)
 SLICE = (8, 194_384_896, 1024)
 
 
 @pytest.mark.parametrize("rows,n,block", SHAPES + [SLICE])
 def test_quantize_and_dequant_accumulate(device, rows, n, block):
+    """Codes and scales bit for bit, the weighted accumulate within one
+    rounding of the product and of the sum; below the slice's size also on
+    a NaN / inf / -0.0 payload with weights of both signs, and on int16
+    codes (a sum of int8 ones) with a weight."""
     from repro_torch.kernels.tdm_compress import ref
     from repro_torch.kernels.tdm_compress import tdm_compress as kern
 
     g = torch.Generator(device=device).manual_seed(n)
     x = torch.randn(rows, n, generator=g, device=device) * 2
-    q, s = kern.quantize_fwd(x, block=block)
-    q_r, s_r = ref.quantize_ref(x, block)
-    assert _bits(q, q_r) and _bits(s, s_r)
     acc = torch.randn(rows, n, generator=g, device=device)
     w = torch.rand(rows, generator=g, device=device)
-    got = kern.dequant_accumulate_fwd(q, s, acc, w, block=block)
-    want = ref.dequant_acc_ref(q, s, acc, w, block)
-    prod = w[:, None] * ref.dequantize_ref(q, s, block)
-    assert bool(ref.fma_gap_ok(got, want, prod).all())
+    payloads = [(x, w)]
+    if n < 10**6:
+        payloads.append((_edge(x.clone(), g), torch.rand(rows, generator=g, device=device) * 2 - 1))
+    for x, w in payloads:
+        q, s = kern.quantize_fwd(x, block=block)
+        q_r, s_r = ref.quantize_ref(x, block)
+        assert _bits(q, q_r) and _bits(s, s_r)
+        codes = [q]
+        if n < 10**6:
+            codes.append(torch.randint(-127 * 6, 127 * 6 + 1, (rows, n), generator=g,
+                                       device=device).to(torch.int16))
+        for c in codes:
+            got = kern.dequant_accumulate_fwd(c, s, acc, w, block=block)
+            want = ref.dequant_acc_ref(c, s, acc, w, block)
+            prod = w[:, None] * ref.dequantize_ref(c, s, block)
+            assert bool(ref.fma_gap_ok(got, want, prod).all())
 
 
 def _topk_cases():
-    """(rows, n, block, k): k on both sides of the select/sort split, 1 only
-    at the slice's shape; (3, 4097, 1024) puts rows 1 and 2 off 16-byte
-    alignment, so the select paths take their scalar loads there."""
+    """(rows, n, block, k): k on both sides of the select/sort split and 0
+    (no launch), 1 only at the slice's shape; (3, 4097, 1024) puts rows 1
+    and 2 off 16-byte alignment, so the select paths take their scalar loads
+    there."""
     sel = TOPK_SELECT_MAX_K
     out = []
     for rows, n, block in SHAPES + [(3, 4097, 1024), SLICE]:
-        ks = [1] if n > 10**6 else sorted({1, 7, sel, sel + 1, block})
+        ks = [1] if n > 10**6 else sorted({0, 1, 7, sel, sel + 1, 64, block})
         out += [(rows, n, block, k) for k in ks if k <= block]
     return out
 
@@ -125,7 +132,7 @@ def _topk_cases():
 @pytest.mark.parametrize("rows,n,block,k", _topk_cases())
 def test_topk_and_scatter_accumulate(device, rows, n, block, k, kind):
     """Top-k bit for bit and the scatter within one rounding, on the path
-    that k selects (the launch counters say which)."""
+    that k selects (the launch counters say which; k 0 launches nothing)."""
     from repro_torch.kernels.tdm_compress import ref
     from repro_torch.kernels.tdm_compress import tdm_compress as kern
 
@@ -140,7 +147,7 @@ def test_topk_and_scatter_accumulate(device, rows, n, block, k, kind):
     acc = torch.randn(rows, n, generator=g, device=device)
     w = torch.rand(rows, generator=g, device=device)
     select = k <= TOPK_SELECT_MAX_K
-    kern.reset_launch_counts()
+    kernels.reset_launch_counts()
     d, v, i = kern.topk_sparsify_fwd(x, k, block=block)
     d_r, v_r, i_r = ref.topk_sparsify_ref(x, k, block)
     assert _bits(d, d_r) and _bits(v, v_r) and _bits(i, i_r)
@@ -148,9 +155,9 @@ def test_topk_and_scatter_accumulate(device, rows, n, block, k, kind):
     want = ref.scatter_acc_ref(v, i, acc, w, block)
     dense = ref.scatter_acc_ref(v, i, torch.zeros_like(acc), 1.0, block)
     assert bool(ref.fma_gap_ok(got, want, w[:, None] * dense).all())
-    counts = kern.launch_counts()
-    assert counts["topk_sparsify" if select else "topk_sparsify_sort"] == 1
-    assert counts["scatter_accumulate" if select else "scatter_accumulate_shared"] == 1
+    counts = kernels.launch_counts()
+    assert counts["topk_sparsify" if select else "topk_sparsify_sort"] == (k > 0)
+    assert counts["scatter_accumulate" if select else "scatter_accumulate_shared"] == (k > 0)
 
 
 def _edge(x, g):
@@ -208,7 +215,6 @@ def test_groundseg_exchange_through_kernels(device):
     from repro_torch.constellation import scenario
     from repro_torch.core import fused
     from repro_torch.groundseg import aggregation, routing
-    from repro_torch.kernels.tdm_compress import tdm_compress as kern
 
     scn = scenario.build_scenario(scenario.ScenarioSpec(
         shells=(scenario.ShellSpec(planes=2, per_plane=3),), n_ground=2, steps=4,
@@ -221,10 +227,10 @@ def test_groundseg_exchange_through_kernels(device):
     tree = {"a": torch.randn(8, 70_000, generator=g, device=device),
             "b": torch.randn(8, 3, 5000, generator=g, device=device) * 0.01}
     for pool in (True, False):
-        before = kern.launch_counts()
+        before = kernels.launch_counts()
         got = aggregation.groundseg_round(_clone(tree), up, down, pool=pool,
                                           compression="int8", quant_impl="cuda")
-        after = kern.launch_counts()
+        after = kernels.launch_counts()
         assert all(after[k] > before[k] for k in
                    ("quantize_scaled", "quantize", "dequant_accumulate"))
         want = aggregation.groundseg_round(_clone(tree), up, down, pool=pool,
@@ -253,8 +259,6 @@ def _fold_plan(rows: int, n_match: int, seed: int):
     ``rows`` nodes: the last row idle in every one; the first matching pairs
     all but one of the others, each later one a random subset, so rows of
     degree 0 to ``n_match`` occur."""
-    import numpy as np
-
     rng = np.random.default_rng(seed)
     src = -np.ones((n_match, rows), dtype=np.int32)
     most = (rows - 1) // 2
@@ -300,9 +304,9 @@ def test_gossip_fold_bit_identical_to_unfused_chain(device, rows, n, block, n_ma
     x = torch.randn(rows, n, generator=g, device=device) * torch.rand(
         rows, 1, generator=g, device=device) * 3
     q, s = kern.quantize_fwd(x, block=block)
-    before = kern.launch_counts()
+    before = kernels.launch_counts()
     got = kern.gossip_fold_fwd(x, q, s, src, w, diag, block=block)
-    assert kern.launch_counts()["gossip_fold"] == before["gossip_fold"] + 1
+    assert kernels.launch_counts()["gossip_fold"] == before["gossip_fold"] + 1
     assert _bits(got, _unfused_fold(x, q, s, src, w, diag, block))
     assert _bits(got, kern.gossip_fold_fwd(x, q, s, src, w, diag, block=block))
 
@@ -327,8 +331,6 @@ def test_fused_round_folds_once_per_bucket(device):
     """A fused int8 round over a two-bucket tree on the card: one quantize and
     one gossip fold per bucket, no standalone dequant-accumulate, and each
     bucket's mix bit-identical to the unfused chain on the kernels."""
-    import numpy as np
-
     from repro_torch.core import fl, fused, tdm
     from repro_torch.core.relation import Relation
     from repro_torch.kernels.tdm_compress import tdm_compress as kern
@@ -340,9 +342,9 @@ def test_fused_round_folds_once_per_bucket(device):
             "b": torch.randn(n, 7, 300, generator=g, device=device).to(torch.bfloat16),
             "c": torch.randn(n, 50, generator=g, device=device)}
     spec = fused.cached_spec(tree)
-    before = kern.launch_counts()
+    before = kernels.launch_counts()
     out, _ = fl.tdm_fla_round(tree, rel, n, fl.TDMFLAConfig(compression="int8"))
-    after = kern.launch_counts()
+    after = kernels.launch_counts()
     launched = {k: after[k] - before[k] for k in after}
     assert launched["quantize"] == launched["gossip_fold"] == len(spec.buckets) == 2
     assert launched["dequant_accumulate"] == 0
@@ -360,19 +362,18 @@ def test_fused_round_folds_once_per_bucket(device):
         assert _bits(got[bucket], want)
 
 
-@pytest.mark.parametrize("compression", ["int8", "topk"])
+@pytest.mark.parametrize("compression", ["none", "int8", "topk"])
 def test_fl_round_through_kernels(device, compression):
     """One FL round of the smoke model: local AdamW steps, then the round's
     exchange once through the kernels and once through the plain versions
-    on the same trained params. The kernels must launch, int8 codes and
-    top-k selections must agree exactly, and the mixes within
-    2 (M + 2) ulp(|x|max) per node (one fused-vs-unfused gap per
-    accumulation, see tests/test_torch_exchange.py)."""
+    on the same trained params. The kernels must launch (none without
+    compression), int8 codes and top-k selections must agree exactly, and
+    the mixes within 2 (M + 2) ulp(|x|max) per node (one fused-vs-unfused
+    gap per accumulation, see tests/test_torch_exchange.py)."""
     from repro_torch.configs import archs
     from repro_torch.constellation.scenario import ScenarioSpec, ShellSpec, build_scenario
     from repro_torch.core import fl, fused, tdm
     from repro_torch.kernels.tdm_compress import ops
-    from repro_torch.kernels.tdm_compress import tdm_compress as kern
     from repro_torch.launch import fl_train
     from repro_torch.launch.train_fl_constellation import make_batch_fn
     from repro_torch.models import registry
@@ -396,7 +397,7 @@ def test_fl_round_through_kernels(device, compression):
         q, s = ops.quantize(buf, impl="cuda")
         q_r, s_r = ops.quantize(buf, impl="ref")
         assert _bits(q, q_r) and _bits(s, s_r)
-    else:
+    elif compression == "topk":
         nb = buf.shape[1] // fused.DEFAULT_BLOCK
         k_total = min(tdm_cfg.topk_k * spec.n_leaves("float32"), buf.shape[1])
         k_b = max(1, min(fused.DEFAULT_BLOCK, -(-k_total // nb)))  # as choco_fused_round
@@ -405,23 +406,174 @@ def test_fl_round_through_kernels(device, compression):
             assert _bits(a, b)
     mixed = {}
     for impl in ("cuda", "ref"):
-        before = kern.launch_counts()
+        before = kernels.launch_counts()
         mixed[impl], _ = fl.tdm_fla_round(state["params"], rel, 8, tdm_cfg, quant_impl=impl)
-        after = kern.launch_counts()
+        after = kernels.launch_counts()
         launched = {k: after[k] - before[k] for k in after}
-        if impl == "ref":
+        if impl == "ref" or compression == "none":
             assert sum(launched.values()) == 0
         elif compression == "int8":
             assert launched["quantize"] == launched["gossip_fold"] == len(spec.buckets)
             assert launched["dequant_accumulate"] == 0
         else:
             assert launched["topk_sparsify"] == 1 and launched["scatter_accumulate"] > 0
-    m = len(tdm.edge_coloring(rel))
     got = fused.flatten_pytree(spec, mixed["cuda"])["float32"]
     want = fused.flatten_pytree(spec, mixed["ref"])["float32"]
-    rowmax = buf.abs().amax(dim=1, keepdim=True)
+    assert _within_mix_bound(got, want, buf, len(tdm.edge_coloring(rel)))
+
+
+def _within_mix_bound(got, want, x, n_matchings: int) -> bool:
+    """|got - want| <= 2 (M + 2) ulp(|x|max) per node: one fused-vs-unfused
+    gap per accumulation (see tests/test_torch_exchange.py)."""
+    rowmax = x.abs().amax(dim=1, keepdim=True)
     ulp = torch.nextafter(rowmax, torch.full_like(rowmax, float("inf"))) - rowmax
-    assert bool(((got - want).abs() <= 2 * (m + 2) * ulp).all())
+    return bool(((got - want).abs() <= 2 * (n_matchings + 2) * ulp).all())
+
+
+def _two_level_rels():
+    """2 orbital planes x 4 satellites: a clique within each plane, the one
+    link between the planes."""
+    from repro_torch.core.relation import Relation
+
+    return Relation.clique(list(range(4))), Relation.from_edges([(0, 1)], nodes=range(2))
+
+
+def _trained_fl_state(device):
+    """The FL launcher's smoke model (mamba2-780m, 8 satellites in 2 planes
+    of 4) stacked on ``device``, after 2 local AdamW steps of each satellite
+    on its own data, so the satellites' params differ: (scenario, state)."""
+    from repro_torch.launch import fl_train
+    from repro_torch.launch import train_fl_constellation as tfc
+    from repro_torch.models import registry
+
+    cfg, opt, shape, scn = tfc.setup(8)
+    state = fl_train._stack_init(0, cfg, opt, 8, device=device)
+    batch = fl_train.batch_to_device(tfc.make_batch_fn(cfg, shape, 8)(0), device)
+    fl_train.local_train(registry.bundle(cfg), opt, state, batch, tfc.LOCAL_STEPS)
+    return scn, state
+
+
+@pytest.mark.parametrize("compression", ["none", "int8"])
+def test_two_level_fl_rounds_through_kernels(device, compression):
+    """Two rounds of two-level (plane x satellite) FL on the smoke model
+    through ``build_hierarchical_fl_round``: losses finite, each round's
+    gathers the oracle's, and under int8 ``quantize`` and ``gossip_fold``
+    the only kernels launched, under none no kernel."""
+    from repro_torch import telemetry
+    from repro_torch.core import fused, tdm
+    from repro_torch.launch import fl_train
+    from repro_torch.launch import train_fl_constellation as tfc
+
+    cfg, opt, shape, _ = tfc.setup(8)
+    state = fl_train._stack_init(0, cfg, opt, 8, device=device)
+    intra, inter = _two_level_rels()
+    fn = fl_train.build_hierarchical_fl_round(
+        cfg, opt, 2, 4, fl_train.FLConfig(mode="tdm", local_steps=tfc.LOCAL_STEPS,
+                                          compression=compression), intra, inter)
+    oracle = telemetry.expected_hierarchical_collectives(
+        intra, inter, len(fused.cached_spec(state["params"]).buckets),
+        compression=compression)["collective-permute"]
+    batch_fn = tfc.make_batch_fn(cfg, shape, 8)
+    kernels.reset_launch_counts()
+    for rnd in range(2):
+        before = tdm.gather_count()
+        state, losses = fn(state, fl_train.batch_to_device(batch_fn(rnd), device))
+        assert tdm.gather_count() - before == oracle
+        assert bool(torch.isfinite(losses).all())
+    launched = {k for k, n in kernels.launch_counts().items() if n}
+    assert launched == ({"quantize", "gossip_fold"} if compression == "int8" else set())
+
+
+def test_two_level_int8_mix_through_kernels(device):
+    """One two-level mix of the satellites' params after local training:
+    uncompressed equal to per-leaf ``hierarchical_gossip`` bit for bit and
+    to the global node mean within 1e-5 (the clique and the one link between
+    the planes average exactly); int8 through the kernels within 2% of it;
+    and each int8 level through the kernels within the fused/unfused bound
+    of the plain versions on the same input (a level's last-bit differences
+    may flip a code of the next, so the levels are compared apart)."""
+    from repro_torch.core import fused, tdm
+    from repro_torch.core.relation import Relation
+    from repro_torch.pytree import tree_map
+
+    params = _trained_fl_state(device)[1]["params"]
+    intra, inter = _two_level_rels()
+    spec = fused.cached_spec(params)
+    (bucket,) = spec.buckets
+    buf = fused.flatten_pytree(spec, params)[bucket]
+    none = fused.hierarchical_buffer_mix(buf, intra, inter, 4, 2)
+    per_leaf = tree_map(lambda x: tdm.hierarchical_gossip(x, intra, inter, 4, 2), params)
+    assert _bits(none, fused.flatten_pytree(spec, per_leaf)[bucket])
+    mean = buf.mean(dim=0, keepdim=True)
+    assert float((none - mean).abs().max() / mean.abs().max()) <= 1e-5
+    int8 = fused.hierarchical_buffer_mix(buf, intra, inter, 4, 2, compression="int8",
+                                         quant_impl="cuda")
+    assert float((int8 - none).norm() / none.norm()) < 0.02
+    x = buf
+    for a, b, level in ((intra, Relation.from_edges([], nodes=range(2)), intra),
+                        (Relation.from_edges([], nodes=range(4)), inter, inter)):
+        got, want = (fused.hierarchical_buffer_mix(x, a, b, 4, 2, compression="int8",
+                                                   quant_impl=impl) for impl in ("cuda", "ref"))
+        assert _within_mix_bound(got, want, x, len(tdm.edge_coloring(level)))
+        x = want
+
+
+@pytest.mark.parametrize("compression", ["int8", "topk"])
+def test_per_leaf_compressed_round_on_card(device, compression):
+    """One per-leaf compressed round (``tdm_fla_round(fused=False)``) over
+    the satellites' params after local training: finite, 2 gathers per
+    matching per leaf (int8: codes and scale; CHOCO: values and indices),
+    and int8 within 2% of the same algebra unquantized."""
+    from repro_torch.core import fl, tdm
+    from repro_torch.pytree import tree_leaves
+
+    scn, state = _trained_fl_state(device)
+    rel = scn.plan.relations()[0]
+    leaves = tree_leaves(state["params"])
+    m = len(tdm.edge_coloring(rel))
+    k = min(64, min(leaf[0].numel() for leaf in leaves))
+    before = tdm.gather_count()
+    mixed, _ = fl.tdm_fla_round(state["params"], rel, 8, fl.TDMFLAConfig(
+        compression=compression, topk_k=k, fused=False))
+    assert tdm.gather_count() - before == 2 * m * len(leaves)
+    out = tree_leaves(mixed)
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+    if compression == "int8":
+        w = float(np.float32(1.0 / (1.0 + rel.max_degree())))
+        num = den = 0.0
+        for x, got in zip(leaves, out):
+            deg = tdm.node_scalars([rel.degree(v) for v in range(8)], x)
+            want = x + w * (tdm.neighbor_sum(x, rel) - deg * x)
+            num += float((got - want).double().norm()) ** 2
+            den += float(want.double().norm()) ** 2
+        assert (num / den) ** 0.5 < 0.02
+
+
+def test_rate_optimized_fl_on_card(device):
+    """``run_constellation_fl(optimize="rate")`` on the smoke model, 3 rounds
+    uncompressed: one schedule build, each round's relation a matching of
+    its step's visibility relation, losses finite, the gathers the
+    oracle's."""
+    from repro_torch import telemetry
+    from repro_torch.launch import fl_train
+    from repro_torch.launch import train_fl_constellation as tfc
+
+    cfg, opt, shape, scn = tfc.setup(8)
+    state = fl_train._stack_init(0, cfg, opt, 8, device=device)
+    with telemetry.record_scope(tracing=True) as rec:
+        state, logs = fl_train.run_constellation_fl(
+            cfg, opt, 8, fl_train.FLConfig(mode="tdm", local_steps=tfc.LOCAL_STEPS), scn.plan,
+            state, tfc.make_batch_fn(cfg, shape, 8), rounds=3, optimize="rate",
+            payload_bytes=tfc.PAYLOAD_BYTES)
+    slots = list(scn.plan.schedule(payload_bytes=tfc.PAYLOAD_BYTES, optimize="rate").slots)[:3]
+    assert len(logs) == len(slots) == 3
+    assert sum(sp.name == "fl.build_schedule" for sp in rec.spans) == 1
+    for lg, slot in zip(logs, slots):
+        rel = slot.relation
+        assert rel.is_matching() and rel.pairs <= scn.plan.relation(slot.t_index).pairs
+        assert lg.n_links == len(rel) // 2 and np.isfinite(lg.loss)
+    assert rec.get_counter("fl.exchange.gathers") == rec.get_counter(
+        "fl.collectives.collective-permute")
 
 
 # (B, S, H, P, G, N, chunk): chunks 8 to 256 (96: a ragged last tile), 1 to 4
@@ -434,15 +586,24 @@ SSD_CASES = [
     (1, 128, 8, 64, 4, 128, 64),
     (2, 192, 4, 32, 2, 64, 64),
     (1, 192, 4, 64, 1, 128, 96),
+    (1, 256, 4, 64, 1, 128, 256),
     (2, 1024, 2, 64, 2, 128, 256),
+    (8, 512, 48, 64, 1, 128, 256),      # mamba2-780m's served prefill, both replicas admitted
     (1, 512, 256, 64, 8, 128, 256),     # jamba-1.5-large: 256 heads in 8 groups of 32
     (2, 1024, 64, 64, 8, 128, 128),     # nemotron-3-nano: 64 heads in 8 groups, chunk 128
 ]
 
 
 def _ssd_inputs(device, case, dtype, strong=False):
-    B, S, H, P, G, N, _ = case
+    """x, B, C ~ N(0, 1) in ``dtype``; dt and A softplus-normal and
+    -exp(U(-1, 1)), or (a case ending in ``"init"``) as the model's init
+    draws them (``ssd_scan.ref.init_inputs``), or strong decay."""
+    from repro_torch.kernels.ssd_scan import ref
+
+    B, S, H, P, G, N = case[:6]
     g = torch.Generator(device=device).manual_seed(S + H + G)
+    if case[7:] == ("init",):
+        return ref.init_inputs(g, case[:6], dtype)
     x = torch.randn(B, S, H, P, generator=g, device=device).to(dtype)
     Bv = torch.randn(B, S, G, N, generator=g, device=device).to(dtype)
     Cv = torch.randn(B, S, G, N, generator=g, device=device).to(dtype)
@@ -457,11 +618,10 @@ def _ssd_inputs(device, case, dtype, strong=False):
 
 def _ssd_check(inputs, chunk):
     from repro_torch.kernels.ssd_scan import ops, ref
-    from repro_torch.kernels.ssd_scan import ssd_scan as kern
 
-    before = kern.launch_counts()["ssd_scan"]
+    before = kernels.launch_counts()["ssd_scan"]
     y, s = ops.ssd_scan(*inputs, chunk=chunk)
-    assert kern.launch_counts()["ssd_scan"] == before + 1   # CUDA tensors: the kernel
+    assert kernels.launch_counts()["ssd_scan"] == before + 1   # CUDA tensors: the kernel
     again = ops.ssd_scan(*inputs, chunk=chunk)
     assert _bits(y, again[0]) and _bits(s, again[1])        # a second launch, bit for bit
     y_r, s_r = ops.ssd_scan(*inputs, chunk=chunk, impl="ref")
@@ -473,9 +633,10 @@ def _ssd_check(inputs, chunk):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("case", SSD_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("case", SSD_CASES + [c + ("init",) for c in SSD_CASES],
+                         ids=lambda c: "-".join(map(str, c)))
 def test_ssd_scan_against_plain(device, case, dtype):
-    _ssd_check(_ssd_inputs(device, case, dtype), case[-1])
+    _ssd_check(_ssd_inputs(device, case, dtype), case[6])
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
@@ -504,10 +665,7 @@ def test_model_decoder_prefill_and_tick(device):
     on the card: the prefill launches ssd_scan once per layer, and its first
     tokens and one decode tick equal a CPU decoder's with the same params
     (float32 compute; both take the plain SSD version on the CPU side)."""
-    import numpy as np
-
     from repro_torch.configs import archs
-    from repro_torch.kernels.ssd_scan import ssd_scan as kern
     from repro_torch.pytree import tree_map
     from repro_torch.serving import ModelDecoder
 
@@ -519,15 +677,84 @@ def test_model_decoder_prefill_and_tick(device):
     waves = {0: [rng.integers(0, 128, 13).astype(np.int32),
                  rng.integers(0, 128, 9).astype(np.int32)],
              1: [rng.integers(0, 128, 16).astype(np.int32)]}
-    before = kern.launch_counts()["ssd_scan"]
+    before = kernels.launch_counts()["ssd_scan"]
     first = gpu.prefill_waves(waves)
-    assert kern.launch_counts()["ssd_scan"] == before + cfg.n_layers
+    assert kernels.launch_counts()["ssd_scan"] == before + cfg.n_layers
     assert first == cpu.prefill_waves(waves)
     active = np.array([True, True])
     assert (gpu.step(active) == cpu.step(active)).all()
 
 
-# (B, S, H, KV, hd, causal, window, softcap)
+# the decode-graph check's script: (call, argument) in order; ticks of
+# replicas {0, 1} 20, {0} 8 and {1} 8, so 3 captures and 33 replays
+GRAPH_SCRIPT = ([("prefill", (0, 1))] + [("step", (1, 1))] * 12 + [("step", (1, 0))] * 8
+                + [("prefill", (1,))] + [("step", (0, 1))] * 8 + [("step", (1, 1))] * 8)
+
+
+def test_decode_replayed_from_graphs_equals_eager(device):
+    """mamba2-780m's smoke config: two decoders over one set of params, one
+    with its capture seam removed, run ``GRAPH_SCRIPT`` call by call; after
+    every call their logits (the prefill's last position, the tick's),
+    tokens, caches and ``pos`` are equal. The replaying decoder captures
+    each active set once and replays every later tick of it (its counters).
+    Then the captured call, once eagerly and once replayed, runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: neither synchronises."""
+    from repro_torch import telemetry
+    from repro_torch.configs import archs
+    from repro_torch.pytree import tree_leaves
+    from repro_torch.serving import ModelDecoder
+
+    class Logged(ModelDecoder):
+        """Keeps the logits of every call."""
+
+        def _tokens(self, logits, k):
+            self.seen.append(logits.clone())
+            return super()._tokens(logits, k)
+
+    cfg = archs.smoke_cfg(archs.get("mamba2-780m"))
+    batch, prompt = 4, 100
+    max_len = ModelDecoder._bucket(prompt) + len(GRAPH_SCRIPT) + 1
+    rng = np.random.default_rng(0)
+    waves = [[rng.integers(0, cfg.vocab_size, prompt).astype(np.int32) for _ in range(batch)]
+             for _ in range(3)]
+    params = ModelDecoder(cfg, 2, batch, max_len, seed=3, device=device).params
+    eager, graph = (Logged(cfg, 2, batch, max_len, device=device, params=params)
+                    for _ in range(2))
+    eager._graphs = None
+    eager.seen, graph.seen = [], []
+    assert graph._graphs is not None
+    with telemetry.record_scope() as rec:
+        for i, (call, arg) in enumerate(GRAPH_SCRIPT):
+            if call == "prefill":
+                w = {r: waves[r if i == 0 else 2] for r in arg}
+                outs = [d.prefill_waves(w) for d in (eager, graph)]
+            else:
+                outs = [d.step(np.array(arg, bool)).tolist() for d in (eager, graph)]
+            what = f"call {i} ({call} {arg})"
+            assert outs[0] == outs[1], what
+            assert torch.equal(eager.seen[-1], graph.seen[-1]), what
+            assert torch.equal(eager._cache["pos"], graph._cache["pos"]), what
+            assert all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(eager._cache["units"]), tree_leaves(graph._cache["units"]))), what
+        counts = {k.rsplit(".", 1)[-1]: rec.get_counter(k) for k in (
+            "serve.decode.graph.captures", "serve.decode.graph.replays", "serve.decode.eager")}
+    ticks = sum(call == "step" for call, _ in GRAPH_SCRIPT)
+    assert counts == {"captures": 3, "replays": ticks - 3, "eager": ticks}
+    rs = (0, 1)
+    lanes = eager._lanes(rs)
+    tok = torch.zeros((len(rs) * batch, 1), dtype=torch.int64, device=device)
+    replay, _ = graph._replays[rs]
+    torch.cuda.synchronize(device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eager.bundle.decode_fn(eager.params, lanes, {"token": tok})
+        replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+# (B, S, H, KV, hd, causal, window, softcap): S 1 to 4608 with ragged tiles,
+# windows below and above S
 FA_CASES = [
     (2, 23, 4, 2, 16, True, None, 50.0),
     (1, 300, 4, 1, 64, True, 16, None),
@@ -535,6 +762,14 @@ FA_CASES = [
     (2, 512, 16, 8, 256, True, None, 50.0),
     (1, 8, 4, 4, 256, False, 3, 50.0),
     (1, 4608, 16, 8, 256, True, 4096, 50.0),     # gemma2-9b's local layer, S > window
+    (2, 1, 4, 4, 16, True, None, 50.0),
+    (2, 8, 8, 4, 64, True, None, None),
+    (1, 23, 8, 2, 128, False, None, 50.0),
+    (2, 64, 4, 1, 256, True, 16, 50.0),
+    (1, 300, 4, 2, 64, True, 64, None),
+    (1, 300, 2, 2, 16, False, 100, None),
+    (1, 512, 16, 8, 256, True, 4096, 50.0),
+    (1, 512, 8, 8, 128, True, 100, 50.0),
 ]
 
 
@@ -549,35 +784,58 @@ def _fa_inputs(device, shape_q, shape_kv, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("case", FA_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_flash_attention_against_plain(device, case, dtype):
-    from repro_torch.kernels.flash_attention import flash_attention as kern
+    """Within ``fa_tolerance``; a second launch bit-identical; bf16 on the
+    tensor-core kernel, float32 not."""
     from repro_torch.kernels.flash_attention import ops, ref
 
     B, S, H, KV, hd, causal, window, cap = case
     q, k, v = _fa_inputs(device, (B, S, H, hd), (B, S, KV, hd), dtype, S + hd)
-    before = kern.launch_counts()["flash_attention_fwd"]
+    before = kernels.launch_counts()
     got = ops.flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
-    assert kern.launch_counts()["flash_attention_fwd"] == before + 1
+    again = ops.flash_attention(q, k, v, causal=causal, window=window, softcap=cap)
+    after = kernels.launch_counts()
+    assert after["flash_attention_fwd"] == before["flash_attention_fwd"] + 2
+    assert (after["flash_attention_fwd_wgmma"] - before["flash_attention_fwd_wgmma"]
+            == (2 if dtype == torch.bfloat16 else 0))
     want = ops.flash_attention(q, k, v, causal=causal, window=window, softcap=cap,
                                impl="ref")
     torch.cuda.synchronize()
+    assert torch.equal(got, again)
     ok, err = ref.fa_close(got, want)
     assert ok, err
 
 
+# (B, L, H, KV, hd, Sq, kv_len of the middle row); the other rows' kv_len 1
+# and L
+FA_DECODE_CASES = [
+    (3, 529, 4, 2, 16, 1, 300),
+    (3, 529, 8, 2, 64, 4, 300),
+    (3, 529, 4, 2, 256, 1, 300),
+    (3, 529, 2, 2, 128, 2, 300),
+    (3, 23, 4, 2, 16, 1, 12),
+    (3, 64, 8, 2, 64, 1, 33),
+    (3, 300, 4, 4, 128, 2, 151),
+    (3, 529, 16, 8, 256, 1, 265),
+    (3, 512, 8, 2, 256, 4, 257),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("hd,G,Sq", [(16, 2, 1), (64, 4, 4), (256, 2, 1), (128, 1, 2)])
-def test_flash_attention_decode_against_plain(device, hd, G, Sq, dtype):
-    from repro_torch.kernels.flash_attention import flash_attention as kern
+@pytest.mark.parametrize("case", FA_DECODE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_attention_decode_against_plain(device, case, dtype):
+    """Within ``fa_tolerance``; a second launch bit-identical."""
     from repro_torch.kernels.flash_attention import ops, ref
 
-    B, L, KV = 3, 529, 2
-    q, k, v = _fa_inputs(device, (B, Sq, G * KV, hd), (B, L, KV, hd), dtype, hd + G)
-    kv_len = torch.tensor([1, 300, L], dtype=torch.int32, device=device)
-    before = kern.launch_counts()["flash_attention_decode"]
+    B, L, H, KV, hd, Sq, mid = case
+    q, k, v = _fa_inputs(device, (B, Sq, H, hd), (B, L, KV, hd), dtype, hd + H // KV)
+    kv_len = torch.tensor([1, mid, L], dtype=torch.int32, device=device)
+    before = kernels.launch_counts()["flash_attention_decode"]
     got = ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0)
-    assert kern.launch_counts()["flash_attention_decode"] == before + 1
+    again = ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0)
+    assert kernels.launch_counts()["flash_attention_decode"] == before + 2
     want = ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0, impl="ref")
     torch.cuda.synchronize()
+    assert torch.equal(got, again)
     ok, err = ref.fa_close(got, want)
     assert ok, err
 
@@ -586,7 +844,8 @@ def test_flash_attention_decode_against_plain(device, hd, G, Sq, dtype):
 @pytest.mark.parametrize("L", [4096, 8192])
 def test_flash_attention_decode_long_cache(device, L, dtype):
     """gemma2-9b's window as a ring length, and twice it: the cache split
-    into many chunks; kv_len 1, one past the first chunk's edge, and L."""
+    into many chunks; kv_len 1, one past the first chunk's edge, and L; a
+    second launch bit-identical."""
     from repro_torch.kernels.flash_attention import flash_attention as kern
     from repro_torch.kernels.flash_attention import ops, ref
 
@@ -597,8 +856,10 @@ def test_flash_attention_decode_long_cache(device, L, dtype):
     assert n_split > 1
     kv_len = torch.tensor([1, chunk + 1, L], dtype=torch.int32, device=device)
     got = ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0)
+    again = ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0)
     want = ops.flash_attention_decode(q, k, v, kv_len, softcap=50.0, impl="ref")
     torch.cuda.synchronize()
+    assert torch.equal(got, again)
     ok, err = ref.fa_close(got, want)
     assert ok, err
 
@@ -659,9 +920,9 @@ def test_bf16_prefill_takes_the_tensor_core_kernel(device, dtype):
     from repro_torch.kernels.flash_attention import flash_attention as kern
 
     q, k, v = _fa_inputs(device, (1, 64, 4, 64), (1, 64, 2, 64), dtype, 3)
-    before = kern.launch_counts()
+    before = kernels.launch_counts()
     kern.flash_attention_fwd(q, k, v)
-    after = kern.launch_counts()
+    after = kernels.launch_counts()
     assert after["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
     assert (after["flash_attention_fwd_wgmma"] - before["flash_attention_fwd_wgmma"]
             == (1 if dtype == torch.bfloat16 else 0))
@@ -673,10 +934,7 @@ def test_dense_model_decoder_prefill_and_tick(device):
     decode kernel once per layer; the first tokens and two ticks (the
     replicas at different pos) equal a CPU decoder's with the same params
     (float32 compute)."""
-    import numpy as np
-
     from repro_torch.configs import archs
-    from repro_torch.kernels.flash_attention import flash_attention as kern
     from repro_torch.pytree import tree_map
     from repro_torch.serving import ModelDecoder
 
@@ -688,12 +946,12 @@ def test_dense_model_decoder_prefill_and_tick(device):
     first = {0: [rng.integers(0, 128, 13).astype(np.int32),
                  rng.integers(0, 128, 9).astype(np.int32)]}
     second = {1: [rng.integers(0, 128, 20).astype(np.int32)]}
-    kern.reset_launch_counts()
+    kernels.reset_launch_counts()
     assert gpu.prefill_waves(first) == cpu.prefill_waves(first)
-    assert kern.launch_counts()["flash_attention_fwd"] == cfg.n_layers
+    assert kernels.launch_counts()["flash_attention_fwd"] == cfg.n_layers
     one = np.array([True, False])
     assert (gpu.step(one) == cpu.step(one)).all()
-    assert kern.launch_counts()["flash_attention_decode"] == cfg.n_layers
+    assert kernels.launch_counts()["flash_attention_decode"] == cfg.n_layers
     assert gpu.prefill_waves(second) == cpu.prefill_waves(second)
     both = np.array([True, True])
     assert (gpu.step(both) == cpu.step(both)).all()
@@ -706,7 +964,7 @@ def test_dense_decoder_both_replicas_bucket_256_and_local_ring(device):
     tokens (a bucket-256 wave), then 24 ticks of both, each local layer's
     ring engaged. float32 compute: the tokens equal a CPU decoder's with the
     same params. bf16 compute: one tensor-core prefill launch per layer and
-    one decode launch per layer per tick, and the first local and global
+    one decode launch per layer per tick, no other kernel, and the first local and global
     layers' attention, on the prompt and on the caches the ticks left,
     within ``fa_tolerance`` of the plain version."""
     from repro_torch.serving.edge_check import EDGE_TICKS, dense_edge_check
@@ -716,8 +974,7 @@ def test_dense_decoder_both_replicas_bucket_256_and_local_ring(device):
     assert seen["prompts"] == [129, 200, 256, 160] and seen["ticks"] == EDGE_TICKS == 24
     assert seen["launches"] == {"flash_attention_fwd": cfg.n_layers,
                                 "flash_attention_fwd_wgmma": cfg.n_layers,
-                                "flash_attention_decode": cfg.n_layers * EDGE_TICKS,
-                                "flash_attention_bwd": 0}
+                                "flash_attention_decode": cfg.n_layers * EDGE_TICKS}
     assert len(seen["rings"]) == 2
 
 
@@ -746,10 +1003,7 @@ def test_moe_model_decoder_prefill_and_ticks(device):
     per layer; capacity drops happen on both devices alike."""
     import dataclasses
 
-    import numpy as np
-
     from repro_torch.configs import archs
-    from repro_torch.kernels.flash_attention import flash_attention as kern
     from repro_torch.models import moe
     from repro_torch.pytree import tree_map
     from repro_torch.serving import ModelDecoder
@@ -764,7 +1018,7 @@ def test_moe_model_decoder_prefill_and_ticks(device):
     first = {0: [rng.integers(0, 128, 13).astype(np.int32),
                  rng.integers(0, 128, 9).astype(np.int32)]}
     second = {1: [rng.integers(0, 128, 20).astype(np.int32)]}
-    kern.reset_launch_counts()
+    kernels.reset_launch_counts()
     tallies = []
     for dec in (gpu, cpu):
         with moe.count_drops() as tally:
@@ -774,7 +1028,7 @@ def test_moe_model_decoder_prefill_and_ticks(device):
             toks += [dec.step(np.array([True, True])).tolist() for _ in range(3)]
         tallies.append({k: [t.tolist() for t in v] for k, v in tally.items()})
         if dec is gpu:
-            counts = kern.launch_counts()
+            counts = kernels.launch_counts()
             want = toks
     assert toks == want
     assert tallies[0] == tallies[1] and sum(t[1] for t in tallies[0]["decode"]) > 0
@@ -820,7 +1074,6 @@ def test_train_step_on_kernels_matches_plain(device, compute_dtype):
     from repro_torch.configs import archs
     from repro_torch.data import pipeline
     from repro_torch.kernels.flash_attention import cases
-    from repro_torch.kernels.flash_attention import flash_attention as fa_kern
     from repro_torch.launch import steps
     from repro_torch.launch.fl_train import batch_to_device
     from repro_torch.models.config import ShapeConfig
@@ -836,10 +1089,10 @@ def test_train_step_on_kernels_matches_plain(device, compute_dtype):
     runs = {}
     for impl in ("cuda", "ref"):
         state = tree_map(lambda t: t.clone(), start)
-        fa_kern.reset_launch_counts()
+        kernels.reset_launch_counts()
         state, metrics = steps.build_train_step(cfg, opt, impl)(state, batch)
         torch.cuda.synchronize()
-        runs[impl] = (state, metrics, fa_kern.launch_counts())
+        runs[impl] = (state, metrics, kernels.launch_counts())
     assert runs["cuda"][2]["flash_attention_fwd"] == 2 * cfg.n_layers
     assert runs["cuda"][2]["flash_attention_bwd"] == cfg.n_layers
     assert runs["ref"][2]["flash_attention_fwd"] == runs["ref"][2]["flash_attention_bwd"] == 0
@@ -856,6 +1109,60 @@ def test_train_step_on_kernels_matches_plain(device, compute_dtype):
         total += diff.numel()
     assert off <= (1e-4 if compute_dtype == "float32" else 1e-2) * total, \
         f"{off} of {total} param entries off"
+
+
+def test_microbatched_step_on_card_matches_cpu(device):
+    """One train step of the gemma2-9b smoke config at micro 2, float32
+    compute, on the card (S 40: the kernels on a ragged S) against the same
+    step on the CPU (the naive path), held by ``cases.check_first_step`` at
+    the f32 bounds of ``FIRST_STEP_TOL``; at most 1e-4 of the param entries
+    more than 1e-6 apart (a gradient entry within the tolerance of zero may
+    flip its sign)."""
+    from repro_torch.configs import archs
+    from repro_torch.data import pipeline
+    from repro_torch.kernels.flash_attention import cases
+    from repro_torch.launch import steps
+    from repro_torch.launch.fl_train import batch_to_device
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.pytree import tree_leaves, tree_map
+
+    cfg = archs.smoke_cfg(archs.get("gemma2-9b")).replace(compute_dtype="float32",
+                                                          micro_steps=2)
+    opt = adamw.OptConfig(peak_lr=3e-3, warmup_steps=5, decay_steps=10)
+    cpu = steps.init_state(0, cfg, opt, "cpu")
+    card = tree_map(lambda t: t.to(device), cpu)
+    batch = pipeline.SyntheticStream(cfg, ShapeConfig("c", "train", 40, 4), seed=3).batch(0)
+    step = steps.build_train_step(cfg, opt)
+    cpu, m_cpu = step(cpu, batch_to_device(batch, "cpu"))
+    card, m_card = step(card, batch_to_device(batch, device))
+    torch.cuda.synchronize(device)
+    loss_rtol, gnorm_rtol, mu_rtol = FIRST_STEP_TOL["float32"]
+    read = cases.check_first_step(card, m_card, cpu, m_cpu, opt, loss_rtol=loss_rtol,
+                                  gnorm_rtol=gnorm_rtol, mu_rtol=mu_rtol)
+    total = sum(t.numel() for t in tree_leaves(cpu["params"]))
+    assert read["flips"] <= 1e-4 * total, f"{read['flips']} of {total} param entries off"
+
+
+def test_checkpoint_round_trip_on_card(device, tmp_path):
+    """A checkpoint of card tensors (f32 params, int8 AdamW moments with f32
+    scales, bf16 params, int32 counters) restored onto the card: every leaf
+    equal bit for bit, with its dtype and device."""
+    from repro_torch.checkpoint import checkpoint as ckpt_lib
+    from repro_torch.configs import archs
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    from repro_torch.pytree import tree_leaves, tree_map
+
+    cfg = archs.smoke_cfg(archs.get("gemma2-9b"))
+    state = steps.init_state(1, cfg, adamw.OptConfig(dtype="int8"), device)
+    tree = {"state": state, "bf16": tree_map(lambda t: t.to(torch.bfloat16), state["params"])}
+    ckpt_lib.save(str(tmp_path), 7, tree)
+    ckpt_lib.wait_all()
+    step_no, back = ckpt_lib.restore(str(tmp_path), target=tree, device=device)
+    assert step_no == 7
+    assert all(a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+               for a, b in zip(tree_leaves(back), tree_leaves(tree)))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
@@ -907,12 +1214,9 @@ def test_whisper_smoke_on_kernels_matches_plain(device):
     layer and two per decoder layer, two decodes per layer and tick; then
     one train step on the kernels against one on their plain versions
     (``cases.check_first_step`` at the f32 bounds of the gemma2-9b step)."""
-    import numpy as np
-
     from repro_torch.configs import archs
     from repro_torch.data import pipeline
     from repro_torch.kernels.flash_attention import cases
-    from repro_torch.kernels.flash_attention import flash_attention as fa_kern
     from repro_torch.launch import steps
     from repro_torch.launch.fl_train import batch_to_device
     from repro_torch.models import registry
@@ -930,7 +1234,7 @@ def test_whisper_smoke_on_kernels_matches_plain(device):
     seen = {}
     for dev in (device, torch.device("cpu")):
         p = tree_map(lambda t: t.to(dev), params)
-        fa_kern.reset_launch_counts()
+        kernels.reset_launch_counts()
         with torch.no_grad():
             logits, cache = b.prefill_fn(p, {"tokens": toks[:, :8].to(dev),
                                              "enc_embeds": enc.to(dev)}, 16)
@@ -938,7 +1242,7 @@ def test_whisper_smoke_on_kernels_matches_plain(device):
             for t in range(8, 12):
                 logits, cache = b.decode_fn(p, cache, {"token": toks[:, t:t + 1].to(dev)})
                 outs.append(logits)
-        seen[dev.type] = (outs, cache, fa_kern.launch_counts())
+        seen[dev.type] = (outs, cache, kernels.launch_counts())
     for a, w in zip(seen["cuda"][0] + tree_leaves(seen["cuda"][1]["units"]),
                     seen["cpu"][0] + tree_leaves(seen["cpu"][1]["units"])):
         w = w.float()
@@ -1007,7 +1311,6 @@ def test_nemotron_smoke_on_card(device):
     of the plain reference (TF32 off), as on the CPU; then a bf16 decode
     step of 32 lanes under ``set_sync_debug_mode("error")``: the tick waits
     for the host nowhere (the dropless MoE sizes its groups on the device)."""
-    import numpy as np
 
     import nemotron_h_ref as ref
     from test_torch_nemotron import port_logits, ref_cfg, smoke

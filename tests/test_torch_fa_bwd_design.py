@@ -12,7 +12,7 @@ emulates that arithmetic in float32 on the CPU and holds it to the plain
 version (``ref.attention_bwd_ref``) within ``ref.bwd_tolerance``, the bound
 the card holds the kernel to; and shows that one bf16 rounding of p and ds
 (no lo term) leaves that bound, which is why the split is there. It tests
-no kernel code: ``chip_smoke.py`` and the card tests do.
+no kernel code: the card tests do.
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ the grid launches the heavy tiles first. Then the kernel's order of
 accumulation (per streamed 64-row tile, per 16-row k-step of it, the hi
 then the lo bf16 term of p or ds) is emulated in float32 and held to ``ref.attention_bwd_ref`` within
 ``ref.bwd_tolerance`` at gemma2-9b's head shapes. It tests no kernel code:
-``chip_smoke.py`` and the card tests do.
+the card tests do.
 """
 
 from __future__ import annotations

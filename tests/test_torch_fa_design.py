@@ -1,8 +1,8 @@
 """The arithmetic of the two attention kernels' designs, on the CPU.
 
 The CUDA kernels (``csrc/flash_attention.cu``) run only on the card, where
-``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold them to the plain
-version. What follows models, in torch, the order and precision of each
+``tests/test_torch_cuda.py`` holds them to the plain version. What
+follows models, in torch, the order and precision of each
 kernel's operations, and holds the model to the same bound the card tests
 use, ``fa_tolerance`` (1e-5 of the output's scale, plus one bf16 ulp of
 each entry for bf16 outputs): it records why the designs are within the

@@ -654,16 +654,16 @@ def test_groundseg_config_validation_matches_reference(kwargs):
 def test_launcher_runs_groundseg_on_cpu(capsys):
     """``--mode groundseg --device cpu`` through the launcher's ``main``:
     satellite 2 lost after round 0, every live satellite delivered."""
-    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+    from repro_torch import kernels
     from repro_torch.launch import train_fl_constellation as tfc
 
-    before = kern.launch_counts()
+    before = kernels.launch_counts()
     tfc.main(["--mode", "groundseg", "--device", "cpu", "--compression", "int8",
               "--rounds", "2", "--seq", "16"])
     out = capsys.readouterr().out
     assert "delivered 6/6" in out and "delivered 5/5" in out
     assert "satellite 2 lost" in out and "pooled" in out and "regional" in out
-    assert kern.launch_counts() == before    # CPU tensors never reach a kernel
+    assert kernels.launch_counts() == before    # CPU tensors never reach a kernel
     with pytest.raises(SystemExit):
         tfc.main(["--mode", "groundseg", "--device", "cpu", "--compression", "topk"])
 

@@ -8,7 +8,7 @@ magnitudes and all-equal values, NaN/+-inf payloads, int16 q), and to the Pallas
 kernels in interpret mode for a few shapes. The dispatch rules (CPU tensor
 -> plain version, CUDA tensor -> kernel or raise) are checked here too; the
 CUDA kernels themselves are held to these plain versions on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+(``tests/test_torch_cuda.py``).
 
 Tolerances: int8 codes and scales and top-k dense/vals/idxs are compared bit
 for bit (NaN equal to NaN). The accumulates are held to one rounding: under
@@ -27,6 +27,7 @@ import torch
 
 from repro.kernels.tdm_compress import ops as q_ops
 from repro.kernels.tdm_compress import ref as q_ref
+from repro_torch import kernels
 from repro_torch.kernels.tdm_compress import ops, ref
 from repro_torch.kernels.tdm_compress import tdm_compress as kern
 
@@ -219,10 +220,10 @@ def test_dispatch_cpu_goes_to_plain_version():
         assert torch.equal(q, q_r) and torch.equal(s, s_r)
         d, v, i = ops.topk_sparsify(x, k=4, block=256, impl=impl)
         assert torch.equal(i, ref.topk_sparsify_ref(x, 4, 256)[2])
-    before = kern.launch_counts()
+    before = kernels.launch_counts()
     ops.dequant_accumulate(q, s, x, 0.5, block=256)
     ops.scatter_accumulate(v, i, x, 0.5, block=256)
-    assert kern.launch_counts() == before
+    assert kernels.launch_counts() == before
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -155,15 +155,15 @@ def test_source_names_no_jax_or_reference_package(path):
 def test_launcher_runs_slice_on_cpu():
     """``main_tdm`` (the module's entry point) at the smoke widths: int8
     exchange, satellite 3 lost after round 0, finite decreasing loss."""
-    from repro_torch.kernels.tdm_compress import tdm_compress as kern
+    from repro_torch import kernels
     from repro_torch.launch import train_fl_constellation as tfc
 
-    before = kern.launch_counts()
+    before = kernels.launch_counts()
     res, _ = tfc.main_tdm(3, device="cpu", compression="int8", seq=16, fail_round=0)
     losses = [log.loss for log in res.logs]
     assert [log.alive for log in res.logs] == [8, 7, 7]
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
-    assert kern.launch_counts() == before  # CPU tensors never reach a kernel
+    assert kernels.launch_counts() == before  # CPU tensors never reach a kernel
 
 
 def test_pytree_leaf_order_matches_jax():

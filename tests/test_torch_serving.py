@@ -428,10 +428,10 @@ def test_model_decoder_two_replicas_match_reference_engine(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_serve_constellation_model_smoke_on_cpu(capsys):
-    from repro_torch.kernels.ssd_scan import ssd_scan as kern
+    from repro_torch import kernels
     from repro_torch.launch import serve_constellation
 
-    before = kern.launch_counts()
+    before = kernels.launch_counts()
     res = serve_constellation.main(["--device", "cpu", "--model", "--smoke"])
     summ = res.report.summary()
     assert res.verdict.ok and summ["delivered"] == summ["n_requests"] == 10
@@ -439,7 +439,7 @@ def test_serve_constellation_model_smoke_on_cpu(capsys):
     assert summ["retries"] > 0                        # the mid-epoch failure re-routed
     out = capsys.readouterr().out
     assert "route-provenance audit" in out and "OK" in out and "restored" in out
-    assert kern.launch_counts() == before             # CPU tensors never reach the kernel
+    assert kernels.launch_counts() == before             # CPU tensors never reach the kernel
 
 
 def test_serve_constellation_null_decoder_matches_reference_example():

@@ -44,9 +44,9 @@ from repro.constellation.scenario import smoke_scenario as j_smoke_scenario
 from repro.models import mamba2 as j_mamba
 from repro.models import registry as j_registry
 from repro.models import transformer as j_transformer
+from repro_torch import kernels
 from repro_torch.configs import archs
 from repro_torch.constellation.scenario import smoke_scenario
-from repro_torch.kernels.flash_attention import flash_attention as fa_kern
 from repro_torch.models import registry, transformer
 from repro_torch.weights import params_from_jax
 from test_torch_serving import _serve, _snapshot
@@ -266,7 +266,7 @@ def test_serve_constellation_model_smoke_on_cpu(arch, capsys):
     launched."""
     from repro_torch.launch import serve_constellation
 
-    before = fa_kern.launch_counts()
+    before = kernels.launch_counts()
     argv = ["--device", "cpu", "--model", "--smoke"] + (["--arch", arch] if arch else [])
     res = serve_constellation.main(argv)
     summ = res.report.summary()
@@ -276,7 +276,7 @@ def test_serve_constellation_model_smoke_on_cpu(arch, capsys):
     assert summ["retries"] > 0
     out = capsys.readouterr().out
     assert "route-provenance audit" in out and "OK" in out
-    assert fa_kern.launch_counts() == before
+    assert kernels.launch_counts() == before
 
 
 def test_batched_server_serves_gemma2_smoke(capsys):

@@ -58,9 +58,9 @@ import torch
 from repro.configs import archs as j_archs
 from repro.constellation.scenario import smoke_scenario as j_smoke_scenario
 from repro.models import registry as j_registry
+from repro_torch import kernels
 from repro_torch.configs import archs
 from repro_torch.constellation.scenario import smoke_scenario
-from repro_torch.kernels.flash_attention import flash_attention as fa_kern
 from repro_torch.models import moe, registry, transformer
 from repro_torch.weights import params_from_jax
 from test_torch_serving import CHURN_SCENARIOS, _serve, _snapshot
@@ -280,7 +280,7 @@ def test_serve_constellation_model_smoke_on_cpu(capsys):
     no kernel launched."""
     from repro_torch.launch import serve_constellation
 
-    before = fa_kern.launch_counts()
+    before = kernels.launch_counts()
     res = serve_constellation.main(["--device", "cpu", "--model", "--smoke", "--arch", ARCH])
     summ = res.report.summary()
     assert res.decoder.cfg.name == ARCH and res.decoder.cfg.moe is not None
@@ -289,7 +289,7 @@ def test_serve_constellation_model_smoke_on_cpu(capsys):
     assert summ["retries"] > 0
     out = capsys.readouterr().out
     assert "route-provenance audit" in out and "OK" in out
-    assert fa_kern.launch_counts() == before
+    assert kernels.launch_counts() == before
 
 
 def test_batched_server_serves_moe_smoke(capsys):

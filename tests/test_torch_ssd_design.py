@@ -1,8 +1,8 @@
 """The arithmetic of the bf16 SSD-scan kernel's design, on the CPU.
 
 The CUDA kernels (``csrc/ssd_scan.cu``, three passes on the tensor cores)
-run only on the card, where ``tests/test_torch_cuda.py`` and
-``chip_smoke.py`` hold them to the plain version. What follows models, in
+run only on the card, where ``tests/test_torch_cuda.py`` holds them to
+the plain version. What follows models, in
 torch, the order and precision of the passes' operations, and holds the
 model to the bound the card tests use, ``ssd_tolerance`` (1e-4 of the
 output's scale, plus one bf16 ulp for bf16 outputs), against

@@ -27,6 +27,7 @@ import torch
 
 from repro.kernels.ssd_scan import ops as j_ops
 from repro.kernels.ssd_scan import ref as j_ref
+from repro_torch import kernels
 from repro_torch.kernels.ssd_scan import ops, ref
 from repro_torch.kernels.ssd_scan import ssd_scan as kern
 
@@ -191,9 +192,9 @@ def test_cpu_tensors_never_reach_the_kernel():
     build; the wrapper refuses CPU tensors and ``ops`` refuses unknown impls."""
     case = (1, 16, 2, 4, 1, 8, 8, "float32")
     arrs = [torch.from_numpy(a) for a in _inputs(case)]
-    before = kern.launch_counts()
+    before = kernels.launch_counts()
     ops.ssd_scan(*arrs, chunk=8)
-    assert kern.launch_counts() == before
+    assert kernels.launch_counts() == before
     with pytest.raises(ValueError, match="CUDA tensor"):
         kern.ssd_scan_fwd(*arrs, chunk=8)
     with pytest.raises(ValueError, match="unknown impl"):
