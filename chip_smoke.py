@@ -104,8 +104,9 @@ does the rest:
    (``NEMOTRON_CUT``: 3 Mamba-2, 3 dropless MoE of 128 experts, 1 GQA
    layer; bf16 params from seed 0) through the workload of 3.: the serving
    checks with 3 ``ssd_scan`` and 1 attention layer, a ``model.moe`` span
-   per MoE layer and call, the routes tallied (``moe.count_routes``) and
-   none dropped;
+   per MoE layer and model call run or captured (none in a replay from a
+   CUDA graph), the routes tallied (``moe.count_routes``, replayed ticks
+   included) and none dropped;
 10. the FL rounds (``[fl]`` lines) through ``train_fl_constellation.main_tdm``
    at the FL cells' widths (mamba2-780m, 8 of 48 layers, 8 satellites,
    satellite 3 lost after round 1, sequence 256), 3 rounds each of
@@ -2212,11 +2213,15 @@ def phase_nemotron(device) -> None:
     del tally
     calls = int(rec.get_counter("serve.prefill.calls"))
     ticks = sum(1 for sp in rec.spans if sp.name == "serve.decode")
+    captures, replays = (int(rec.get_counter(f"serve.decode.graph.{k}"))
+                         for k in ("captures", "replays"))
     moe_spans = sum(1 for sp in rec.spans if sp.name == "model.moe")
     line = _check_serving_launches(rec, counts, NEMOTRON_TAG, n_attn, n_mamba)
-    check(moe_spans == n_moe * (calls + ticks),
+    # a replayed tick runs no span; a capturing one runs the call twice (the
+    # capture's spans carry no device time)
+    check(moe_spans == n_moe * (calls + ticks - replays + captures),
           f"[{NEMOTRON_TAG}] {moe_spans} model.moe spans for {calls} prefill calls and "
-          f"{ticks} ticks")
+          f"{ticks} ticks, {captures} of them captured and {replays} replayed")
     check(set(routes) == {"prefill", "decode"} and all(r[2] == 0 for r in routes.values()),
           f"[{NEMOTRON_TAG}] routes tallied {routes}")
     log(f"[{NEMOTRON_TAG}] {cfg.name} cut to {NEMOTRON_CUT}: delivered, audit OK; {line}; "

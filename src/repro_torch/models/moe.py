@@ -48,14 +48,16 @@ assignment is dropped and groups do not matter:
   (``shared_d_ff``).
 
 :func:`count_routes` tallies each call's assignments, the experts they hit
-and the dropped ones (none), on the device.
+and the dropped ones (none), on the device. :func:`tallied` keeps a call's
+tally entries in a record of its own, which a CUDA graph that captured the
+call appends to the open tallies on each replay.
 """
 
 from __future__ import annotations
 
 import math
 from contextlib import contextmanager
-from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple, TypeVar
 
 import torch
 
@@ -63,6 +65,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import activation, dtype_of, truncated_normal
 
 Params = Dict[str, torch.Tensor]
+T = TypeVar("T")
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig) -> Params:
@@ -197,7 +200,9 @@ def count_drops() -> Iterator[Dict[str, List[torch.Tensor]]]:
     ``[assignments, dropped]`` on the input's device (no wait for the
     device), to the list under ``"prefill"`` (S > 1) or ``"decode"``
     (S == 1) of the yielded dict, in call order: a model call's entries
-    are its MoE layers in order."""
+    are its MoE layers in order. A call replayed from a CUDA graph runs no
+    Python: its entries are copies that the replay appends (:func:`tallied`),
+    equal to those of the call run eagerly."""
     global _TALLY
     prev, _TALLY = _TALLY, {}
     try:
@@ -215,13 +220,46 @@ def count_routes() -> Iterator[Dict[str, List[torch.Tensor]]]:
     """Inside the block every :func:`moe_dropless` appends an int64 tensor
     ``[assignments, experts hit, dropped]`` on the input's device (no wait
     for the device) to the list under ``"prefill"`` (S > 1) or ``"decode"``
-    (S == 1) of the yielded dict, in call order."""
+    (S == 1) of the yielded dict, in call order. A call replayed from a
+    CUDA graph runs no Python: its entries are copies that the replay
+    appends (:func:`tallied`), equal to those of the call run eagerly."""
     global _ROUTES
     prev, _ROUTES = _ROUTES, {}
     try:
         yield _ROUTES
     finally:
         _ROUTES = prev
+
+
+def tallied(fn: Callable[[], T]) -> Tuple[T, Callable[[], None]]:
+    """``fn()`` with the MoE tallies diverted, for a call that a CUDA graph
+    captures: whatever its MoE calls append to :func:`count_routes`' or
+    :func:`count_drops`' tally, open or not, goes to a record of the call's
+    own, each of its lists stacked into one tensor before the call ends (so
+    the graph holds it as a static tensor); the open tallies get nothing.
+    Returns fn's output and ``retally``, which appends copies of the
+    recorded entries to the tallies open when it is called, in the order
+    the call made them: one copy per list, no wait for the device. Called
+    after each replay, it gives a tally the entries of an eager call. A
+    call with no MoE layer records nothing, and its ``retally`` does
+    nothing."""
+    global _ROUTES, _TALLY
+    prev = _ROUTES, _TALLY
+    _ROUTES, _TALLY = routes, drops = {}, {}
+    try:
+        out = fn()
+        routes, drops = ({kind: torch.stack(calls) for kind, calls in rec.items()}
+                         for rec in (routes, drops))
+    finally:
+        _ROUTES, _TALLY = prev
+
+    def retally() -> None:
+        for tally, rec in ((_ROUTES, routes), (_TALLY, drops)):
+            if tally is not None:
+                for kind, stacked in rec.items():
+                    tally.setdefault(kind, []).extend(stacked.clone().unbind(0))
+
+    return out, retally
 
 
 def grouped_mm(a: torch.Tensor, b: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:

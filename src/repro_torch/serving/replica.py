@@ -38,7 +38,7 @@ import torch
 
 from repro_torch import kernels, telemetry
 from repro_torch.device import resolve_device
-from repro_torch.models import registry, transformer
+from repro_torch.models import moe, registry
 from repro_torch.pytree import tree_leaves, tree_map
 from repro_torch.serving import requests as rq
 
@@ -80,11 +80,12 @@ class NullDecoder:
 
 def captures_decode(cfg, device) -> bool:
     """Whether a :class:`ModelDecoder` of ``cfg`` on ``device`` replays its
-    decode ticks from CUDA graphs: on a CUDA device, for a stack with no MoE
-    layer. A MoE layer's decode does host work on every call (its route
-    tally, its ``model.moe`` device span) that a replay would skip."""
-    return device.type == "cuda" and all(
-        d.ffn != "moe" for d in transformer.scan_unit(cfg))
+    decode ticks from CUDA graphs: on a CUDA device, whatever the stack. A
+    MoE layer's route tally survives the replay (:class:`CudaGraphs`: the
+    replay appends copies of the entries the captured call made), and its
+    ``model.moe`` device span stays out of the graph, so a replayed tick
+    has none."""
+    return device.type == "cuda"
 
 
 class CudaGraphs:
@@ -93,7 +94,9 @@ class CudaGraphs:
     on a device capture on one side stream: cuBLAS keeps a workspace for
     each stream it runs on until the process ends, so a stream per decoder
     would leave one behind per decoder, and with it the cached segment it
-    was cut from."""
+    was cut from. A captured call's MoE tally entries are the graph's
+    static tensors, which each replay copies into the open tallies
+    (:func:`repro_torch.models.moe.tallied`)."""
 
     _streams: Dict[torch.device, "torch.cuda.Stream"] = {}
 
@@ -111,7 +114,10 @@ class CudaGraphs:
         nothing. Returns the first run's result and a replay, which relaunches
         the captured work on the current stream and returns the graph's
         static outputs. The kernels' launch counters count the first run and
-        every replay, and not the capture."""
+        every replay, and not the capture. The MoE tallies count the first
+        run's calls as they are made and, for each replay, copies of the
+        entries the capture recorded, appended after it in layer order where
+        a tally is open; the capture's own entries count nowhere."""
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
         with torch.cuda.stream(self.stream):
@@ -120,13 +126,14 @@ class CudaGraphs:
         before = kernels.launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            static = fn()
+            static, retally = moe.tallied(fn)
         added = {k: n - before[k] for k, n in kernels.launch_counts().items() if n != before[k]}
         kernels.add_launch_counts({k: -n for k, n in added.items()})
 
         def replay():
             graph.replay()
             kernels.add_launch_counts(added)
+            retally()
             return static
 
         return out, replay
@@ -159,7 +166,7 @@ class ModelDecoder:
     computes them and discards the result; skipping them gives the same
     outputs).
 
-    Where :func:`captures_decode` holds (a CUDA device, no MoE layer), the
+    Where :func:`captures_decode` holds (a CUDA device), the
     model call of a tick is replayed from a CUDA graph, one for each set of
     active replicas, captured on the set's first tick after a run of the
     call that is that tick's (:class:`CudaGraphs`). The graph reads the
@@ -169,7 +176,11 @@ class ModelDecoder:
     so its addresses hold; a replay checks them first, and raises where a
     leaf was rebound. Rebinding ``params`` drops every graph. The recorder
     counts each tick under ``serve.decode.graph.captures``,
-    ``serve.decode.graph.replays`` or ``serve.decode.eager``.
+    ``serve.decode.graph.replays`` or ``serve.decode.eager``. A replay
+    appends to the open MoE tallies copies of the entries its capture
+    recorded, so ``moe.count_routes`` and ``moe.count_drops`` hold the same
+    entries, in the same order, for an eager or a replayed tick; a
+    replayed tick opens no ``model.moe`` span.
 
     Under tracing, each call is a ``serve.prefill`` or
     ``serve.decode`` span; both end by copying the next tokens to the host,

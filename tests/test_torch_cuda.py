@@ -31,8 +31,9 @@ padded cases (``kernels/flash_attention/cases.py``), each launched twice
 bit-identical, bf16 prefills on the tensor-core kernel, the decode on two
 streams and from a CUDA graph. Serving: ``ModelDecoder`` prefill and ticks
 against a CPU decoder (mamba2, gemma2, qwen3-moe smoke configs), the
-decode tick replayed from CUDA graphs bit for bit against the eager tick
-and without a synchronise, gemma2-9b's serving edges
+decode tick replayed from CUDA graphs bit for bit against the eager tick,
+with the same MoE tallies, and without a synchronise (mamba2, nemotron-h,
+qwen3-moe smoke configs), gemma2-9b's serving edges
 (``serving/edge_check.py``), nemotron-3-nano's smoke config against its
 plain reference. Training: train steps on the kernels against the plain
 versions (gemma2-9b, whisper-base) and a microbatched step against the
@@ -691,16 +692,22 @@ GRAPH_SCRIPT = ([("prefill", (0, 1))] + [("step", (1, 1))] * 12 + [("step", (1, 
                 + [("prefill", (1,))] + [("step", (0, 1))] * 8 + [("step", (1, 1))] * 8)
 
 
-def test_decode_replayed_from_graphs_equals_eager(device):
-    """mamba2-780m's smoke config: two decoders over one set of params, one
+@pytest.mark.parametrize("arch", ["mamba2-780m", "nemotron-3-nano-30b-a3b", "qwen3-moe-30b-a3b"])
+def test_decode_replayed_from_graphs_equals_eager(device, arch):
+    """The smoke config of ``arch`` (no MoE; the dropless MoE of nemotron-h;
+    qwen3-moe's capacity MoE): two decoders over one set of params, one
     with its capture seam removed, run ``GRAPH_SCRIPT`` call by call; after
     every call their logits (the prefill's last position, the tick's),
-    tokens, caches and ``pos`` are equal. The replaying decoder captures
-    each active set once and replays every later tick of it (its counters).
-    Then the captured call, once eagerly and once replayed, runs under
-    ``torch.cuda.set_sync_debug_mode("error")``: neither synchronises."""
+    tokens, caches and ``pos`` are equal, and so are the route and drop
+    tallies each call made (``moe.count_routes``, ``moe.count_drops``): a
+    replayed tick's are the copies its replay appends. The replaying decoder
+    captures each active set once and replays every later tick of it (its
+    counters). Then the captured call, once eagerly and once replayed, runs
+    under ``torch.cuda.set_sync_debug_mode("error")``: neither
+    synchronises."""
     from repro_torch import telemetry
     from repro_torch.configs import archs
+    from repro_torch.models import moe, transformer
     from repro_torch.pytree import tree_leaves
     from repro_torch.serving import ModelDecoder
 
@@ -711,7 +718,13 @@ def test_decode_replayed_from_graphs_equals_eager(device):
             self.seen.append(logits.clone())
             return super()._tokens(logits, k)
 
-    cfg = archs.smoke_cfg(archs.get("mamba2-780m"))
+    def tallied(call):
+        with moe.count_routes() as routes, moe.count_drops() as drops:
+            out = call()
+        return out, {"routes": routes, "drops": drops}
+
+    cfg = archs.smoke_cfg(archs.get(arch))
+    n_moe = sum(d.ffn == "moe" for d in transformer.scan_unit(cfg)) * transformer.n_units(cfg)
     batch, prompt = 4, 100
     max_len = ModelDecoder._bucket(prompt) + len(GRAPH_SCRIPT) + 1
     rng = np.random.default_rng(0)
@@ -727,15 +740,25 @@ def test_decode_replayed_from_graphs_equals_eager(device):
         for i, (call, arg) in enumerate(GRAPH_SCRIPT):
             if call == "prefill":
                 w = {r: waves[r if i == 0 else 2] for r in arg}
-                outs = [d.prefill_waves(w) for d in (eager, graph)]
+                outs = [tallied(lambda: d.prefill_waves(w)) for d in (eager, graph)]
             else:
-                outs = [d.step(np.array(arg, bool)).tolist() for d in (eager, graph)]
+                outs = [tallied(lambda: d.step(np.array(arg, bool)).tolist())
+                        for d in (eager, graph)]
             what = f"call {i} ({call} {arg})"
-            assert outs[0] == outs[1], what
+            assert outs[0][0] == outs[1][0], what
             assert torch.equal(eager.seen[-1], graph.seen[-1]), what
             assert torch.equal(eager._cache["pos"], graph._cache["pos"]), what
             assert all(torch.equal(a, b) for a, b in zip(
                 tree_leaves(eager._cache["units"]), tree_leaves(graph._cache["units"]))), what
+            (_, want), (_, got) = outs
+            kind = "prefill" if call == "prefill" else "decode"
+            assert sum(len(t.get(kind, [])) for t in want.values()) == n_moe, what
+            for name in want:
+                assert sorted(got[name]) == sorted(want[name]), f"{what}: {name}"
+                for k, calls in want[name].items():
+                    assert len(got[name][k]) == len(calls), f"{what}: {name} {k}"
+                    assert all(torch.equal(a, b) for a, b in zip(got[name][k], calls)), \
+                        f"{what}: {name} {k}"
         counts = {k.rsplit(".", 1)[-1]: rec.get_counter(k) for k in (
             "serve.decode.graph.captures", "serve.decode.graph.replays", "serve.decode.eager")}
     ticks = sum(call == "step" for call, _ in GRAPH_SCRIPT)
@@ -747,8 +770,9 @@ def test_decode_replayed_from_graphs_equals_eager(device):
     torch.cuda.synchronize(device)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        eager.bundle.decode_fn(eager.params, lanes, {"token": tok})
-        replay()
+        with moe.count_routes(), moe.count_drops():
+            eager.bundle.decode_fn(eager.params, lanes, {"token": tok})
+            replay()
     finally:
         torch.cuda.set_sync_debug_mode(0)
 
